@@ -1,0 +1,116 @@
+"""Model and LoRA configuration (the part the port needs).
+
+Port of ``LoRAConfig`` and ``ModelConfig`` from ``repro/config.py``, kept as
+a copy (the port imports nothing of the JAX package).  ``chip_smoke.py``
+reads the LoRA geometry of ``configs/paper_vit_b32.py`` from them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    rank: int = 8
+    alpha: float = 16.0
+    # Which projections carry adapters.  The paper fine-tunes Q and V only.
+    targets: Tuple[str, ...] = ("q", "v")
+    dtype: str = "float32"
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One architecture.  ``layer_pattern`` lists the mixer of each layer in a
+    repeating unit; layers = pattern * (n_layers // len(pattern)) + leftover.
+
+    Mixer kinds: "attn" (full causal), "local_attn" (sliding window),
+    "ssd" (Mamba-2), "rglru" (Griffin recurrent block).
+    """
+
+    name: str
+    arch_type: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    layer_pattern: Tuple[str, ...] = ("attn",)
+    # --- attention ---
+    window_size: int = 4096  # for local_attn mixers
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    rope_pct: float = 1.0  # stablelm partial rotary
+    mrope: bool = False  # qwen2-vl multimodal 3-axis RoPE
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)  # per-axis rotary dims (halves)
+    logit_softcap: float = 0.0  # gemma-style final logit soft-capping (0 = off)
+    # --- ffn ---
+    ffn_kind: str = "swiglu"  # swiglu | geglu | gelu (0 d_ff -> no ffn)
+    # --- moe ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01  # load-balance loss weight
+    # --- ssm (mamba2) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    conv_width: int = 4
+    # --- rglru (griffin) ---
+    lru_width: int = 0  # 0 -> d_model
+    # --- encoder-decoder (whisper) ---
+    encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500  # whisper-medium: 30s audio -> 1500 frames
+    # --- modality frontend stub ---
+    frontend: Optional[str] = None  # None | "audio" | "vision"
+    n_vision_tokens: int = 0  # vlm: leading patch-embedding positions
+    # --- norm / embedding ---
+    norm_kind: str = "rmsnorm"  # rmsnorm | layernorm
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d_model)
+    # --- lora ---
+    lora: LoRAConfig = field(default_factory=LoRAConfig)
+    # --- serving ---
+    kv_quant: bool = False  # int8 KV cache (decode memory-term optimization)
+    # --- numerics ---
+    dtype: str = "bfloat16"  # activation/weight dtype on the mesh
+    # provenance
+    source: str = ""  # citation for the config
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim_
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim_
+
+    @property
+    def n_pattern_groups(self) -> int:
+        return self.n_layers // len(self.layer_pattern)
+
+    @property
+    def n_tail_layers(self) -> int:
+        return self.n_layers - self.n_pattern_groups * len(self.layer_pattern)
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if no mixer needs a full-length KV cache (long_500k eligible)."""
+        return all(k in ("ssd", "rglru", "local_attn") for k in self.layer_pattern)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,152 @@
+"""Fused subspace-SVT sweep tail: the CUDA kernel and its wrapper.
+
+Replaces the Pallas TPU kernel
+``src/repro/kernels/svt_subspace.py::subspace_apply``.  In subspace SVT
+mode one ADMM iteration is the small-matrix algebra that yields the
+(B, d2, d2) shrink projector P (power sweeps, CholeskyQR, Rayleigh-Ritz —
+left to ``torch.linalg`` / ``torch.matmul``) followed by this tail over the
+tall (B, vec, d2) bucket:
+
+    X     = M - S + rho * Y
+    L     = X @ P
+    S'    = shrink(M - L + rho * Y, rho * lam) * mask
+    resid = (M - L - S') * mask
+    Y'    = (Y + mu * resid) * mask
+    err   = sum(resid^2)                  (per module)
+    G'    = X'^T X',  X' = M - S' + rho * Y'
+
+The kernel (``csrc/subspace_apply.cu``) is bound by device-memory bytes —
+six bucket tensors plus P and G' — and keeps X and X' in shared memory; the
+Gram and residual partials of its row groups are summed in group order by a
+second pass (no float atomics; see the source note).  Both products are
+full fp32 FMA, never TF32.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import backend, ref
+
+_C = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: Shared-memory budget of one block, in floats (192 KiB of the 227 KiB a
+#: Hopper block may use).
+SMEM_FLOATS = 48 * 1024
+#: Rows of X a block stages per tile, at most.
+MAX_TILE_ROWS = 32
+#: Widest column tile of P staged at once; wider cohorts read P in tiles.
+MAX_PCOLS = 128
+#: Blocks the launch aims for (four per SM of an H100's 132).
+TARGET_BLOCKS = 4 * 132
+#: Scratch budget of the Gram partials, in floats (256 MiB).
+SCRATCH_FLOATS = 1 << 26
+
+
+def _lib():
+    lib = backend.load_library("subspace_apply")
+    lib.repro_subspace_apply.argtypes = [_C] * 15 + [_I] * 7 + [_C]
+    lib.repro_subspace_apply.restype = _I
+    return lib
+
+
+def tiling(n_modules: int, vec: int, d2: int) -> dict:
+    """Launch geometry for a (n_modules, vec, d2) bucket: rows per tile,
+    P columns per tile, rows per group and the number of row groups (one
+    block per group and module).  Raises when d2 is too wide for the
+    shared-memory budget."""
+    pcols = min(d2, MAX_PCOLS)
+    while pcols > 8 and d2 * pcols + 3 * d2 > SMEM_FLOATS:
+        pcols //= 2
+    tile_rows = min(MAX_TILE_ROWS, (SMEM_FLOATS - d2 * pcols - d2) // (2 * d2))
+    if tile_rows < 1:
+        raise ValueError(f"subspace_apply: cohort width d2={d2} is too wide for the kernel")
+    n_tiles = -(-vec // tile_rows)
+    # Gram partials are n_modules * n_groups * d2^2 floats: keep them <= 256 MiB.
+    cap = max(1, SCRATCH_FLOATS // max(1, n_modules * d2 * d2))
+    n_groups = max(1, min(n_tiles, cap, -(-TARGET_BLOCKS // max(n_modules, 1))))
+    group_rows = -(-n_tiles // n_groups) * tile_rows
+    n_groups = -(-vec // group_rows)
+    return dict(tile_rows=tile_rows, pcols=pcols, group_rows=group_rows, n_groups=n_groups)
+
+
+def _check(m, s, y, p, rho, mu, thresh, mask):
+    if m.ndim != 3:
+        raise ValueError(f"expected (B, vec, clients) input, got {tuple(m.shape)}")
+    if m.shape != s.shape or m.shape != y.shape:
+        raise ValueError(f"shape mismatch: {tuple(m.shape)} {tuple(s.shape)} {tuple(y.shape)}")
+    b, _, d2 = m.shape
+    if p.shape != (b, d2, d2):
+        raise ValueError(f"projector shape {tuple(p.shape)} != {(b, d2, d2)}")
+    for name, v in (("rho", rho), ("mu", mu), ("thresh", thresh)):
+        if v.shape != (b,):
+            raise ValueError(f"{name} must have shape {(b,)}, got {tuple(v.shape)}")
+    if mask is not None and mask.shape != (d2,):
+        raise ValueError(f"mask must have shape {(d2,)}, got {tuple(mask.shape)}")
+
+
+def subspace_apply(
+    m: torch.Tensor,
+    s: torch.Tensor,
+    y: torch.Tensor,
+    p: torch.Tensor,
+    rho: torch.Tensor,
+    mu: torch.Tensor,
+    thresh: torch.Tensor,
+    *,
+    mask: Optional[torch.Tensor] = None,
+):
+    """Fused subspace-SVT ADMM iteration tail over a (B, vec, d2) bucket.
+
+    ``p`` is the (B, d2, d2) shrink projector; ``rho``, ``mu``, ``thresh``
+    are per-module (B,) scalars; ``mask`` an optional (d2,) validity mask
+    (masked columns of S'/Y' exactly zero and out of the residual sums,
+    ``None`` the same bits as all-ones).  L is not masked.  Returns
+    (L, S', Y', resid_sumsq, G') with resid_sumsq (B,) and G' (B, d2, d2)
+    float32.
+
+    CPU tensors compute ``ref.svt_subspace_apply_ref``.  CUDA tensors must
+    be contiguous float32 on one device, and launch the kernel.
+    """
+    _check(m, s, y, p, rho, mu, thresh, mask)
+    if not backend.use_kernel(m):
+        return ref.svt_subspace_apply_ref(m, s, y, p, rho, mu, thresh, mask)
+    b, vec, d2 = m.shape
+    ins = [m, s, y, p, rho, mu, thresh] + ([] if mask is None else [mask])
+    for t in ins:
+        if t.device != m.device:
+            raise ValueError(f"subspace_apply: tensors on {t.device} and {m.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"subspace_apply takes float32 on CUDA, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("subspace_apply takes contiguous tensors on CUDA")
+    l_out = torch.empty_like(m)
+    s_out = torch.empty_like(m)
+    y_out = torch.empty_like(m)
+    rsq = torch.empty((b,), dtype=torch.float32, device=m.device)
+    g_out = torch.empty((b, d2, d2), dtype=torch.float32, device=m.device)
+    if m.numel() == 0:
+        return l_out, s_out, y_out, rsq.zero_(), g_out.zero_()
+    geo = tiling(b, vec, d2)
+    mvec = torch.ones((d2,), dtype=torch.float32, device=m.device) if mask is None else mask
+    r_part = torch.empty((b, geo["n_groups"]), dtype=torch.float32, device=m.device)
+    g_part = torch.empty((b, geo["n_groups"], d2, d2), dtype=torch.float32, device=m.device)
+    lib = _lib()
+    with torch.cuda.device(m.device):
+        err = lib.repro_subspace_apply(
+            m.data_ptr(), s.data_ptr(), y.data_ptr(), p.data_ptr(), rho.data_ptr(),
+            mu.data_ptr(), thresh.data_ptr(), mvec.data_ptr(), l_out.data_ptr(),
+            s_out.data_ptr(), y_out.data_ptr(), r_part.data_ptr(), g_part.data_ptr(),
+            rsq.data_ptr(), g_out.data_ptr(), b, vec, d2, geo["tile_rows"],
+            geo["pcols"], geo["group_rows"], geo["n_groups"], backend.stream_ptr(m),
+        )
+    backend.check_launch(err, "subspace_apply")
+    subspace_apply.launches += 1
+    return l_out, s_out, y_out, rsq, g_out
+
+
+#: Kernel launches since the count was last set to 0 (plain version excluded).
+subspace_apply.launches = 0

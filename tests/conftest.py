@@ -93,3 +93,9 @@ except ImportError:  # pragma: no cover - exercised only without hypothesis
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    # Tests of the CUDA kernels themselves: they skip (inside the test)
+    # when no card is present.
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
