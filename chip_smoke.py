@@ -8,14 +8,18 @@ Phases (any failed check raises and the script exits non-zero):
   1. Card: name and power limit (nvidia-smi), TF32 switched off.
   2. Build: the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source.
   3. Kernel checks: ``admm_tail`` and ``subspace_apply`` against their plain
-     PyTorch versions on the card at the main path's bucket shape (the
-     ViT-B/32 LoRA bucket: 48 modules x 4096 rows, 3072 of them live), a
-     masked cohort and ragged shapes; two launches give the same bits, and
+     PyTorch versions on the card at every bucket shape the main paths
+     launch them at (path B's ViT-B/32 LoRA bucket: 48 modules x 4096 rows,
+     3072 of them live, 40 dense clients and 20 of 32; path A's 2 x 4096 x
+     20 bucket) and at ragged shapes; two launches give the same bits, and
      ``mask=None`` the bits of an all-ones mask.  Times by CUDA events.
   4. Main path A: ``run_simulation`` on a planted task at the width of one
      ViT-B/32 attention projection (768 x 768, LoRA rank 4), 20 clients,
      10 rounds of fedavg / fedrpca gram / fedrpca subspace; then 3 rounds of
      fedrpca on the card and on the CPU from the same weights and batches.
+     Before it, a regime probe: zero-shot accuracy, saturated-feature share
+     and 10-round fedavg accuracy at the backbone qualities 0.4 (the
+     reference benchmarks'), 0.1 and 0.0 (path A's).
   5. Main path B: ``aggregate(engine="packed")`` of a planted delta tree of
      ``configs/paper_vit_b32.py``'s LoRA (q and v, 12 layers) at 40 dense
      clients and 20 clients padded to 32, both SVT modes, against the same
@@ -135,6 +139,7 @@ def check_kernels(device, bw, flops) -> dict:
         # (B, vec, live rows, d2, n_valid, label)
         (48, 4096, 3072, 40, None, "main"),
         (48, 4096, 3072, 32, 20, "masked"),
+        (2, 4096, 3072, 20, None, "path A"),
         (5, 1000, 1000, 1, None, "ragged"),
         (5, 1000, 999, 3, None, "ragged"),
         (3, 1000, 777, 128, 100, "ragged"),
@@ -197,20 +202,40 @@ def check_kernels(device, bw, flops) -> dict:
     return rec
 
 
-def make_task(device):
+def make_task(device, pretrain_quality=0.0):
     from repro_torch.fed import synth
 
     # The paper regime of benchmarks/common.py::make_task (alpha 0.3, noise
     # 0.3, domain shift 4.0) at the width of one ViT-B/32 attention
-    # projection, with one change: the "pretrained" backbone there is a
-    # pseudo-inverse of the square Gaussian generator, which at 768 x 768 is
-    # so ill-conditioned that it saturates every feature and nothing can
-    # learn; pretrain_quality=0 makes the backbone random instead.
+    # projection, with one change: the "pretrained" backbone there (quality
+    # 0.4) mixes in a pseudo-inverse of the square Gaussian generator, which
+    # at 768 x 768 is so ill-conditioned that it saturates the tanh features
+    # and no method learns (``regime_probe`` prints the evidence every run);
+    # path A uses a random backbone, quality 0.
     return synth.make_synth_task(
         n_clients=20, n_classes=20, d_in=768, d_feat=768, n_per_client=64, n_test=1024,
-        alpha=0.3, lora_rank=4, lora_alpha=8.0, pretrain_quality=0.0, noise=0.3,
+        alpha=0.3, lora_rank=4, lora_alpha=8.0, pretrain_quality=pretrain_quality, noise=0.3,
         domain_shift_scale=4.0, seed=1, device=device,
     )
+
+
+def regime_probe() -> None:
+    """Zero-shot accuracy, the share of saturated test features
+    (|tanh| > 0.99) and 10-round fedavg accuracy at three backbone
+    qualities; fedavg launches no kernel."""
+    from repro_torch.fed import synth
+
+    for quality in (0.4, 0.1, 0.0):
+        task = make_task("cuda", quality)
+        lora0 = synth.init_lora(task, seed=0)
+        zero_shot = float(synth.accuracy(task.base, lora0, task.test_x, task.test_y,
+                                         task.lora_scale))
+        feats = synth.features(task.base, lora0, task.test_x, task.lora_scale)
+        saturated = float((feats.abs() > 0.99).float().mean())
+        _, hist = run_fed(task, "fedavg", "gram", 10, "cuda")
+        print(f"[regime] pretrain_quality={quality}: zero-shot {zero_shot:.4f}, saturated "
+              f"features {saturated:.4f}, fedavg acc {[round(float(a), 4) for a in hist]}",
+              flush=True)
 
 
 def run_fed(task, method, svt_mode, rounds, device, log=None):
@@ -340,7 +365,8 @@ def main_path_b(counts) -> None:
             torch.cuda.synchronize()
             t_call = time.perf_counter() - t0
             t0 = time.perf_counter()
-            cpu = aggregate(from_jax_tree(tree, "cpu"), cfg, engine="packed", mask=mask)
+            cpu = aggregate(from_jax_tree(tree, "cpu"), cfg, engine="packed", mask=mask,
+                            device="cpu")
             t_cpu = time.perf_counter() - t0
             err = 0.0
             for g, c in zip(tree_leaves(out), tree_leaves(cpu)):
@@ -388,6 +414,8 @@ def main() -> int:
 
     # Phase 3: kernels against their plain versions.
     rec = check_kernels("cuda", bw, flops)
+
+    regime_probe()
 
     wrappers = {"admm_tail": rpca_admm.admm_tail, "subspace_apply": svt_subspace.subspace_apply}
     counts = lambda: {k: w.launches for k, w in wrappers.items()}

@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.core import rpca as rpca_lib
 from repro_torch.core import stacking
-from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.kernels import backend
+from repro_torch.utils.pytree import tree_leaves, tree_map, tree_to, tree_unflatten
 
 Tree = Any
 
@@ -45,10 +46,9 @@ class AggregatorConfig:
     """Configuration shared by all aggregation strategies (field for field
     the reference's, with the same defaults).
 
-    ``rpca_fused_tail`` is kept so configs compare field for field.  In the
-    port the device decides: a CUDA bucket always runs the fused CUDA tail
-    kernels; on the CPU the flag selects the kernels' plain versions over
-    the inline tail, which compute the same function.
+    ``rpca_fused_tail`` is kept so configs compare field for field, and is
+    inert: the device decides.  A CUDA bucket of the packed engine always
+    runs the fused CUDA tail kernels, a CPU bucket the plain tail.
     """
 
     method: str = "fedrpca"  # fedavg | task_arithmetic | fedrpca
@@ -60,7 +60,7 @@ class AggregatorConfig:
     rpca_iters: int = 50  # ADMM iteration count / cap
     rpca_tol: float = 1e-7  # stopping tolerance when rpca_fixed_iters=False
     rpca_fixed_iters: bool = True  # False: tolerance-based early stopping
-    rpca_fused_tail: bool = False  # CPU buckets: plain kernel twins (see above)
+    rpca_fused_tail: bool = False  # inert: the device picks the tail (see above)
     mesh_overlap: bool = False  # sharded aggregation (not ported yet)
     svt_mode: str = "gram"  # gram (per-iteration eigh) | subspace (warm-started)
     svt_rank: int = 8  # subspace mode: carried basis width cap
@@ -392,9 +392,13 @@ def aggregate(
     weights=None,
     with_diagnostics: bool = False,
     mesh=None,
+    device="cuda",
 ):
-    """Aggregate stacked client deltas per ``cfg.method``.
+    """Aggregate stacked client deltas per ``cfg.method`` on ``device``.
 
+    ``stacked``, ``mask`` and ``weights`` move to ``device`` (default
+    ``"cuda"``; without CUDA this raises unless the caller passes
+    ``device="cpu"``), and the update comes back there.
     ``engine="packed"`` runs one batched call per shape bucket (CUDA tail
     kernels on the card); ``engine="reference"`` the per-leaf plain path.
     ``mask`` is a per-client validity vector (padded cohort slots 0);
@@ -419,6 +423,10 @@ def aggregate(
         raise NotImplementedError(
             "mesh-sharded aggregation is not ported yet (ROADMAP.md queue 1, item 9)"
         )
+    dev = backend.resolve_device(device)
+    stacked = tree_to(stacked, dev)
+    mask = None if mask is None else torch.as_tensor(mask, device=dev)
+    weights = None if weights is None else torch.as_tensor(weights, device=dev)
     if engine == "packed":
         from repro_torch.core import engine as engine_lib
 

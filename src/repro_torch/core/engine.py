@@ -322,7 +322,6 @@ def _fedrpca_bucket(
         n_iter=cfg.rpca_iters,
         tol=None if cfg.rpca_fixed_iters else cfg.rpca_tol,
         shrink_fn=shrink_fn,
-        fused_tail=cfg.rpca_fused_tail,
         client_mask=bucket.client_mask,
         svt_mode=cfg.svt_mode,
         svt_rank=cfg.svt_rank if svt_rank is None else svt_rank,

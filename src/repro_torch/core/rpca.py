@@ -17,8 +17,7 @@ subspace mode, warm-started subspace iteration with an exact-eigh fallback.
 on a CUDA bucket its elementwise tail always runs the hand-written kernels
 (``kernels/rpca_admm.py::admm_tail`` in gram mode,
 ``kernels/svt_subspace.py::subspace_apply`` in subspace mode), on a CPU
-bucket their plain versions when ``fused_tail`` is set and the inline
-tensor tail otherwise.  The eigh, Cholesky, triangular solve and the SVT's
+bucket the inline tensor tail.  The eigh, Cholesky, triangular solve and the SVT's
 small products stay ``torch.linalg`` / ``torch.matmul``.
 
 The JAX loops are ``fori_loop`` / ``while_loop`` / ``lax.cond``; here they are
@@ -506,12 +505,12 @@ def robust_pca_bucket(
     converged modules by select (``n_iter`` of the result counts each
     module's iterations).
 
-    The elementwise tail of a CUDA bucket always runs the hand-written
-    kernels (``admm_tail`` in gram mode, ``subspace_apply`` in subspace
-    mode) — the device chooses, whatever ``fused_tail`` says.  On a CPU
-    bucket ``fused_tail=True`` runs the kernels' plain versions, and
-    ``False`` the inline tensor tail.  The kernels hardcode soft-threshold
-    shrinkage, so a custom ``shrink_fn`` on that path raises.
+    The device alone chooses the elementwise tail: a CUDA bucket always
+    runs the hand-written kernels (``admm_tail`` in gram mode,
+    ``subspace_apply`` in subspace mode), a CPU bucket the inline tensor
+    tail.  ``fused_tail`` is inert; it is kept so calls read like the
+    reference's.  The kernels hardcode soft-threshold shrinkage, so a
+    custom ``shrink_fn`` on a CUDA bucket raises.
 
     ``svt_mode="subspace"`` runs the warm-started subspace SVT; ``true_cols``
     caps its width by the live cohort count when the bucket is padded.
@@ -523,7 +522,7 @@ def robust_pca_bucket(
     _refuse_carry(carry, return_carry)
     return _bucket_admm(
         m, true_dims, n_iter=n_iter, tol=tol, mu=mu, lam=lam, shrink_fn=shrink_fn,
-        use_kernel=fused_tail or m.is_cuda, client_mask=client_mask, svt_mode=svt_mode,
+        use_kernel=m.is_cuda, client_mask=client_mask, svt_mode=svt_mode,
         svt_rank=svt_rank, svt_sweeps=svt_sweeps, svt_fallback_tol=svt_fallback_tol,
         true_cols=true_cols,
     )
@@ -570,7 +569,7 @@ def _bucket_admm(
         if shrink_fn is not soft_threshold:
             raise ValueError(
                 "the fused tail kernels hardcode soft-threshold shrinkage; a "
-                "custom shrink_fn needs a CPU bucket with fused_tail=False"
+                "custom shrink_fn needs a CPU bucket"
             )
         from repro_torch.kernels import rpca_admm, svt_subspace
 

@@ -173,10 +173,11 @@ def make_round_fn(
         if agg_cfg.method == "fedrpca":
             update, ediag = aggregate(
                 deltas, agg_cfg, engine=cfg.engine, weights=w_all, with_diagnostics=True,
+                device=dev,
             )
             rpca_diags = rpca_diag_summary(ediag)
         else:
-            update = aggregate(deltas, agg_cfg, engine=cfg.engine, weights=w_all)
+            update = aggregate(deltas, agg_cfg, engine=cfg.engine, weights=w_all, device=dev)
             rpca_diags = {}
         lora_global = tree_map(lambda g, u: g + u, state.lora_global, update)
         finite = torch.stack([torch.isfinite(u).all() for u in tree_leaves(update)]).all()

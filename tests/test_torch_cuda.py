@@ -109,3 +109,29 @@ def test_bucket_rpca_card_matches_cpu(cuda, svt_mode):
     for g, c in ((gpu.low_rank, cpu.low_rank), (gpu.sparse, cpu.sparse)):
         torch.testing.assert_close(g.cpu(), c, atol=1e-4 * scale, rtol=0)
     assert gpu.n_fallback == cpu.n_fallback
+
+
+@pytest.mark.gpu
+def test_custom_shrink_refused_on_a_cuda_bucket(cuda):
+    """The kernels hardcode soft thresholding: a CUDA bucket with another
+    shrink raises rather than running a different tail."""
+    m = torch.randn((2, 16, 4), generator=torch.Generator().manual_seed(3)).to(cuda)
+    with pytest.raises(ValueError, match="soft-threshold"):
+        rpca.robust_pca_bucket(m, shrink_fn=lambda x, t: torch.where(torch.abs(x) > t, x, 0.0))
+
+
+@pytest.mark.gpu
+def test_aggregate_runs_on_the_card_by_default(cuda):
+    """``aggregate`` moves a CPU tree to the card unless asked otherwise,
+    and the packed engine's tail launches the kernel there."""
+    from repro_torch.core import AggregatorConfig, aggregate
+
+    gen = torch.Generator().manual_seed(4)
+    tree = {"A": torch.randn((6, 2, 8, 3), generator=gen), "B": torch.randn((6, 2, 3, 8), generator=gen)}
+    before = rpca_admm.admm_tail.launches
+    out = aggregate(tree, AggregatorConfig(method="fedrpca", rpca_iters=5))
+    assert all(v.device.type == "cuda" for v in out.values())
+    assert rpca_admm.admm_tail.launches - before == 5
+    cpu = aggregate(tree, AggregatorConfig(method="fedrpca", rpca_iters=5), device="cpu")
+    for k in out:
+        torch.testing.assert_close(out[k].cpu(), cpu[k], atol=1e-4 * float(tree[k].abs().max()), rtol=0)

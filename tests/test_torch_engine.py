@@ -136,7 +136,7 @@ def test_aggregate_matches_jax(method, extra, variant, engine):
     got = aggregate(
         from_jax_tree(tree), AggregatorConfig(**kw), engine=engine,
         mask=None if mask is None else torch.from_numpy(mask),
-        weights=None if weights is None else torch.from_numpy(weights),
+        weights=None if weights is None else torch.from_numpy(weights), device="cpu",
     )
     scale = max(np.abs(x).max() for x in jax.tree_util.tree_leaves(tree))
     assert_tree_close(got, want, scale)
@@ -150,7 +150,7 @@ def test_packed_equals_reference_in_port(svt_mode, variant):
     kw = dict(
         mask=None if mask is None else torch.from_numpy(mask),
         weights=None if weights is None else torch.from_numpy(weights),
-        with_diagnostics=True,
+        with_diagnostics=True, device="cpu",
     )
     p, pd = aggregate(from_jax_tree(tree), cfg, engine="packed", **kw)
     r, rd = aggregate(from_jax_tree(tree), cfg, engine="reference", **kw)
@@ -170,7 +170,7 @@ def test_guard_weights_match_jax():
     want, wd = jaggregate(jax.tree_util.tree_map(jnp.asarray, tree), JConfig(**kw),
                           mask=jnp.asarray(mask), with_diagnostics=True)
     got, gd = aggregate(from_jax_tree(tree), AggregatorConfig(**kw),
-                        mask=torch.from_numpy(mask), with_diagnostics=True)
+                        mask=torch.from_numpy(mask), with_diagnostics=True, device="cpu")
     scale = max(np.abs(x).max() for x in jax.tree_util.tree_leaves(tree))
     assert_tree_close(got, want, scale)
     np.testing.assert_array_equal(
@@ -184,6 +184,16 @@ def test_unported_raise(what):
     tree = from_jax_tree(planted_tree(4, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "mesh":
-            aggregate(tree, AggregatorConfig(method="fedavg"), mesh=object())
+            aggregate(tree, AggregatorConfig(method="fedavg"), mesh=object(), device="cpu")
         else:
-            aggregate(tree, AggregatorConfig(method=what), key=0)
+            aggregate(tree, AggregatorConfig(method=what), key=0, device="cpu")
+
+
+@pytest.mark.parametrize("engine", ["packed", "reference"])
+def test_aggregate_needs_an_explicit_cpu(monkeypatch, engine):
+    """Without CUDA the default device raises instead of aggregating on
+    the CPU, even for a tree that already lies there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = from_jax_tree(planted_tree(4, 3), "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        aggregate(tree, AggregatorConfig(method="fedrpca", rpca_iters=2), engine=engine)

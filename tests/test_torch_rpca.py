@@ -75,23 +75,25 @@ def test_robust_pca_bucket_matches_jax(svt_mode, masked, tol):
 
 
 @pytest.mark.parametrize("svt_mode", ["gram", "subspace"])
-def test_fused_tail_plain_path_matches_inline_tail(svt_mode):
-    """On the CPU, ``fused_tail=True`` runs the kernels' plain versions:
-    the same function as the inline tail."""
-    m = torch.from_numpy(planted(1, 2, 40, 8))
-    mask = torch.tensor([1.0] * 6 + [0.0] * 2)
-    a = rpca.robust_pca_bucket(m, client_mask=mask, n_iter=15, svt_mode=svt_mode)
-    b = rpca.robust_pca_bucket(m, client_mask=mask, n_iter=15, svt_mode=svt_mode, fused_tail=True)
-    scale = float(m.abs().max())
-    close(a.low_rank.numpy(), b.low_rank.numpy(), scale, 1e-5)
-    close(a.sparse.numpy(), b.sparse.numpy(), scale, 1e-5)
-    assert a.n_fallback == b.n_fallback
-
-
-def test_fused_tail_refuses_custom_shrink():
-    m = torch.from_numpy(planted(2, 1, 16, 4))
-    with pytest.raises(ValueError, match="soft-threshold"):
-        rpca.robust_pca_bucket(m, fused_tail=True, shrink_fn=lambda x, t: x)
+def test_custom_shrink_on_a_cpu_bucket_matches_jax(svt_mode):
+    """A CPU bucket runs the plain tail, which honours a custom shrink_fn
+    (hard thresholding here) as the reference's unfused path does; only a
+    CUDA bucket refuses one (``test_torch_cuda.py``)."""
+    m = planted(1, 2, 40, 8)
+    mask = (np.arange(8) < 6).astype(np.float32)
+    kw = dict(n_iter=15, svt_mode=svt_mode, true_cols=6)
+    want = jrpca.robust_pca_bucket(
+        jnp.asarray(m), client_mask=jnp.asarray(mask),
+        shrink_fn=lambda x, t: jnp.where(jnp.abs(x) > t, x, 0.0), **kw,
+    )
+    got = rpca.robust_pca_bucket(
+        torch.from_numpy(m), client_mask=torch.from_numpy(mask),
+        shrink_fn=lambda x, t: torch.where(torch.abs(x) > t, x, 0.0), **kw,
+    )
+    scale = float(np.abs(m).max())
+    close(got.low_rank.numpy(), want.low_rank, scale)
+    close(got.sparse.numpy(), want.sparse, scale)
+    assert np.all(got.sparse.numpy()[..., 6:] == 0)
 
 
 @pytest.mark.parametrize("what", ["carry", "return_carry"])
