@@ -7,12 +7,19 @@ Phases (any failed check raises and the script exits non-zero):
 
   1. Card: name and power limit (nvidia-smi), TF32 switched off.
   2. Build: the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source.
-  3. Kernel checks: ``admm_tail`` and ``subspace_apply`` against their plain
-     PyTorch versions on the card at every bucket shape the main paths
-     launch them at (path B's ViT-B/32 LoRA bucket: 48 modules x 4096 rows,
-     3072 of them live, 40 dense clients and 20 of 32; path A's 2 x 4096 x
-     20 bucket) and at ragged shapes; two launches give the same bits, and
-     ``mask=None`` the bits of an all-ones mask.  Times by CUDA events.
+  3. Kernel checks, each kernel against its plain PyTorch version on the
+     card, two launches bit for bit, times by CUDA events:
+     ``admm_tail`` and ``subspace_apply`` at every bucket shape paths A and
+     B launch them at (path B's ViT-B/32 LoRA bucket: 48 modules x 4096
+     rows, 3072 of them live, 40 dense clients and 20 of 32; path A's
+     2 x 4096 x 20 bucket) and at ragged shapes, ``mask=None`` the bits of
+     an all-ones mask; ``lora_matmul`` and ``gathered_lora_matmul`` at
+     (M, K, N, R) = (4096, 2048, 2048, 8) (prefill q and v), (8, ...)
+     (decode) and (129, 513, 130, 8), float32 and bf16, on a layer's slice
+     of an 8-slot pool with 4 tenants, slot -1 the bits of a zero adapter,
+     one slot on every row equal to ``lora_matmul``; ``local_attention`` at
+     (BH, S, D) = (256, 512, 64), S = 300 and window 128, float32 and bf16,
+     beside ``F.scaled_dot_product_attention`` (timed only).
   4. Main path A: ``run_simulation`` on a planted task at the width of one
      ViT-B/32 attention projection (768 x 768, LoRA rank 4), 20 clients,
      10 rounds of fedavg / fedrpca gram / fedrpca subspace; then 3 rounds of
@@ -24,11 +31,22 @@ Phases (any failed check raises and the script exits non-zero):
      ``configs/paper_vit_b32.py``'s LoRA (q and v, 12 layers) at 40 dense
      clients and 20 clients padded to 32, both SVT modes, against the same
      call on the CPU.
-  6. The ``kernels`` JSON line, then the result line.
+  6. Main path C: multi-tenant serving of ``configs/stablelm_1_6b.py`` at
+     full width (24 layers, bf16, random weights from a seed): 8 requests of
+     4 tenants, prompt 512, 32 greedy tokens, through ``RequestScheduler``,
+     ``serve_batch`` and an 8-slot ``AdapterPool``; the same prompts through
+     the merged adapter; one tenant on every row against its 2-D adapter;
+     a FedRPCA aggregate of 4 client deltas hot-swapped into tenant 0 with
+     ``publish_round`` and decoded again (only tenant 0 moves, the pool keeps
+     its storage); and the serving run at depth 2 in float32 on the card and
+     on the CPU.  Prefill seconds, decode tokens/s and peak memory beside the
+     card's name and power limit.
+  7. The ``kernels`` JSON line, the wall time, then the result line.
 
 Kernel launch counts are set to 0 just before phase 4 and read just after
-phase 5; every kernel must have launched, exactly as often as the rounds,
-ADMM iterations and buckets of those runs say.
+phase 5, and set to 0 again just before phase 6 and read just after it;
+every kernel must have launched, and each phase exactly as often as its
+rounds, ADMM iterations, buckets, layers and decode steps say.
 """
 from __future__ import annotations
 
@@ -39,6 +57,7 @@ import sys
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -63,6 +82,15 @@ def card_peaks(name: str) -> tuple[float, float]:
     if "H100" in name and "NVL" in name:
         return 3.9e12, 60e12
     return 3.35e12, 67e12  # H100 SXM
+
+
+def bf16_peak(name: str) -> float:
+    """Dense bf16 tensor-core FLOP/s of the card, from NVIDIA's data sheets."""
+    if "H100" in name and "PCIe" in name:
+        return 756e12
+    if "H100" in name and "NVL" in name:
+        return 835e12
+    return 989e12  # H100 / H200 SXM
 
 
 def bench_ms(fn, reps: int = 20, batches: int = 5) -> float:
@@ -201,6 +229,184 @@ def check_kernels(device, bw, flops) -> dict:
                   f"{n_bytes / 1e6:.1f} MB) library_ms=null", flush=True)
     return rec
 
+# --- Serving kernels (phase 3) ------------------------------------------------
+# lora_matmul / gathered_lora_matmul against their plain versions.  float32:
+# sums of K products taken in two orders (scalar FMA kernel vs cuBLAS), so the
+# error grows as sqrt(K) fp32 ulps of the largest output.  bfloat16: both round
+# fp32 sums to bf16, once for x @ A and once for the output, so they may land
+# one bf16 ulp apart in each; two ulps of the largest output.
+LORA_F32_RTOL_PER_SQRT_K = 1e-6
+LORA_BF16_RTOL = 2.0**-6
+# local_attention: float32 online vs materialized softmax, O(1) outputs.
+ATTN_F32_ATOL = 2e-5
+# bfloat16: the two fp32 results round to bf16 one ulp apart at most.
+ATTN_BF16_RTOL = 2.0**-7
+LORA_SHAPES = [(4096, 2048, 2048, 8, "prefill"), (8, 2048, 2048, 8, "decode"),
+               (129, 513, 130, 8, "ragged")]
+ATTN_SHAPES = [(256, 512, 64, 0, "prefill"), (256, 300, 64, 0, "ragged"),
+               (256, 512, 64, 128, "window")]
+TENANT_SLOTS = (1, 3, 4, 6)  # 4 tenants resident in a pool of 8 slots
+
+
+def check_close(got, want, tol, what: str) -> float:
+    err = max_abs(got, want)
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |err| {err} > {tol}")
+    return err
+
+
+def lora_tol(dtype, k, want) -> float:
+    import torch
+
+    scale = float(want.double().abs().max())
+    if dtype == torch.float32:
+        return LORA_F32_RTOL_PER_SQRT_K * k**0.5 * scale
+    return LORA_BF16_RTOL * scale
+
+
+def request_slots(m: int, n_requests: int, slots):
+    """Row slots of ``m`` rows cut into ``n_requests`` requests in order,
+    request r naming slots[r]."""
+    import torch
+
+    req = torch.arange(m) * n_requests // m
+    return torch.as_tensor(slots, dtype=torch.int32)[req].cuda()
+
+
+def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
+    """Both LoRA kernels against their plain versions on a pool laid out as
+    the serving pool is ((n_slots, n_layers, K, R), used through a layer's
+    slice), bitwise repeatable, slot -1 equal to a zero adapter bit for bit,
+    one slot on every row equal to ``lora_matmul`` with that adapter."""
+    import torch
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ref
+
+    rec = {}
+    for m, k, n, r, label in LORA_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(m + k + n)
+            x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+            w = ((torch.rand((k, n), generator=g, device="cuda") * 2 - 1) / k**0.5).to(dtype)
+            a_pool = torch.randn((8, 3, k, r), generator=g, device="cuda") / k**0.5
+            b_pool = torch.randn((8, 3, r, n), generator=g, device="cuda") / r**0.5
+            a, b = a_pool[:, 1], b_pool[:, 1]  # layer 1's slice, slot stride 3*K*R
+            scale = 2.0
+            rs = request_slots(m, 8, [TENANT_SLOTS[i % 4] for i in range(8)])
+            tag = f"{label} M={m} K={k} N={n} R={r} {str(dtype)[6:]}"
+
+            run1 = lambda: lm.lora_matmul(x, w, a[3], b[3], scale)
+            plain1 = lambda: ref.lora_matmul_ref(x, w, a[3], b[3], scale)
+            got, again, want = run1(), run1(), plain1()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"lora_matmul {tag}: two launches differ")
+            err1 = check_close(got, want, lora_tol(dtype, k, want), f"lora_matmul {tag}")
+
+            rung = lambda: lm.gathered_lora_matmul(x, w, a, b, rs, scale)
+            plaing = lambda: ref.gathered_lora_matmul_ref(x, w, a, b, rs, scale)
+            gotg, againg, wantg = rung(), rung(), plaing()
+            torch.cuda.synchronize()
+            if not torch.equal(gotg, againg):
+                raise AssertionError(f"gathered_lora_matmul {tag}: two launches differ")
+            errg = check_close(gotg, wantg, lora_tol(dtype, k, wantg),
+                               f"gathered_lora_matmul {tag}")
+            # Requests 0 and 5 without an adapter == the same rows on an all-zero slot.
+            rs_none = request_slots(m, 8, [-1 if i in (0, 5) else TENANT_SLOTS[i % 4]
+                                           for i in range(8)])
+            a_z, b_z = a_pool.clone(), b_pool.clone()
+            a_z[7], b_z[7] = 0.0, 0.0
+            no_adapter = lm.gathered_lora_matmul(x, w, a, b, rs_none, scale)
+            zero = lm.gathered_lora_matmul(x, w, a_z[:, 1], b_z[:, 1],
+                                           torch.where(rs_none < 0, 7, rs_none), scale)
+            if not torch.equal(no_adapter, zero):
+                raise AssertionError(f"gathered_lora_matmul {tag}: slot -1 != zero adapter")
+            one = lm.gathered_lora_matmul(x, w, a, b, torch.full_like(rs, 3), scale)
+            err_one = check_close(one, got, lora_tol(dtype, k, got),
+                                  f"gathered (one slot) vs lora_matmul {tag}")
+            print(f"[kernels] {tag}: lora_matmul_err={err1:.3g} gathered_err={errg:.3g} "
+                  f"one_slot_vs_lora_matmul={err_one:.3g} slot-1==zero-adapter bitwise",
+                  flush=True)
+            if dtype != torch.bfloat16 or label == "ragged":
+                continue
+            peak = tensor_flops if dtype == torch.bfloat16 else fp32_flops
+            elt = x.element_size()
+            n_ops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n
+            base_bytes = elt * (m * k + k * n + m * n)
+            floor_ms = bench_ms(lambda: x @ w)
+            for name, run, plain, err, n_bytes in (
+                ("lora_matmul", run1, plain1, err1, base_bytes + 4 * (k * r + r * n)),
+                ("gathered_lora_matmul", rung, plaing, errg,
+                 base_bytes + 4 * len(TENANT_SLOTS) * (k * r + r * n) + 4 * m),
+            ):
+                t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / peak * 1e3
+                ms, plain_ms = bench_ms(run), bench_ms(plain)
+                out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           library_ms=None, base_gemm_ms=floor_ms)
+                print(f"[kernels] {name} {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}, "
+                      f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB) library_ms=null "
+                      f"cublas_x@W_ms={floor_ms:.4f}", flush=True)
+                if label == "prefill":
+                    rec[name] = out
+    return rec
+
+
+def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
+    """local_attention against its plain version, bitwise repeatable, and
+    timed beside ``F.scaled_dot_product_attention(is_causal=True)``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import local_attention as la
+    from repro_torch.kernels import ref
+
+    rec = {}
+    for bh, s, d, window, label in ATTN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(bh + s + window)
+            q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            run = lambda: la.local_attention(q, k, v, window=window)
+            plain = lambda: ref.local_attention_ref(q, k, v, window=window)
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            tag = f"{label} BH={bh} S={s} D={d} window={window} {str(dtype)[6:]}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"local_attention {tag}: two launches differ")
+            tol = (ATTN_F32_ATOL if dtype == torch.float32
+                   else ATTN_BF16_RTOL * float(want.double().abs().max()))
+            err = check_close(got, want, tol, f"local_attention {tag}")
+            print(f"[kernels] local_attention {tag}: err={err:.3g}", flush=True)
+            if dtype != torch.bfloat16 or label == "ragged":
+                continue
+            i = torch.arange(s)
+            keep = i[:, None] >= i[None, :]
+            if window:
+                keep &= i[None, :] > i[:, None] - window
+            pairs = int(keep.sum()) * bh
+            n_ops = 4 * d * pairs
+            n_bytes = 4 * bh * s * d * q.element_size()
+            t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / tensor_flops * 1e3
+            ms, plain_ms = bench_ms(run), bench_ms(plain)
+            # SDPA on (1, BH, S, D): the four-dimensional layout its flash
+            # backend takes.  Timed only; the port never calls it.
+            q4, k4, v4 = (t[None] for t in (q, k, v))
+            lib_ms = (bench_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+                      if window == 0 else None)
+            out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       library_ms=lib_ms)
+            print(f"[kernels] local_attention {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}, {n_ops / 1e9:.2f} GFLOP, "
+                  f"{n_bytes / 1e6:.1f} MB) "
+                  f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)}",
+                  flush=True)
+            if label == "prefill":
+                rec["local_attention"] = out
+    return rec
+
 
 def make_task(device, pretrain_quality=0.0):
     from repro_torch.fed import synth
@@ -273,7 +479,7 @@ def main_path_a(counts) -> None:
         _, hist = run_fed(task, method, mode, 10, "cuda",
                           log=lambda r, d: times.append(d["t_round_s"]))
         launched = {k: v - before[k] for k, v in counts().items()}
-        want = {"admm_tail": 0, "subspace_apply": 0}
+        want = dict.fromkeys(before, 0)
         if method == "fedrpca":
             want["admm_tail" if mode == "gram" else "subspace_apply"] = 10 * 50 * 1
         if launched != want:
@@ -356,8 +562,8 @@ def main_path_b(counts) -> None:
             out = call()
             torch.cuda.synchronize()
             launched = {k: v - before[k] for k, v in counts().items()}
-            want = {"admm_tail": 50 if mode == "gram" else 0,
-                    "subspace_apply": 50 if mode == "subspace" else 0}
+            want = dict(dict.fromkeys(before, 0), admm_tail=50 if mode == "gram" else 0,
+                        subspace_apply=50 if mode == "subspace" else 0)
             if launched != want:
                 raise AssertionError(f"path B {mode}: launches {launched} != {want}")
             t0 = time.perf_counter()
@@ -378,6 +584,317 @@ def main_path_b(counts) -> None:
             print(f"[path B] nc={nc} valid={n_valid or nc} {mode}: call_s={t_call:.4f} "
                   f"cpu_call_s={t_cpu:.4f} card-vs-cpu max|err|={err:.3g} (max|delta|={scale:.3g}) "
                   f"launches={launched}", flush=True)
+
+# --- Path C: multi-tenant serving ---------------------------------------------
+C_ARCH = "stablelm-1.6b"
+DEVICE = "cuda"
+C_BATCH, C_PROMPT, C_GEN, C_TENANTS, C_SLOTS = 8, 512, 32, 4, 8
+# Adapter B ~ N(0, 0.05^2): the rank-8 correction is then of the order of
+# the base q / v projection, so tenants visibly differ.
+C_B_STD = 0.05
+# Client deltas of the hot swap: 10x the adapter's size, so tenant 0's new
+# adapter visibly moves its logits.
+C_DELTA_SCALE = 10.0
+C_PROFILE_STEPS = 4
+# One tenant on every row through the pool (gathered kernel) against a plain
+# forward with that tenant's 2-D adapter (lora_matmul): both kernels compute a
+# row with the same fp32 arithmetic and round it once to bf16, so the logits
+# should agree to the bit; the bound allows one bf16 ulp of the largest logit
+# (2^-7 relative) should a layer's rounding land on the other side of a tie.
+C_ONE_TENANT_RTOL = 2.0**-7
+# Card vs CPU at depth 2 in float32: fp32 sums of up to 5632 products in other
+# orders over 2 layers, relative to the largest logit.
+C_CARD_CPU_RTOL = 2e-4
+
+
+def tenant_adapter(cfg, seed: int, device=None):
+    """A trained-looking adapter: the init's A, and B drawn from ``seed``."""
+    import torch
+    from repro_torch.models import init_lora_params
+
+    device = device or DEVICE
+    tree = init_lora_params(cfg, seed=seed, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    for node in tree["groups"][0]["mixer"].values():
+        node["B"].normal_(0.0, C_B_STD, generator=g)
+    return tree
+
+
+def client_deltas(cfg, seed: int, n_clients: int = 4):
+    """Stacked client deltas of one tenant's adapter: a shared direction plus
+    per-client noise, drawn on the card from ``seed``."""
+    import torch
+    from repro_torch.utils.pytree import tree_map
+
+    shared = tree_map(lambda x: C_DELTA_SCALE * x, tenant_adapter(cfg, seed))
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    return tree_map(lambda x: torch.stack([x + 0.2 * x.std() * torch.randn(
+        x.shape, generator=g, device=DEVICE) for _ in range(n_clients)]), shared)
+
+
+def serve_once(base, pool, cfg, adapter_ids, prompts, gen):
+    """``serve_batch`` through a ``RequestScheduler``, recording the prefill
+    and decode logits, the extended caches and the first token; prefill time
+    and decode time on the host clock, each ending in a synchronise."""
+    import torch
+    from repro_torch.launch import serve
+
+    sched = serve.RequestScheduler(pool, len(adapter_ids))
+    for i, aid in enumerate(adapter_ids):
+        sched.submit(serve.Request(i, aid, prompts[i]))
+    prefill, decode = serve.make_serving_fns(cfg)
+    rec = {"decode_logits": [], "t": {}}
+
+    def timed_prefill(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(*args)
+        torch.cuda.synchronize()
+        rec["t"]["prefill_s"] = time.perf_counter() - t0
+        rec["prefill_logits"] = logits
+        return logits, caches
+
+    def recorded_decode(base_, pooled, slots, tok, caches, idx):
+        if "caches" not in rec:
+            rec["t"]["decode_t0"] = time.perf_counter()
+            rec.update(caches=caches, first_tok=tok, slots=slots)
+        logits, caches = decode(base_, pooled, slots, tok, caches, idx)
+        rec["decode_logits"].append(logits)
+        return logits, caches
+
+    _, tokens = serve.serve_batch(base, pool, sched, cfg, gen=gen, prefill_fn=timed_prefill,
+                                  decode_fn=recorded_decode)
+    torch.cuda.synchronize()
+    rec["t"]["decode_s"] = time.perf_counter() - rec["t"].pop("decode_t0")
+    rec["tokens"] = tokens
+    return rec
+
+
+def decode_again(base, pool, cfg, rec, gen):
+    """Greedy decode from the recorded prefill caches and first token."""
+    import torch
+    from repro_torch.launch import serve
+
+    _, decode = serve.make_serving_fns(cfg)
+    tok, caches, logits_out, toks = rec["first_tok"], rec["caches"], [], [rec["first_tok"]]
+    prompt_len = rec["caches"]["groups"][0]["self"].k.shape[-3] - gen
+    for i in range(gen - 1):
+        logits, caches = decode(base, pool.pooled, rec["slots"], tok, caches, prompt_len + i)
+        tok = serve.greedy(logits)
+        logits_out.append(logits)
+        toks.append(tok)
+    return logits_out, torch.cat(toks, dim=1)
+
+
+def profile_decode(base, pool, cfg, rec, steps: int):
+    """``steps`` greedy decode steps from the recorded prefill state under
+    ``torch.profiler``: (host seconds, device-busy seconds or None when the
+    profiler sees no device time, the five kernels with the most device
+    time).  The steps rewrite the cache positions the serving run wrote,
+    with the same values."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+
+    _, decode = serve.make_serving_fns(cfg)
+    prompt_len = rec["caches"]["groups"][0]["self"].k.shape[-3] - C_GEN
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tok = rec["first_tok"]
+        for i in range(steps):
+            logits, _ = decode(base, pool.pooled, rec["slots"], tok, rec["caches"],
+                               prompt_len + i)
+            tok = serve.greedy(logits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    events = [e for e in prof.key_averages() if dev(e) > 0]
+    busy = sum(dev(e) for e in events) / 1e6
+    top = sorted(events, key=dev, reverse=True)[:5]
+    return wall, (busy or None), [(e.key[:60], round(dev(e) / 1e3, 3), e.count) for e in top]
+
+
+def main_path_c(counts, card: str) -> dict:
+    """Serve full-width StableLM-2-1.6B (24 layers, bf16) to 8 requests of 4
+    tenants through the pool, then through the merged adapter; check one
+    tenant on every row against its plain 2-D adapter; hot-swap a FedRPCA
+    aggregate into tenant 0 and decode again; and the same serving run at
+    depth 2 in float32 on the card and on the CPU.  Returns the launch
+    counts of the run."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import AggregatorConfig, aggregate
+    from repro_torch.core.engine import pack
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.model import param_count
+    from repro_torch.serve import AdapterPool
+    from repro_torch.utils.pytree import tree_leaves, tree_to
+
+    cfg = get_config(C_ARCH)
+    n_l = cfg.n_layers
+    start = counts()
+    phase = {}
+
+    def launched(since):
+        return {k: v - since[k] for k, v in counts().items()}
+
+    def expect(name, got, **want):
+        full = {k: want.get(k, 0) for k in got}
+        if got != full:
+            raise AssertionError(f"path C {name}: launches {got} != {full}")
+        phase[name] = got
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = init_params(cfg, seed=0, device=DEVICE)
+    trees = [tenant_adapter(cfg, 100 + i) for i in range(C_TENANTS)]
+    pool = AdapterPool(tenant_adapter(cfg, 99), C_SLOTS)
+    for i, tree in enumerate(trees):
+        pool.publish(f"tenant-{i}", tree)
+    torch.cuda.synchronize()
+    print(f"[path C] {card} | {C_ARCH}: {param_count(base) / 1e9:.3f} B parameters "
+          f"({cfg.dtype}), {n_l} layers, pool {len(pool)}/{pool.n_slots} slots, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(C_BATCH, C_PROMPT))
+    ids = [f"tenant-{i % C_TENANTS}" for i in range(C_BATCH)]
+
+    before = counts()
+    rec = serve_once(base, pool, cfg, ids, prompts, C_GEN)
+    expect("pool", launched(before), gathered_lora_matmul=2 * n_l * C_GEN,
+           local_attention=n_l)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    all_logits = [rec["prefill_logits"]] + rec["decode_logits"]
+    if not all(bool(torch.isfinite(x).all()) for x in all_logits):
+        raise AssertionError("path C: non-finite logits on the pool path")
+    t = rec["t"]
+    tok_s = C_BATCH * (C_GEN - 1) / t["decode_s"]
+    print(f"[path C] {card} | pool: prefill {C_BATCH}x{C_PROMPT} tokens {t['prefill_s']:.4f} s, "
+          f"decode {C_GEN - 1} steps {t['decode_s']:.4f} s = {tok_s:.1f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB, launches {phase['pool']}", flush=True)
+    print(f"[path C] pool continuations (first 8 tokens): "
+          f"{rec['tokens'][:, :8].tolist()}", flush=True)
+    before = counts()
+    wall, busy, top = profile_decode(base, pool, cfg, rec, C_PROFILE_STEPS)
+    expect("profile", launched(before), gathered_lora_matmul=2 * n_l * C_PROFILE_STEPS)
+    share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
+    print(f"[path C] {card} | {C_PROFILE_STEPS} decode steps under torch.profiler: host "
+          f"{wall:.4f} s, device {share} of it; top kernels by device ms (name, ms, "
+          f"calls): {top}", flush=True)
+
+    toks = torch.as_tensor(prompts, device=DEVICE)
+    merged = pool.merged()
+    before = counts()
+    t1 = time.perf_counter()
+    merged_tokens = serve.serve_merged(base, merged, toks, cfg, gen=C_GEN)
+    torch.cuda.synchronize()
+    t_merged = time.perf_counter() - t1
+    merged_logits = forward(base, merged, {"tokens": toks}, cfg, mode="prefill")[0]
+    expect("merged", launched(before), lora_matmul=2 * n_l * (C_GEN + 1), local_attention=2 * n_l)
+    gaps = [float((rec["prefill_logits"][i] - merged_logits[i]).abs().max())
+            for i in range(C_BATCH)]
+    if not bool(torch.isfinite(merged_logits).all()) or min(gaps) <= 0.0:
+        raise AssertionError(f"path C: per-tenant logits do not differ from merged: {gaps}")
+    same_tokens = int((merged_tokens == rec["tokens"]).all(dim=1).sum())
+    print(f"[path C] {card} | merged: {C_GEN} tokens in {t_merged:.4f} s; per-request max "
+          f"|pool - merged| prefill logit {min(gaps):.4g}..{max(gaps):.4g}; requests with "
+          f"identical continuations {same_tokens}/{C_BATCH}; launches {phase['merged']}",
+          flush=True)
+
+    before = counts()
+    one_pool = serve.make_serving_fns(cfg)[0](
+        base, pool.pooled, pool.acquire(["tenant-1"] * C_BATCH), {"tokens": toks})[0]
+    one_plain = forward(base, trees[1], {"tokens": toks}, cfg, mode="prefill")[0]
+    expect("one tenant", launched(before), gathered_lora_matmul=2 * n_l,
+           lora_matmul=2 * n_l, local_attention=2 * n_l)
+    err = max_abs(one_pool, one_plain)
+    scale = float(one_plain.abs().max())
+    if err > C_ONE_TENANT_RTOL * scale:
+        raise AssertionError(f"path C: one tenant via pool vs 2-D adapter {err} > "
+                             f"{C_ONE_TENANT_RTOL} * {scale}")
+    print(f"[path C] {card} | one tenant on every row, pool (gathered) vs 2-D adapter "
+          f"(lora_matmul): "
+          f"max|err| {err:.4g} (max|logit| {scale:.4g}, bitwise {bool(err == 0.0)})", flush=True)
+
+    # Hot swap: FedRPCA over 4 client deltas of tenant 0, published in place.
+    ptrs = [x.data_ptr() for x in tree_leaves(pool.pooled)]
+    deltas = client_deltas(cfg, 7)
+    n_buckets = len(pack(deltas)[0])
+    before = counts()
+    t1 = time.perf_counter()
+    update = aggregate(deltas, AggregatorConfig(method="fedrpca", rpca_iters=5), device=DEVICE)
+    pool.publish_round("tenant-0", trees[0], update)
+    torch.cuda.synchronize()
+    t_swap = time.perf_counter() - t1
+    new_logits, new_tokens = decode_again(base, pool, cfg, rec, C_GEN)
+    expect("hot swap", launched(before), admm_tail=5 * n_buckets,
+           gathered_lora_matmul=2 * n_l * (C_GEN - 1))
+    if [x.data_ptr() for x in tree_leaves(pool.pooled)] != ptrs:
+        raise AssertionError("path C: publish_round moved the pooled tensors")
+    tenant0 = torch.tensor([i % C_TENANTS == 0 for i in range(C_BATCH)], device=DEVICE)
+    moved = max(float((a[tenant0] - b[tenant0]).abs().max())
+                for a, b in zip(new_logits, rec["decode_logits"]))
+    others_same = all(torch.equal(a[~tenant0], b[~tenant0])
+                      for a, b in zip(new_logits, rec["decode_logits"]))
+    if moved <= 0.0 or not others_same or not torch.equal(new_tokens[~tenant0],
+                                                         rec["tokens"][~tenant0]):
+        raise AssertionError(f"path C hot swap: tenant-0 logits moved {moved}, other tenants "
+                             f"bitwise unchanged {others_same}")
+    changed = int((new_tokens[tenant0] != rec["tokens"][tenant0]).any(dim=1).sum())
+    print(f"[path C] {card} | hot swap: aggregate ({n_buckets} bucket, 5 ADMM iterations) + "
+          f"publish_round {t_swap:.4f} s; tenant-0 decode logits moved by up to {moved:.4g}, "
+          f"tenant-0 continuations changed {changed}/{int(tenant0.sum())}, other tenants "
+          f"bitwise unchanged; pooled data_ptr unchanged; launches {phase['hot swap']}",
+          flush=True)
+    del base, pool, trees, rec, new_logits, deltas, update
+
+    # Card vs CPU: the same serving run at full width, depth 2, float32.
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    base2 = init_params(cfg2, seed=5, device=DEVICE)
+    cpu_base = copy.deepcopy(base2).cpu()
+    pools = {"card": AdapterPool(tenant_adapter(cfg2, 98), 4),
+             "cpu": AdapterPool(tree_to(tenant_adapter(cfg2, 98), "cpu"), 4)}
+    for i in range(4):
+        tree = tenant_adapter(cfg2, 200 + i)
+        pools["card"].publish(f"tenant-{i}", tree)
+        pools["cpu"].publish(f"tenant-{i}", tree_to(tree, "cpu"))
+    prompts2 = torch.as_tensor(rng.integers(0, cfg2.vocab_size, size=(4, 64)))
+    prefill, decode = serve.make_serving_fns(cfg2)
+    runs = {"card": (DEVICE, base2), "cpu": ("cpu", cpu_base)}
+    logits_of, state = {"card": [], "cpu": []}, {}
+    before = counts()
+    for key, (dev, b_) in runs.items():
+        slots = pools[key].acquire([f"tenant-{i}" for i in range(4)])
+        logits, caches = prefill(b_, pools[key].pooled, slots, {"tokens": prompts2.to(dev)})
+        logits_of[key].append(logits.cpu())
+        state[key] = (slots, serve.extend_caches(caches, 4, cfg2))
+    expect("card vs CPU prefill", launched(before), gathered_lora_matmul=4, local_attention=2)
+    before = counts()
+    tok = serve.greedy(logits_of["card"][0])
+    for i in range(3):  # both devices decode the card's greedy tokens
+        for key, (dev, b_) in runs.items():
+            slots, caches = state[key]
+            logits, _ = decode(b_, pools[key].pooled, slots, tok.to(dev), caches, 64 + i)
+            logits_of[key].append(logits.cpu())
+        tok = serve.greedy(logits_of["card"][-1])
+    expect("card vs CPU decode", launched(before), gathered_lora_matmul=4 * 3)
+    errs = []
+    for g_, c_ in zip(logits_of["card"], logits_of["cpu"]):
+        err, scale = max_abs(g_, c_), float(c_.abs().max())
+        if not bool(torch.isfinite(g_).all()) or err > C_CARD_CPU_RTOL * scale:
+            raise AssertionError(f"path C card vs CPU: {err} > {C_CARD_CPU_RTOL} * {scale}")
+        errs.append(err)
+    print(f"[path C] {card} | card vs CPU, depth 2 float32, 4 requests x 64 prompt + 4 "
+          f"tokens: prefill and decode logits max|err| {[f'{e:.3g}' for e in errs]} (max|logit| "
+          f"{float(logits_of['cpu'][0].abs().max()):.4g})", flush=True)
+    total = launched(start)
+    print(f"[path C] {card} | launches {total} by phase {phase}", flush=True)
+    return total
 
 
 def main() -> int:
@@ -404,9 +921,11 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
     bw, flops = card_peaks(smi)
+    tensor_flops = bf16_peak(smi)
 
     # Phase 2: build.
-    from repro_torch.kernels import backend, rpca_admm, svt_subspace
+    from repro_torch.kernels import (backend, local_attention, lora_matmul, rpca_admm,
+                                     svt_subspace)
 
     t0 = time.perf_counter()
     libs = backend.build_all()
@@ -414,37 +933,56 @@ def main() -> int:
 
     # Phase 3: kernels against their plain versions.
     rec = check_kernels("cuda", bw, flops)
+    rec.update(check_lora_kernels(bw, flops, tensor_flops))
+    rec.update(check_attention_kernel(bw, flops, tensor_flops))
 
     regime_probe()
 
-    wrappers = {"admm_tail": rpca_admm.admm_tail, "subspace_apply": svt_subspace.subspace_apply}
+    wrappers = {"admm_tail": rpca_admm.admm_tail, "subspace_apply": svt_subspace.subspace_apply,
+                "lora_matmul": lora_matmul.lora_matmul,
+                "gathered_lora_matmul": lora_matmul.gathered_lora_matmul,
+                "local_attention": local_attention.local_attention}
     counts = lambda: {k: w.launches for k, w in wrappers.items()}
-    for w in wrappers.values():
-        w.launches = 0
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    zero_counts()
     t0 = time.perf_counter()
     main_path_a(counts)
     main_path_b(counts)
-    launches = counts()
-    print(f"[main path] {time.perf_counter() - t0:.1f} s, launches {launches}", flush=True)
+    launches_ab = counts()
+    print(f"[main path A+B] {time.perf_counter() - t0:.1f} s, launches {launches_ab}", flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    launches_c = main_path_c(counts, smi)
+    print(f"[main path C] {time.perf_counter() - t0:.1f} s, launches {launches_c}", flush=True)
+    launches = {k: launches_ab[k] + launches_c[k] for k in wrappers}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on the main path")
 
+    csrc = "src/repro_torch/kernels/csrc/"
     sources = {
-        "admm_tail": ("src/repro_torch/kernels/csrc/admm_tail.cu",
-                      "src/repro/kernels/rpca_admm.py:121"),
-        "subspace_apply": ("src/repro_torch/kernels/csrc/subspace_apply.cu",
-                           "src/repro/kernels/svt_subspace.py:154"),
+        "admm_tail": (csrc + "admm_tail.cu", "src/repro/kernels/rpca_admm.py:121"),
+        "subspace_apply": (csrc + "subspace_apply.cu", "src/repro/kernels/svt_subspace.py:154"),
+        "lora_matmul": (csrc + "lora_matmul.cu", "src/repro/kernels/lora_matmul.py:98"),
+        "gathered_lora_matmul": (csrc + "lora_matmul.cu", "src/repro/kernels/lora_matmul.py:271"),
+        "local_attention": (csrc + "local_attention.cu",
+                            "src/repro/kernels/local_attention.py:99"),
     }
     kernels = []
-    for name, r in rec.items():
+    for name in wrappers:
+        r = rec[name]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"[wall] {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)
     return 0

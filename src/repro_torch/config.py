@@ -2,7 +2,8 @@
 
 Port of ``LoRAConfig`` and ``ModelConfig`` from ``repro/config.py``, kept as
 a copy (the port imports nothing of the JAX package).  ``chip_smoke.py``
-reads the LoRA geometry of ``configs/paper_vit_b32.py`` from them.
+reads the LoRA geometry of ``configs/paper_vit_b32.py`` from them, and the
+served model of ``configs/stablelm_1_6b.py``.
 """
 from __future__ import annotations
 
@@ -114,3 +115,41 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant of the same family: <=2 pattern units,
+        d_model <= 512, <= 4 experts (the reference's ``reduced``)."""
+        unit = len(self.layer_pattern)
+        d_model = min(self.d_model, 256)
+        head_dim = 32 if self.head_dim else 0
+        n_heads = 4
+        n_kv_heads = min(self.n_kv_heads, n_heads)
+        if self.n_kv_heads == self.n_heads:
+            n_kv_heads = n_heads
+        elif self.n_kv_heads == 1:
+            n_kv_heads = 1
+        else:
+            n_kv_heads = 2
+        kw = dict(
+            n_layers=max(unit, 2 if unit == 1 else unit),
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv_heads,
+            head_dim=head_dim,
+            d_ff=0 if self.d_ff == 0 else 512,
+            vocab_size=min(self.vocab_size, 512),
+            window_size=min(self.window_size, 32),
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            ssm_state=min(self.ssm_state, 32),
+            ssm_head_dim=16 if self.ssm_state else self.ssm_head_dim,
+            ssm_chunk=16 if self.ssm_state else self.ssm_chunk,
+            lru_width=min(self.lru_width, 256) if self.lru_width else 0,
+            n_encoder_layers=min(self.n_encoder_layers, 2),
+            encoder_seq=min(self.encoder_seq, 16),
+            n_vision_tokens=min(self.n_vision_tokens, 8),
+            mrope_sections=(4, 6, 6) if self.mrope else self.mrope_sections,
+            lora=LoRAConfig(rank=4, targets=self.lora.targets),
+            dtype="float32",
+        )
+        return self.replace(**kw)

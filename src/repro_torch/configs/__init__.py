@@ -1,1 +1,43 @@
-"""Architecture configs of the port (those the slices so far run)."""
+"""Architecture registry of the port: the configs the slices so far run.
+
+``get_config(arch_id)`` returns the config of ``stablelm-1.6b`` (served by
+``repro_torch.launch.serve``) or ``paper-vit-b32`` (the LoRA geometry of
+the aggregation paths).  The reference's other architecture ids are known
+but not ported: they raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.config import ModelConfig
+
+_ARCH_MODULES = {
+    "stablelm-1.6b": "stablelm_1_6b",
+    "paper-vit-b32": "paper_vit_b32",
+}
+
+#: Architecture ids of the reference that the port does not run yet.
+NOT_PORTED = (
+    "recurrentgemma-2b",
+    "llama4-maverick-400b-a17b",
+    "qwen2-vl-2b",
+    "qwen1.5-32b",
+    "deepseek-67b",
+    "whisper-medium",
+    "mamba2-130m",
+    "granite-moe-1b-a400m",
+    "gemma-7b",
+)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (ROADMAP.md queue 1, item 8)"
+        )
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch_id]}").CONFIG
+
+
+__all__ = ["NOT_PORTED", "get_config"]

@@ -6,7 +6,8 @@ same nest of tensors on ``device``; ``to_numpy_tree`` is its inverse.  No
 JAX import is needed: a JAX array converts through ``numpy.asarray``.
 Used for the synth task's frozen ``base`` (``W0``, ``H``), LoRA trees and
 stacked client-delta trees, so the port computes on exactly the
-reference's weights.
+reference's weights.  ``model_from_jax`` carries a whole base model across:
+the reference's ``init_params`` tree into the port's ``DecoderLM``.
 """
 from __future__ import annotations
 
@@ -21,6 +22,32 @@ from repro_torch.utils.pytree import tree_map
 def from_jax_tree(tree: Any, device="cpu") -> Any:
     """Array-like leaves -> tensors on ``device`` (dtype kept, bits kept)."""
     return tree_map(lambda x: torch.from_numpy(np.array(x, copy=True)).to(device), tree)
+
+
+def model_from_jax(params: Any, cfg, device="cpu"):
+    """The reference's base-model tree (``repro.models.init_params``, leaves
+    array-likes) as the port's ``DecoderLM`` on ``device``.  The reference
+    stacks layer ``i`` at group ``i // unit`` of pattern slot ``i % unit``;
+    here each layer is its own ``Block``.  Bits are kept."""
+    from repro_torch.models.model import DecoderLM
+
+    model = DecoderLM(cfg, None, device=device)
+    unit = len(cfg.layer_pattern)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            path = name.split(".")
+            if path[0] == "layers":
+                i = int(path[1])
+                node, path, index = params["groups"][i % unit], path[2:], i // unit
+            else:
+                node, index = params, None
+            for key in path:
+                node = node[key]
+            leaf = np.asarray(node if index is None else np.asarray(node)[index])
+            if tuple(leaf.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: reference leaf {leaf.shape} != {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(leaf, copy=True)))
+    return model
 
 
 def to_numpy_tree(tree: Any) -> Any:

@@ -1,0 +1,70 @@
+"""Causal sliding-window flash attention: the CUDA kernel and its wrapper.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/local_attention.py::
+local_attention``: attention over (BH, S, D) with an fp32 online softmax,
+causal, keys limited to the last ``window`` positions when ``window > 0``
+(0 = full causal).  The kernel (``csrc/local_attention.cu``) visits only the
+key tiles a query tile needs and keeps scores out of device memory; see the
+source note.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import backend, ref
+
+_C = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: Head widths the kernel is built for.
+HEAD_DIMS = (32, 64)
+
+
+def _lib():
+    lib = backend.load_library("local_attention")
+    lib.repro_local_attention.argtypes = [_C] * 4 + [_I] * 6 + [_C]
+    lib.repro_local_attention.restype = _I
+    return lib
+
+
+def local_attention(q, k, v, *, window: int = 0, causal: bool = True) -> torch.Tensor:
+    """Attention over q, k, v of shape (BH, S, D).  CPU tensors compute
+    ``ref.local_attention_ref``; CUDA tensors (contiguous float32 or
+    bfloat16, D in ``HEAD_DIMS``) launch the kernel."""
+    if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"expected three (BH, S, D) tensors, got {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if not backend.use_kernel(q):
+        return ref.local_attention_ref(q, k, v, window=window, causal=causal)
+    bh, s, d = q.shape
+    for t in (k, v):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError("local_attention: q, k, v differ in device or dtype")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"local_attention takes float32 or bfloat16 on CUDA, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"local_attention: head width {d} not in {HEAD_DIMS}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("local_attention takes contiguous tensors on CUDA")
+    if bh > 65535 or bh * s * d >= 2**62:
+        raise ValueError(f"local_attention: {bh} rows of {s} x {d} exceed the launch grid")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        err = _lib().repro_local_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
+            int(window), int(bool(causal)), int(q.dtype == torch.bfloat16),
+            backend.stream_ptr(q),
+        )
+    backend.check_launch(err, "local_attention")
+    local_attention.launches += 1
+    return out
+
+
+#: Kernel launches since the count was last set to 0 (plain version excluded).
+local_attention.launches = 0

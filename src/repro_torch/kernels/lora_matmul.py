@@ -1,0 +1,149 @@
+"""Fused base + LoRA projection: the CUDA kernels and their wrappers.
+
+Replaces the Pallas TPU kernels ``src/repro/kernels/lora_matmul.py::
+lora_matmul`` (one adapter) and ``::gathered_lora_matmul`` (a pool of
+adapters, one slot per row):
+
+    y[m] = x[m] @ W + scale * (x[m] @ A[s_m]) @ B[s_m]
+
+Both wrappers launch the same kernels of ``csrc/lora_matmul.cu``: a warp per
+row takes x @ A at the real rank and a tiled kernel computes x @ W with the
+correction in its epilogue (splitting K across blocks when the output has
+too few tiles to fill the card, as at decode).  Every row reads its own
+slot, so rows are never sorted or padded into single-adapter tiles and the
+reference's ``segment_layout`` has no counterpart here (see the source
+note).  A pool is
+handed over with its slot stride: a layer's slice ``pool[:, layer]`` of a
+``(n_slots, n_layers, K, R)`` pool is used in place.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import backend, ref
+
+_C = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+#: Widest adapter rank the kernel takes.
+MAX_RANK = 64
+_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _lib():
+    lib = backend.load_library("lora_matmul")
+    lib.repro_lora_matmul.argtypes = (
+        [_C] * 8 + [_I] * 5 + [_LL, _LL, ctypes.c_float, _I, _I, _C]
+    )
+    lib.repro_lora_matmul.restype = _I
+    lib.repro_lora_rank_width.argtypes = [_I]
+    lib.repro_lora_rank_width.restype = _I
+    lib.repro_lora_splits.argtypes = [_I] * 3
+    lib.repro_lora_splits.restype = _I
+    return lib
+
+
+def _check_pool_layout(name, t, inner):
+    """Pool slices must be contiguous within a slot; the slot stride is free."""
+    if t.stride(-1) != 1 or t.stride(-2) != inner:
+        raise ValueError(f"{name}: each slot of the pool must be contiguous, got strides "
+                         f"{t.stride()} for shape {tuple(t.shape)}")
+
+
+def _launch(x, w, a, b, row_slot, scale, name):
+    m, k = x.shape
+    n = w.shape[1]
+    n_slots, _, r = a.shape
+    if x.dtype not in _TYPES or a.dtype not in _TYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16 on CUDA, got x {x.dtype}, "
+                        f"adapter {a.dtype}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"{name}: W is {w.dtype}, x is {x.dtype}")
+    if b.dtype != a.dtype:
+        raise TypeError(f"{name}: A is {a.dtype}, B is {b.dtype}")
+    if r > MAX_RANK:
+        raise ValueError(f"{name}: rank {r} > {MAX_RANK}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous x and W on CUDA")
+    _check_pool_layout(name, a, r)
+    _check_pool_layout(name, b, n)
+    tensors = [x, w, a, b] + ([] if row_slot is None else [row_slot])
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
+    if row_slot is not None and (row_slot.dtype != torch.int32 or not row_slot.is_contiguous()):
+        raise TypeError(f"{name}: row_slot must be contiguous int32")
+    if max(m, k, n) >= 2**31:
+        raise ValueError(f"{name}: dimension too large for the kernel")
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return y
+    lib = _lib()
+    xa = torch.empty((m, lib.repro_lora_rank_width(r)), dtype=torch.float32, device=x.device)
+    splits = lib.repro_lora_splits(m, n, k)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    with torch.cuda.device(x.device):
+        err = lib.repro_lora_matmul(
+            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            None if row_slot is None else row_slot.data_ptr(), xa.data_ptr(),
+            None if partial is None else partial.data_ptr(), y.data_ptr(),
+            m, n, k, r, n_slots, a.stride(0), b.stride(0), float(scale),
+            int(x.dtype == torch.bfloat16), int(a.dtype == torch.bfloat16),
+            backend.stream_ptr(x),
+        )
+    backend.check_launch(err, name)
+    return y
+
+
+def _check_shapes(x, w, a, b, name):
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and W {tuple(w.shape)} do not chain")
+    k, n = w.shape
+    if a.shape[-2] != k or b.shape[-1] != n or a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"{name}: adapter A {tuple(a.shape)}, B {tuple(b.shape)} do not fit "
+                         f"W {tuple(w.shape)}")
+
+
+def lora_matmul(x, w, a, b, scale: float = 1.0) -> torch.Tensor:
+    """y = x @ W + scale * (x @ A) @ B for x (M, K), W (K, N), A (K, R),
+    B (R, N).  x and W are float32 or bfloat16 of one type; A and B are
+    float32 or bfloat16 and are rounded to x's type.  CPU tensors compute
+    ``ref.lora_matmul_ref``; CUDA tensors launch the kernel."""
+    _check_shapes(x, w, a, b, "lora_matmul")
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError("lora_matmul takes a 2-D adapter; use gathered_lora_matmul for a pool")
+    if not backend.use_kernel(x):
+        return ref.lora_matmul_ref(x, w, a, b, scale)
+    y = _launch(x, w, a[None], b[None], None, scale, "lora_matmul")
+    lora_matmul.launches += 1
+    return y
+
+
+def gathered_lora_matmul(x, w, a_pool, b_pool, row_slot, scale: float = 1.0) -> torch.Tensor:
+    """Per-row adapters: y[m] = x[m] @ W + scale * (x[m] @ A[s]) @ B[s] with
+    s = row_slot[m], for pools A (n_slots, K, R) and B (n_slots, R, N).
+    ``row_slot`` is (M,) int32; slot -1 gives the base projection only, the
+    same bits as an all-zero adapter.  Each slot of a pool is contiguous;
+    the slot stride is free.  CPU tensors compute
+    ``ref.gathered_lora_matmul_ref``; CUDA tensors launch the kernel, which
+    traps on a slot outside [-1, n_slots)."""
+    _check_shapes(x, w, a_pool, b_pool, "gathered_lora_matmul")
+    if a_pool.ndim != 3 or b_pool.ndim != 3 or a_pool.shape[0] != b_pool.shape[0]:
+        raise ValueError(f"gathered_lora_matmul: pools {tuple(a_pool.shape)} and "
+                         f"{tuple(b_pool.shape)} are not (n_slots, K, R) and (n_slots, R, N)")
+    if row_slot.shape != (x.shape[0],):
+        raise ValueError(f"row_slot {tuple(row_slot.shape)} is not ({x.shape[0]},)")
+    if not backend.use_kernel(x):
+        return ref.gathered_lora_matmul_ref(x, w, a_pool, b_pool, row_slot, scale)
+    y = _launch(x, w, a_pool, b_pool, row_slot, scale, "gathered_lora_matmul")
+    gathered_lora_matmul.launches += 1
+    return y
+
+
+#: Kernel launches since the count was last set to 0 (plain version excluded).
+lora_matmul.launches = 0
+gathered_lora_matmul.launches = 0

@@ -53,3 +53,48 @@ def svt_subspace_apply_ref(m, s, y, p, rho, mu, thresh, mask=None):
     x_next = (m - s_new + rho_ * y_new).to(torch.float32)
     g_next = torch.matmul(x_next.mT, x_next)
     return low, s_new, y_new, rsq, g_next
+
+
+def lora_matmul_ref(x, w, a, b, scale: float = 1.0) -> torch.Tensor:
+    """y = x @ w + scale * (x @ a) @ b (twin of ``ref.lora_matmul_ref``),
+    rounded where the kernel rounds: every operand is taken in x's dtype
+    (as ``layers.dense`` casts the adapter), both products accumulate in
+    fp32, x @ a is rounded to x's dtype before the second product, and the
+    sum is rounded once.  In float32 the roundings are exact."""
+    xf = x.float()
+    xa = (xf @ a.to(x.dtype).float()).to(x.dtype).float()
+    acc = xf @ w.to(x.dtype).float() + scale * (xa @ b.to(x.dtype).float())
+    return acc.to(x.dtype)
+
+
+def gathered_lora_matmul_ref(x, w, a_pool, b_pool, row_slot, scale: float = 1.0) -> torch.Tensor:
+    """Per-row adapter y_m = x_m @ w + scale * (x_m @ A[s_m]) @ B[s_m]
+    (twin of ``ref.gathered_lora_matmul_ref``): every slot's full-batch
+    LoRA product, kept on the rows that name it; slot -1 rows get the base
+    projection only.  Rounded as ``lora_matmul_ref``."""
+    xf = x.float()
+    lora = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    for s in range(a_pool.shape[0]):
+        sel = (row_slot == s)[:, None]
+        xa = (xf @ a_pool[s].to(x.dtype).float()).to(x.dtype).float()
+        lora = torch.where(sel, xa @ b_pool[s].to(x.dtype).float(), lora)
+    return (xf @ w.to(x.dtype).float() + scale * lora).to(x.dtype)
+
+
+def local_attention_ref(q, k, v, *, window: int, causal: bool = True) -> torch.Tensor:
+    """Sliding-window causal attention over (BH, S, D) with materialized
+    fp32 scores (twin of ``ref.local_attention_ref``); masked scores are
+    -1e30, not -inf, as in the reference."""
+    s = q.shape[1]
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask[None], scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

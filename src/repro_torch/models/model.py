@@ -1,0 +1,192 @@
+"""Model assembly: the decoder LM, LoRA trees, prefill and decode (port of
+``repro/models/model.py``).
+
+The base model is an ``nn.Module``, ``DecoderLM``, with one ``Block`` per
+layer (the reference scans a group axis instead).  LoRA trees, caches and
+the adapter pool keep the reference's layout, so the pool, the aggregation
+engine and the converter share it: layer ``i`` sits at group ``i // unit``
+of pattern slot ``i % unit``, e.g.
+``{"groups": ({"mixer": {"q": {"A": (n_groups, d_in, r), "B": ...}, "v": ...}},), "tail": ()}``
+and caches ``{"groups": ({"self": KVCache(k=(n_groups, B, S, n_kv, hd), v=...)},), "tail": ()}``.
+
+Modes: ``prefill`` (full prompt, caches, last-position logits) and
+``decode`` (one token against the caches, written in place).  Training
+(``mode="train"``, ``loss_fn``) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import backend
+from repro_torch.models import attention, blocks, layers
+from repro_torch.models.kvcache import KVCache, attn_cache
+
+Tree = Any
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _train_not_ported():
+    return NotImplementedError("LM training is not ported yet (ROADMAP.md queue 1, item 8)")
+
+
+class DecoderLM(nn.Module):
+    """Token embedding, ``cfg.n_layers`` blocks, final norm, and the
+    embedding as the (tied) output head.  ``gen=None`` allocates the weights
+    unfilled, for the converter to write."""
+
+    def __init__(self, cfg, gen: Optional[torch.Generator], *, device):
+        super().__init__()
+        blocks.check_ported(cfg)
+        dtype = _DTYPES[cfg.dtype]
+        embed = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype, device=device)
+        if gen is not None:
+            embed.normal_(0.0, 0.02, generator=gen)
+        self.embed = layers._param(embed)
+        self.final_norm = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
+        self.layers = nn.ModuleList(
+            blocks.Block(cfg, gen, dtype=dtype, device=device) for _ in range(cfg.n_layers)
+        )
+
+
+def init_params(cfg, *, seed: int = 0, device="cuda") -> DecoderLM:
+    """The base model with random weights drawn from ``seed`` by a
+    ``torch.Generator`` on ``device`` (default the card; without CUDA this
+    raises unless ``device="cpu"``).  The same seed gives other numbers on
+    the CPU and on a card."""
+    dev = backend.resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return DecoderLM(cfg, gen, device=dev)
+
+
+def init_lora_params(cfg, *, seed: int = 0, device="cuda") -> Tree:
+    """One adapter in the reference's tree layout, A ~ N(0, 1/d_in), B = 0,
+    in ``cfg.lora.dtype`` on ``device``."""
+    blocks.check_ported(cfg)
+    dev = backend.resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dims = attention.lora_dims(cfg)
+    dtype = _DTYPES[cfg.lora.dtype]
+    groups = tuple(
+        {"mixer": {t: layers.init_lora(gen, *dims[t], cfg.lora.rank, dtype=dtype, device=dev,
+                                       lead=(cfg.n_pattern_groups,))
+                   for t in cfg.lora.targets}}
+        for _ in cfg.layer_pattern
+    )
+    return {"groups": groups, "tail": ()}
+
+
+def _select(node, g: int):
+    """Layer ``g``'s slice of a group-stacked tree; ``slots`` (one per
+    request, shared by every layer) stays whole."""
+    if isinstance(node, dict):
+        return {k: (v if k == "slots" else _select(v, g)) for k, v in node.items()}
+    return node[g]
+
+
+def _layer_trees(tree, cfg):
+    """Per-layer subtrees of a ``{"groups", "tail"}`` tree (None -> Nones)."""
+    unit = len(cfg.layer_pattern)
+    if tree is None:
+        return [None] * cfg.n_layers
+    return [_select(tree["groups"][i % unit], i // unit) for i in range(cfg.n_layers)]
+
+
+def _layer_caches(caches, cfg):
+    unit = len(cfg.layer_pattern)
+    if caches is None:
+        return [None] * cfg.n_layers
+    return [{"self": KVCache(*(t[i // unit] for t in caches["groups"][i % unit]["self"]))}
+            for i in range(cfg.n_layers)]
+
+
+def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: str = "prefill",
+            caches: Optional[Tree] = None, cache_index: Optional[int] = None):
+    """Returns (logits, new_caches, moe_aux_loss).
+
+    ``prefill`` returns the last position's float32 logits (B, 1, V) and
+    caches sized to the prompt; ``decode`` takes one token per request
+    (``batch["tokens"]`` (B, 1)) at position ``cache_index``, writes it into
+    ``caches`` in place and returns them.  ``lora`` is None, a 2-D adapter
+    tree (``init_lora_params``, the merged path) or a pool view
+    (``serve.pool.adapter_view``)."""
+    if mode not in ("prefill", "decode"):
+        raise _train_not_ported()
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = F.embedding(tokens, model.embed)
+    if mode == "decode":
+        positions = torch.full((b, s), cache_index, dtype=torch.int64, device=x.device)
+    else:
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    new = []
+    for blk, lo, c in zip(model.layers, _layer_trees(lora, cfg), _layer_caches(caches, cfg)):
+        x, nc = blk(x, lo, cfg, positions=positions, mode=mode, cache=c,
+                    cache_index=cache_index)
+        new.append(nc)
+    x = layers.apply_norm(model.final_norm, x, cfg.norm_eps)
+    if mode == "prefill":
+        # Serving needs next-token logits only.
+        x = x[:, -1:]
+    logits = layers.softcap(torch.matmul(x, model.embed.T.to(x.dtype)).float(),
+                            cfg.logit_softcap)
+    if mode == "prefill":
+        caches = {"groups": (
+            {"self": KVCache(k=torch.stack([c["self"].k for c in new]),
+                             v=torch.stack([c["self"].v for c in new]))},
+        ), "tail": ()}
+    return logits, caches, torch.zeros((), device=x.device)
+
+
+def loss_fn(*args, **kwargs):
+    raise _train_not_ported()
+
+
+def init_decode_caches(cfg, batch: int, cache_len: int, dtype=None, *, device="cuda") -> Tree:
+    """Zeroed caches for ``cache_len`` positions, in the layout ``forward``
+    returns."""
+    blocks.check_ported(cfg)
+    dev = backend.resolve_device(device)
+    one = attn_cache(batch, cache_len, cfg.n_kv_heads, cfg.head_dim_,
+                     dtype or _DTYPES[cfg.dtype], device=dev)
+    n = cfg.n_pattern_groups
+    return {"groups": tuple(
+        {"self": KVCache(*(t[None].repeat(n, *(1,) * t.ndim) for t in one))}
+        for _ in cfg.layer_pattern
+    ), "tail": ()}
+
+
+def extend_caches(caches: Tree, extra: int, cfg) -> Tree:
+    """Full-attention KV buffers with ``extra`` zero positions appended on
+    the sequence axis: prefill emits caches sized to the prompt, decode
+    writes one position per step into the headroom.  Allocated once per
+    batch; decode then writes in place."""
+    def pad(t):
+        out = t.new_zeros((*t.shape[:-3], t.shape[-3] + extra, *t.shape[-2:]))
+        out[..., : t.shape[-3], :, :] = t
+        return out
+
+    return {"groups": tuple({"self": KVCache(*(pad(t) for t in g["self"]))}
+                            for g in caches["groups"]),
+            "tail": caches["tail"]}
+
+
+def decode_step(model, lora, tokens, caches, cache_index: int, cfg):
+    """serve_step: one token (B, 1) against caches; returns (logits, caches)."""
+    logits, caches, _ = forward(model, lora, {"tokens": tokens}, cfg, mode="decode",
+                                caches=caches, cache_index=cache_index)
+    return logits, caches
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+__all__ = [
+    "DecoderLM", "decode_step", "extend_caches", "forward", "init_decode_caches",
+    "init_lora_params", "init_params", "loss_fn", "param_count",
+]

@@ -10,6 +10,7 @@ no JAX, so it runs on a machine that has only PyTorch:
 Tolerances: elementwise atol 1e-5 (fp32 FMA contraction and dot order of
 L = X @ P, O(1) values); sums and Grams 1e-5 of their largest entry; the
 RPCA result 1e-4 of max|M| (eigh on two libraries over 20 iterations).
+The serving kernels' tolerances are stated beside their tests.
 """
 import numpy as np
 import pytest
@@ -135,3 +136,101 @@ def test_aggregate_runs_on_the_card_by_default(cuda):
     cpu = aggregate(tree, AggregatorConfig(method="fedrpca", rpca_iters=5), device="cpu")
     for k in out:
         torch.testing.assert_close(out[k].cpu(), cpu[k], atol=1e-4 * float(tree[k].abs().max()), rtol=0)
+
+
+# --- Serving kernels -----------------------------------------------------------
+# float32: K products summed in two orders (FMA kernel vs cuBLAS), error
+# ~sqrt(K) ulps of the largest output.  bfloat16: each rounds fp32 sums to
+# bf16, twice (x @ A, then the output): two bf16 ulps of the largest output.
+def lora_tol(dtype, k, want):
+    scale = float(want.double().abs().max())
+    return (1e-6 * k**0.5 if dtype == torch.float32 else 2.0**-6) * scale
+
+
+def lora_case(cuda, m, k, n, r, dtype, n_slots=8, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g).to(cuda, dtype)
+    w = ((torch.rand((k, n), generator=g) * 2 - 1) / k**0.5).to(cuda, dtype)
+    a_pool = (torch.randn((n_slots, 2, k, r), generator=g) / k**0.5).to(cuda)
+    b_pool = torch.randn((n_slots, 2, r, n), generator=g).to(cuda)
+    return x, w, a_pool[:, 1], b_pool[:, 1]  # a layer's slice: strided slots
+
+
+LORA_SHAPES = [(4096, 2048, 2048, 8), (8, 2048, 2048, 8), (129, 513, 130, 8), (5, 64, 40, 33)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,r", LORA_SHAPES)
+def test_lora_kernels_match_plain(cuda, dtype, m, k, n, r):
+    from repro_torch.kernels import lora_matmul as lm
+
+    x, w, a, b = lora_case(cuda, m, k, n, r, dtype)
+    got = lm.lora_matmul(x, w, a[2], b[2], 2.0)
+    assert torch.equal(got, lm.lora_matmul(x, w, a[2], b[2], 2.0))
+    want = ref.lora_matmul_ref(x, w, a[2], b[2], 2.0)
+    torch.testing.assert_close(got, want, atol=lora_tol(dtype, k, want), rtol=0)
+    rows = (torch.arange(m) * 8 // m).to(torch.int32)
+    slots = torch.tensor([1, 3, -1, 6, 1, 3, -1, 6], dtype=torch.int32)[rows].to(cuda)
+    got = lm.gathered_lora_matmul(x, w, a, b, slots, 2.0)
+    assert torch.equal(got, lm.gathered_lora_matmul(x, w, a, b, slots, 2.0))
+    want = ref.gathered_lora_matmul_ref(x, w, a, b, slots, 2.0)
+    torch.testing.assert_close(got, want, atol=lora_tol(dtype, k, want), rtol=0)
+    a_z, b_z = a.clone(), b.clone()
+    a_z[7], b_z[7] = 0.0, 0.0
+    zero = lm.gathered_lora_matmul(x, w, a_z, b_z, torch.where(slots < 0, 7, slots), 2.0)
+    assert torch.equal(got, zero)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,d,window", [(256, 512, 64, 0), (256, 300, 64, 0),
+                                           (256, 512, 64, 128), (7, 45, 32, 0), (3, 70, 32, 9)])
+def test_local_attention_kernel_matches_plain(cuda, dtype, bh, s, d, window):
+    from repro_torch.kernels import local_attention as la
+
+    g = torch.Generator().manual_seed(s + window)
+    q, k, v = (torch.randn((bh, s, d), generator=g).to(cuda, dtype) for _ in range(3))
+    got = la.local_attention(q, k, v, window=window)
+    assert torch.equal(got, la.local_attention(q, k, v, window=window))
+    want = ref.local_attention_ref(q, k, v, window=window)
+    # float32: online vs materialized softmax; bf16: one ulp of the largest output.
+    tol = 2e-5 if dtype == torch.float32 else 2.0**-7 * float(want.float().abs().max())
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_reduced_serving_card_matches_cpu(cuda):
+    """Reduced StableLM in float32 through the pool on the card (all three
+    kernels) against the same weights and adapters on the CPU."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import local_attention as la
+    from repro_torch.launch import serve
+    from repro_torch.models import init_lora_params, init_params
+    from repro_torch.serve import AdapterPool
+    from repro_torch.utils.pytree import tree_to
+
+    cfg = get_config("stablelm-1.6b").reduced()
+    base = init_params(cfg, seed=0, device=cuda)
+    cpu_base = copy.deepcopy(base).cpu()
+    pool = AdapterPool(init_lora_params(cfg, seed=1, device=cuda), 4)
+    cpu_pool = AdapterPool(tree_to(init_lora_params(cfg, seed=1, device=cuda), "cpu"), 4)
+    for i in range(3):
+        tree = init_lora_params(cfg, seed=2 + i, device=cuda)
+        for node in tree["groups"][0]["mixer"].values():
+            node["B"].normal_(0.0, 0.3, generator=torch.Generator(device=cuda).manual_seed(i))
+        pool.publish(f"t{i}", tree)
+        cpu_pool.publish(f"t{i}", tree_to(tree, "cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (4, 40), generator=torch.Generator().manual_seed(0))
+    pre, _ = serve.make_serving_fns(cfg)
+    before = (lm.gathered_lora_matmul.launches, la.local_attention.launches)
+    got, _ = pre(base, pool.pooled, pool.acquire(["t0", "t1", "t2", "t0"]),
+                 {"tokens": toks.to(cuda)})
+    assert (lm.gathered_lora_matmul.launches - before[0],
+            la.local_attention.launches - before[1]) == (2 * cfg.n_layers, cfg.n_layers)
+    want, _ = pre(cpu_base, cpu_pool.pooled, cpu_pool.acquire(["t0", "t1", "t2", "t0"]),
+                  {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)

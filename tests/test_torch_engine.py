@@ -53,6 +53,12 @@ def test_config_fields_match_reference():
     jf = [(f.name, f.default) for f in JConfig.__dataclass_fields__.values()]
     tf = [(f.name, f.default) for f in PortConfig.__dataclass_fields__.values()]
     assert jf == tf
+    # The model configs the served path reads, field for field.
+    from repro.config import ModelConfig as JModel
+    from repro_torch.config import ModelConfig as PortModel
+
+    assert ([(f.name, f.default) for f in JModel.__dataclass_fields__.values()]
+            == [(f.name, f.default) for f in PortModel.__dataclass_fields__.values()])
 
 
 def test_pack_unpack_roundtrip_and_layout():

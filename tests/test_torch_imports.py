@@ -47,3 +47,24 @@ def test_no_jax_or_reference_imports(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_every_module_imports_with_jax_blocked():
+    """With ``jax`` and ``repro`` made unimportable, every module of the
+    port — the serving slice's models, kernels, pool and launcher among
+    them — still imports."""
+    serving = {"repro_torch.models.model", "repro_torch.serve.pool", "repro_torch.launch.serve",
+               "repro_torch.kernels.lora_matmul", "repro_torch.kernels.local_attention",
+               "repro_torch.kernels.ops", "repro_torch.configs.stablelm_1_6b"}
+    assert serving <= set(MODULES)
+    code = (
+        "import importlib, sys\n"
+        "for blocked in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[blocked] = None\n"
+        f"for name in {MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
