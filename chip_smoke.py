@@ -8,7 +8,10 @@ Phases (any failed check raises and the script exits non-zero):
   1. Card: name and power limit (nvidia-smi), TF32 switched off.
   2. Build: the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source.
   3. Kernel checks, each kernel against its plain PyTorch version on the
-     card, two launches bit for bit, times by CUDA events:
+     card, two launches bit for bit; times are device time per call from
+     ``torch.profiler`` (``kernel_ms``, ``plain_ms``, ``library_ms``), with
+     the host-inclusive time per call by CUDA events beside them
+     (``call_ms``):
      ``admm_tail`` and ``subspace_apply`` at every bucket shape paths A and
      B launch them at (path B's ViT-B/32 LoRA bucket: 48 modules x 4096
      rows, 3072 of them live, 40 dense clients and 20 of 32; path A's
@@ -17,9 +20,15 @@ Phases (any failed check raises and the script exits non-zero):
      (M, K, N, R) = (4096, 2048, 2048, 8) (prefill q and v), (8, ...)
      (decode) and (129, 513, 130, 8), float32 and bf16, on a layer's slice
      of an 8-slot pool with 4 tenants, slot -1 the bits of a zero adapter,
-     one slot on every row equal to ``lora_matmul``; ``local_attention`` at
-     (BH, S, D) = (256, 512, 64), S = 300 and window 128, float32 and bf16,
-     beside ``F.scaled_dot_product_attention`` (timed only).
+     one slot on every row equal to ``lora_matmul``, also at Mamba-2's
+     ``in_proj`` (4096, 768, 3352) and ``out_proj`` (4096, 1536, 768);
+     ``local_attention`` at (BH, S, D) = (256, 512, 64), S = 300 and window
+     128, float32 and bf16, beside ``F.scaled_dot_product_attention`` (timed
+     only); ``ssd_scan`` (y and the final state) at (BH, S, P, N) =
+     (192, 512, 64, 128) and S = 300, the model's decays and weak ones, and
+     at odd widths; ``soft_threshold`` at path B's bucket flattened to
+     (196608, 40) and at (129, 130), float32 and bf16, equal bits, beside
+     ``F.softshrink`` (timed only).
   4. Main path A: ``run_simulation`` on a planted task at the width of one
      ViT-B/32 attention projection (768 x 768, LoRA rank 4), 20 clients,
      10 rounds of fedavg / fedrpca gram / fedrpca subspace; then 3 rounds of
@@ -41,12 +50,19 @@ Phases (any failed check raises and the script exits non-zero):
      its storage); and the serving run at depth 2 in float32 on the card and
      on the CPU.  Prefill seconds, decode tokens/s and peak memory beside the
      card's name and power limit.
-  7. The ``kernels`` JSON line, the wall time, then the result line.
+  7. Main path D: the same serving of ``configs/mamba2_130m.py`` at full
+     width (24 layers, bf16): pool, merged, one tenant, a profiled prefill
+     and decode window; the state handoff (decoding token S+1 after a
+     prefill of S tokens against a prefill of S+1, 24 layers in float32,
+     and the same decode from a zeroed state, which must miss); depth 2 in
+     float32 on the card and on the CPU.
+  8. Path E: ``ops.soft_threshold`` at ranks 3, 2 and 1.
+  9. The ``kernels`` JSON line, the wall time, then the result line.
 
 Kernel launch counts are set to 0 just before phase 4 and read just after
-phase 5, and set to 0 again just before phase 6 and read just after it;
-every kernel must have launched, and each phase exactly as often as its
-rounds, ADMM iterations, buckets, layers and decode steps say.
+phase 5, and set to 0 again just before each of phases 6, 7 and 8 and read
+just after it; every kernel must have launched, and each phase exactly as
+often as its rounds, ADMM iterations, buckets, layers and decode steps say.
 """
 from __future__ import annotations
 
@@ -95,7 +111,8 @@ def bf16_peak(name: str) -> float:
 
 def bench_ms(fn, reps: int = 20, batches: int = 5) -> float:
     """Median over ``batches`` of the mean time of ``reps`` back-to-back
-    calls, by CUDA events, after a warm-up."""
+    calls, by CUDA events, after a warm-up: the time a caller waits per
+    call, host dispatch included when it is slower than the device."""
     import torch
 
     for _ in range(3):
@@ -112,6 +129,31 @@ def bench_ms(fn, reps: int = 20, batches: int = 5) -> float:
         torch.cuda.synchronize()
         per.append(e0.elapsed_time(e1) / reps)
     return statistics.median(per)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: the durations of the kernels it
+    runs, from ``torch.profiler`` (device rows only), summed over ``reps``
+    calls after a warm-up and divided by ``reps``.  Host dispatch that is
+    slower than the kernels (a Python wrapper around a 20 us kernel) does
+    not count, as it does in ``bench_ms``; gaps between the kernels of one
+    call do not count either."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    total = sum(dev(e) for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+    if total <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    return total / reps / 1e3
 
 
 def max_abs(a, b) -> float:
@@ -218,7 +260,7 @@ def check_kernels(device, bw, flops) -> dict:
                 n_bytes = 4 * (6 * n + 2 * b * d2 * d2 + 3 * b + d2 + b)  # + P in, G' out
                 n_ops = 4 * n * d2 + 16 * n  # X @ P and X'^T X', plus the tail
             t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / flops * 1e3
-            ms, plain_ms = bench_ms(run), bench_ms(plain)
+            ms, plain_ms, call_ms = device_ms(run), device_ms(plain), bench_ms(run)
             rec[name] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
@@ -226,7 +268,7 @@ def check_kernels(device, bw, flops) -> dict:
             )
             print(f"[kernels] {name} main: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"bound_ms={rec[name]['bound_ms']:.4f} ({rec[name]['bound_by']}, "
-                  f"{n_bytes / 1e6:.1f} MB) library_ms=null", flush=True)
+                  f"{n_bytes / 1e6:.1f} MB) library_ms=null call_ms={call_ms:.4f}", flush=True)
     return rec
 
 # --- Serving kernels (phase 3) ------------------------------------------------
@@ -242,7 +284,8 @@ ATTN_F32_ATOL = 2e-5
 # bfloat16: the two fp32 results round to bf16 one ulp apart at most.
 ATTN_BF16_RTOL = 2.0**-7
 LORA_SHAPES = [(4096, 2048, 2048, 8, "prefill"), (8, 2048, 2048, 8, "decode"),
-               (129, 513, 130, 8, "ragged")]
+               (129, 513, 130, 8, "ragged"), (4096, 768, 3352, 8, "mamba2 in_proj"),
+               (4096, 1536, 768, 8, "mamba2 out_proj")]
 ATTN_SHAPES = [(256, 512, 64, 0, "prefill"), (256, 300, 64, 0, "ragged"),
                (256, 512, 64, 128, "window")]
 TENANT_SLOTS = (1, 3, 4, 6)  # 4 tenants resident in a pool of 8 slots
@@ -333,14 +376,14 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
             elt = x.element_size()
             n_ops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n
             base_bytes = elt * (m * k + k * n + m * n)
-            floor_ms = bench_ms(lambda: x @ w)
+            floor_ms = device_ms(lambda: x @ w)
             for name, run, plain, err, n_bytes in (
                 ("lora_matmul", run1, plain1, err1, base_bytes + 4 * (k * r + r * n)),
                 ("gathered_lora_matmul", rung, plaing, errg,
                  base_bytes + 4 * len(TENANT_SLOTS) * (k * r + r * n) + 4 * m),
             ):
                 t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / peak * 1e3
-                ms, plain_ms = bench_ms(run), bench_ms(plain)
+                ms, plain_ms, call_ms = device_ms(run), device_ms(plain), bench_ms(run)
                 out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=max(t_bytes, t_ops),
                            bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -348,7 +391,7 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
                 print(f"[kernels] {name} {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                       f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}, "
                       f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB) library_ms=null "
-                      f"cublas_x@W_ms={floor_ms:.4f}", flush=True)
+                      f"cublas_x@W_ms={floor_ms:.4f} call_ms={call_ms:.4f}", flush=True)
                 if label == "prefill":
                     rec[name] = out
     return rec
@@ -389,11 +432,11 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
             n_ops = 4 * d * pairs
             n_bytes = 4 * bh * s * d * q.element_size()
             t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / tensor_flops * 1e3
-            ms, plain_ms = bench_ms(run), bench_ms(plain)
+            ms, plain_ms, call_ms = device_ms(run), device_ms(plain), bench_ms(run)
             # SDPA on (1, BH, S, D): the four-dimensional layout its flash
             # backend takes.  Timed only; the port never calls it.
             q4, k4, v4 = (t[None] for t in (q, k, v))
-            lib_ms = (bench_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+            lib_ms = (device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
                       if window == 0 else None)
             out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -401,10 +444,136 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
             print(f"[kernels] local_attention {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}, {n_ops / 1e9:.2f} GFLOP, "
                   f"{n_bytes / 1e6:.1f} MB) "
-                  f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)}",
-                  flush=True)
+                  f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
+                  f"call_ms={call_ms:.4f}", flush=True)
             if label == "prefill":
                 rec["local_attention"] = out
+    return rec
+
+
+# ssd_scan against its plain sequential scan: the kernel sums each tile's
+# terms (tile 64, cumulative decays inside the tile) where the plain version
+# steps position by position, so fp32 sums of up to S * N products and exp of
+# cumulative decays (|cum| up to ~1e3 at the model's decays) round elsewhere;
+# held to 1e-4 of the largest output (y) or state entry (h).
+SSD_RTOL = 1e-4
+# (batch, heads, S, P, N, decay, label): B and C one group per batch row, as
+# the model passes them; "model" decays are -softplus(N(0, 1)) * A with A the
+# model's 1..16 per head, "weak" ones in [-1e-3, 0] (exp(cum) never
+# underflows, so the carried state dominates the output).
+SSD_CASES = [(8, 24, 512, 64, 128, "model", "prefill"), (8, 24, 512, 64, 128, "weak", "weak"),
+             (8, 24, 300, 64, 128, "model", "ragged"), (8, 24, 300, 64, 128, "weak", "ragged weak"),
+             (2, 3, 70, 40, 100, "weak", "odd widths")]
+SOFT_SHAPES = [(48 * 4096, 40, "path B bucket"), (129, 130, "ragged")]
+
+
+def ssd_inputs(bsz, heads, s, p, n, decay, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bh = bsz * heads
+    x = torch.randn((bh, s, p), generator=g, device="cuda")
+    if decay == "weak":
+        da = -1e-3 * torch.rand((bh, s), generator=g, device="cuda")
+    else:
+        dt = torch.nn.functional.softplus(torch.randn((bh, s), generator=g, device="cuda"))
+        da = -dt * torch.linspace(1.0, 16.0, heads, device="cuda").repeat(bsz)[:, None]
+    b, c = (torch.randn((bsz, s, n), generator=g, device="cuda") for _ in range(2))
+    return x, da, b, c
+
+
+def ssd_work(bh, s, p, n, groups):
+    """(operations, bytes) of the scan as the kernel's tile-64 algorithm
+    needs them for these shapes: per tile of L valid positions
+    2 * (L(L+1)/2 * (N + P) + 2 L N P), the upper triangle skipped; x, da,
+    B, C (once per group) read, y and the final state written, float32."""
+    ops, left = 0, s
+    while left > 0:
+        tile = min(64, left)
+        ops += 2 * (tile * (tile + 1) // 2 * (n + p) + 2 * tile * n * p)
+        left -= tile
+    n_bytes = 4 * (2 * bh * s * p + bh * s + 2 * groups * s * n + bh * n * p)
+    return bh * ops, n_bytes
+
+
+def check_ssd_kernel(bw, fp32_flops) -> dict:
+    """ssd_scan against its plain version (y and the final state), two
+    launches bit for bit; timed at the prefill shape."""
+    import torch
+    from repro_torch.kernels import ref, ssd_scan
+
+    rec = {}
+    for bsz, heads, s, p, n, decay, label in SSD_CASES:
+        x, da, b, c = ssd_inputs(bsz, heads, s, p, n, decay, s + p + n)
+        run = lambda: ssd_scan.ssd_scan(x, da, b, c, chunk=256, return_state=True)
+        plain = lambda: ref.ssd_scan_ref(x, da, b, c, 256, return_state=True)
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        tag = f"{label} (BH, S, P, N)=({bsz * heads}, {s}, {p}, {n}) {decay} decay"
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"ssd_scan {tag}: two launches differ")
+        errs = [check_close(g, w, SSD_RTOL * float(w.abs().max()), f"ssd_scan {tag} {what}")
+                for g, w, what in zip(got, want, ("y", "h"))]
+        peaks = [float(w.abs().max()) for w in want]
+        print(f"[kernels] ssd_scan {tag}: y err={errs[0]:.3g} (max {peaks[0]:.4g}), "
+              f"h err={errs[1]:.3g} (max {peaks[1]:.4g}), bitwise repeat", flush=True)
+        if label != "prefill":
+            continue
+        n_ops, n_bytes = ssd_work(bsz * heads, s, p, n, bsz)
+        t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / fp32_flops * 1e3
+        ms, plain_ms, call_ms = device_ms(run), device_ms(plain, reps=3), bench_ms(run)
+        rec["ssd_scan"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                               bound_ms=max(t_bytes, t_ops),
+                               bound_by="bytes" if t_bytes >= t_ops else "operations",
+                               library_ms=None)
+        print(f"[kernels] ssd_scan {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={rec['ssd_scan']['bound_ms']:.4f} ({rec['ssd_scan']['bound_by']}, "
+              f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB) library_ms=null "
+              f"(no single PyTorch call) call_ms={call_ms:.4f}", flush=True)
+    return rec
+
+
+def check_soft_threshold_kernel(bw, fp32_flops) -> dict:
+    """soft_threshold against its plain version, bit for bit (both round the
+    same fp32 difference once), with t a float and a 0-d tensor on the card;
+    timed beside ``F.softshrink`` (the same function for t >= 0, timed
+    only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, soft_threshold as st
+
+    rec = {}
+    for m, n, label in SOFT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(m + n)
+            x = torch.randn((m, n), generator=g, device="cuda").to(dtype)
+            for t in (0.05, torch.tensor(0.8, device="cuda")):
+                got, again = st.soft_threshold(x, t), st.soft_threshold(x, t)
+                want = ref.soft_threshold_ref(x, torch.as_tensor(t, dtype=dtype).cuda())
+                torch.cuda.synchronize()
+                tag = f"{label} ({m}, {n}) {str(dtype)[6:]} t={float(t)}"
+                if not (torch.equal(got, again) and torch.equal(got, want)):
+                    raise AssertionError(f"soft_threshold {tag}: {max_abs(got, want)} from the "
+                                         "plain version or two launches differ")
+            print(f"[kernels] soft_threshold {label} ({m}, {n}) {str(dtype)[6:]}: equal to the "
+                  f"plain version bit for bit, t a float and a card tensor", flush=True)
+            if label != "path B bucket":
+                continue
+            run = lambda: st.soft_threshold(x, 0.05)
+            t_dev = torch.tensor(0.05, dtype=dtype, device="cuda")
+            plain = lambda: ref.soft_threshold_ref(x, t_dev)
+            n_bytes, n_ops = 2 * x.numel() * x.element_size(), 3 * x.numel()
+            t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / fp32_flops * 1e3
+            ms, plain_ms, call_ms = device_ms(run), device_ms(plain), bench_ms(run)
+            lib_ms = device_ms(lambda: F.softshrink(x, 0.05))
+            out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lib_ms)
+            print(f"[kernels] soft_threshold {label} ({m}, {n}) {str(dtype)[6:]}: "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={out['bound_ms']:.4f} "
+                  f"({out['bound_by']}, {n_bytes / 1e6:.1f} MB) library_ms={lib_ms:.4f} "
+                  f"(F.softshrink) call_ms={call_ms:.4f}", flush=True)
+            if dtype == torch.float32:
+                rec["soft_threshold"] = out
     return rec
 
 
@@ -643,7 +812,7 @@ def serve_once(base, pool, cfg, adapter_ids, prompts, gen):
     for i, aid in enumerate(adapter_ids):
         sched.submit(serve.Request(i, aid, prompts[i]))
     prefill, decode = serve.make_serving_fns(cfg)
-    rec = {"decode_logits": [], "t": {}}
+    rec = {"decode_logits": [], "t": {}, "prompt_len": len(prompts[0])}
 
     def timed_prefill(*args):
         torch.cuda.synchronize()
@@ -677,7 +846,7 @@ def decode_again(base, pool, cfg, rec, gen):
 
     _, decode = serve.make_serving_fns(cfg)
     tok, caches, logits_out, toks = rec["first_tok"], rec["caches"], [], [rec["first_tok"]]
-    prompt_len = rec["caches"]["groups"][0]["self"].k.shape[-3] - gen
+    prompt_len = rec["prompt_len"]
     for i in range(gen - 1):
         logits, caches = decode(base, pool.pooled, rec["slots"], tok, caches, prompt_len + i)
         tok = serve.greedy(logits)
@@ -686,33 +855,122 @@ def decode_again(base, pool, cfg, rec, gen):
     return logits_out, torch.cat(toks, dim=1)
 
 
-def profile_decode(base, pool, cfg, rec, steps: int):
-    """``steps`` greedy decode steps from the recorded prefill state under
-    ``torch.profiler``: (host seconds, device-busy seconds or None when the
-    profiler sees no device time, the five kernels with the most device
-    time).  The steps rewrite the cache positions the serving run wrote,
-    with the same values."""
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: (host seconds, device-busy seconds
+    or None when the profiler sees no device time, the five kernels with the
+    most device time as (name, ms, calls)).  Only device rows count: a CPU
+    op's row carries the time of the kernels it launched, which have rows of
+    their own."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch import serve
 
-    _, decode = serve.make_serving_fns(cfg)
-    prompt_len = rec["caches"]["groups"][0]["self"].k.shape[-3] - C_GEN
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tok = rec["first_tok"]
-        for i in range(steps):
-            logits, _ = decode(base, pool.pooled, rec["slots"], tok, rec["caches"],
-                               prompt_len + i)
-            tok = serve.greedy(logits)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    events = [e for e in prof.key_averages() if dev(e) > 0]
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU and dev(e) > 0]
     busy = sum(dev(e) for e in events) / 1e6
     top = sorted(events, key=dev, reverse=True)[:5]
     return wall, (busy or None), [(e.key[:60], round(dev(e) / 1e3, 3), e.count) for e in top]
+
+
+def profile_decode(base, pool, cfg, rec, steps: int):
+    """``steps`` greedy decode steps from the recorded caches under
+    ``torch.profiler`` (see ``profiled``).  The steps rewrite the KV cache
+    positions the serving run wrote, with the same values; a recurrent
+    state advances past the served tokens."""
+    from repro_torch.launch import serve
+
+    _, decode = serve.make_serving_fns(cfg)
+
+    def run():
+        tok = rec["first_tok"]
+        for i in range(steps):
+            logits, _ = decode(base, pool.pooled, rec["slots"], tok, rec["caches"],
+                               rec["prompt_len"] + i)
+            tok = serve.greedy(logits)
+
+    return profiled(run)
+
+
+def launch_checker(counts, path: str):
+    """(launched, expect, phase) for a path: ``launched(since)`` is the
+    launch counts since the snapshot ``since``; ``expect(name, got, **want)``
+    raises unless ``got`` equals ``want`` (0 for every kernel not named) and
+    records it in ``phase`` under ``name``."""
+    phase = {}
+
+    def launched(since):
+        return {k: v - since[k] for k, v in counts().items()}
+
+    def expect(name, got, **want):
+        full = {k: want.get(k, 0) for k in got}
+        if got != full:
+            raise AssertionError(f"{path} {name}: launches {got} != {full}")
+        phase[name] = got
+
+    return launched, expect, phase
+
+
+def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
+                prefill_launches: dict):
+    """The serving run at full width, depth 2, in float32, on the card and on
+    the CPU from the same weights and adapters: 4 requests of 4 tenants, a
+    64-token prompt, then 3 decode steps of the card's greedy tokens on both
+    devices; logits within ``C_CARD_CPU_RTOL`` of the largest.  The card's
+    prefill launches ``prefill_launches`` and each decode step 2 gathered
+    launches a layer."""
+    import copy
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    from repro_torch.serve import AdapterPool
+    from repro_torch.utils.pytree import tree_to
+
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    base2 = init_params(cfg2, seed=5, device=DEVICE)
+    cpu_base = copy.deepcopy(base2).cpu()
+    pools = {"card": AdapterPool(tenant_adapter(cfg2, 98), 4),
+             "cpu": AdapterPool(tree_to(tenant_adapter(cfg2, 98), "cpu"), 4)}
+    for i in range(4):
+        tree = tenant_adapter(cfg2, 200 + i)
+        pools["card"].publish(f"tenant-{i}", tree)
+        pools["cpu"].publish(f"tenant-{i}", tree_to(tree, "cpu"))
+    prompts2 = torch.as_tensor(rng.integers(0, cfg2.vocab_size, size=(4, 64)))
+    prefill, decode = serve.make_serving_fns(cfg2)
+    runs = {"card": (DEVICE, base2), "cpu": ("cpu", cpu_base)}
+    logits_of, state = {"card": [], "cpu": []}, {}
+    before = counts()
+    for key, (dev, b_) in runs.items():
+        slots = pools[key].acquire([f"tenant-{i}" for i in range(4)])
+        logits, caches = prefill(b_, pools[key].pooled, slots, {"tokens": prompts2.to(dev)})
+        logits_of[key].append(logits.cpu())
+        state[key] = (slots, serve.extend_caches(caches, 4, cfg2))
+    expect("card vs CPU prefill", launched(before), **prefill_launches)
+    before = counts()
+    tok = serve.greedy(logits_of["card"][0])
+    for i in range(3):  # both devices decode the card's greedy tokens
+        for key, (dev, b_) in runs.items():
+            slots, caches = state[key]
+            logits, _ = decode(b_, pools[key].pooled, slots, tok.to(dev), caches, 64 + i)
+            logits_of[key].append(logits.cpu())
+        tok = serve.greedy(logits_of["card"][-1])
+    expect("card vs CPU decode", launched(before), gathered_lora_matmul=2 * 2 * 3)
+    errs = []
+    for g_, c_ in zip(logits_of["card"], logits_of["cpu"]):
+        err, scale = max_abs(g_, c_), float(c_.abs().max())
+        if not bool(torch.isfinite(g_).all()) or err > C_CARD_CPU_RTOL * scale:
+            raise AssertionError(f"{path} card vs CPU: {err} > {C_CARD_CPU_RTOL} * {scale}")
+        errs.append(err)
+    print(f"[{path}] {card} | card vs CPU, depth 2 float32, 4 requests x 64 prompt + 4 "
+          f"tokens: prefill and decode logits max|err| {[f'{e:.3g}' for e in errs]} (max|logit| "
+          f"{float(logits_of['cpu'][0].abs().max()):.4g})", flush=True)
 
 
 def main_path_c(counts, card: str) -> dict:
@@ -722,8 +980,6 @@ def main_path_c(counts, card: str) -> dict:
     aggregate into tenant 0 and decode again; and the same serving run at
     depth 2 in float32 on the card and on the CPU.  Returns the launch
     counts of the run."""
-    import copy
-
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -733,21 +989,12 @@ def main_path_c(counts, card: str) -> dict:
     from repro_torch.models import forward, init_params
     from repro_torch.models.model import param_count
     from repro_torch.serve import AdapterPool
-    from repro_torch.utils.pytree import tree_leaves, tree_to
+    from repro_torch.utils.pytree import tree_leaves
 
     cfg = get_config(C_ARCH)
     n_l = cfg.n_layers
     start = counts()
-    phase = {}
-
-    def launched(since):
-        return {k: v - since[k] for k, v in counts().items()}
-
-    def expect(name, got, **want):
-        full = {k: want.get(k, 0) for k in got}
-        if got != full:
-            raise AssertionError(f"path C {name}: launches {got} != {full}")
-        phase[name] = got
+    launched, expect, phase = launch_checker(counts, "path C")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -853,47 +1100,198 @@ def main_path_c(counts, card: str) -> dict:
           flush=True)
     del base, pool, trees, rec, new_logits, deltas, update
 
-    # Card vs CPU: the same serving run at full width, depth 2, float32.
-    cfg2 = cfg.replace(n_layers=2, dtype="float32")
-    base2 = init_params(cfg2, seed=5, device=DEVICE)
-    cpu_base = copy.deepcopy(base2).cpu()
-    pools = {"card": AdapterPool(tenant_adapter(cfg2, 98), 4),
-             "cpu": AdapterPool(tree_to(tenant_adapter(cfg2, 98), "cpu"), 4)}
-    for i in range(4):
-        tree = tenant_adapter(cfg2, 200 + i)
-        pools["card"].publish(f"tenant-{i}", tree)
-        pools["cpu"].publish(f"tenant-{i}", tree_to(tree, "cpu"))
-    prompts2 = torch.as_tensor(rng.integers(0, cfg2.vocab_size, size=(4, 64)))
-    prefill, decode = serve.make_serving_fns(cfg2)
-    runs = {"card": (DEVICE, base2), "cpu": ("cpu", cpu_base)}
-    logits_of, state = {"card": [], "cpu": []}, {}
-    before = counts()
-    for key, (dev, b_) in runs.items():
-        slots = pools[key].acquire([f"tenant-{i}" for i in range(4)])
-        logits, caches = prefill(b_, pools[key].pooled, slots, {"tokens": prompts2.to(dev)})
-        logits_of[key].append(logits.cpu())
-        state[key] = (slots, serve.extend_caches(caches, 4, cfg2))
-    expect("card vs CPU prefill", launched(before), gathered_lora_matmul=4, local_attention=2)
-    before = counts()
-    tok = serve.greedy(logits_of["card"][0])
-    for i in range(3):  # both devices decode the card's greedy tokens
-        for key, (dev, b_) in runs.items():
-            slots, caches = state[key]
-            logits, _ = decode(b_, pools[key].pooled, slots, tok.to(dev), caches, 64 + i)
-            logits_of[key].append(logits.cpu())
-        tok = serve.greedy(logits_of["card"][-1])
-    expect("card vs CPU decode", launched(before), gathered_lora_matmul=4 * 3)
-    errs = []
-    for g_, c_ in zip(logits_of["card"], logits_of["cpu"]):
-        err, scale = max_abs(g_, c_), float(c_.abs().max())
-        if not bool(torch.isfinite(g_).all()) or err > C_CARD_CPU_RTOL * scale:
-            raise AssertionError(f"path C card vs CPU: {err} > {C_CARD_CPU_RTOL} * {scale}")
-        errs.append(err)
-    print(f"[path C] {card} | card vs CPU, depth 2 float32, 4 requests x 64 prompt + 4 "
-          f"tokens: prefill and decode logits max|err| {[f'{e:.3g}' for e in errs]} (max|logit| "
-          f"{float(logits_of['cpu'][0].abs().max()):.4g})", flush=True)
+    card_vs_cpu(cfg, rng, "path C", card, counts, launched, expect,
+                dict(gathered_lora_matmul=4, local_attention=2))
     total = launched(start)
     print(f"[path C] {card} | launches {total} by phase {phase}", flush=True)
+    return total
+
+
+# --- Path D: multi-tenant serving of Mamba-2 -----------------------------------
+D_ARCH = "mamba2-130m"
+D_BATCH, D_PROMPT, D_GEN, D_TENANTS, D_SLOTS = 8, 512, 32, 4, 8
+# State handoff: a prefill of D_HANDOFF tokens (not a multiple of the kernel's
+# 64-position tile), then one decode step, against a prefill of one token
+# more, all 24 layers in float32 through the pool.  The last position is
+# computed by the chunked kernel in one run and by the plain decode
+# recurrence from the kernel's final state in the other: fp32 sums in other
+# orders over 24 layers, held to 1e-4 of the largest logit.  The same decode
+# from a zeroed state must fail that bound, or the check could not see a
+# broken state.
+D_HANDOFF = 300
+D_HANDOFF_RTOL = 1e-4
+
+
+def main_path_d(counts, card: str) -> dict:
+    """Serve full-width Mamba-2-130M (24 layers, bf16) to 8 requests of 4
+    tenants through the pool, then through the merged adapter; check one
+    tenant on every row against its plain 2-D adapter; hand the prefill's
+    final state to decode and compare with a longer prefill; and the same
+    serving run at depth 2 in float32 on the card and on the CPU.  Returns
+    the launch counts of the run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.model import param_count
+    from repro_torch.serve import AdapterPool
+
+    cfg = get_config(D_ARCH)
+    n_l = cfg.n_layers
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path D")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = init_params(cfg, seed=0, device=DEVICE)
+    trees = [tenant_adapter(cfg, 300 + i) for i in range(D_TENANTS)]
+    pool = AdapterPool(tenant_adapter(cfg, 299), D_SLOTS)
+    for i, tree in enumerate(trees):
+        pool.publish(f"tenant-{i}", tree)
+    torch.cuda.synchronize()
+    print(f"[path D] {card} | {D_ARCH}: {param_count(base) / 1e6:.1f} M parameters "
+          f"({cfg.dtype}), {n_l} layers, pool {len(pool)}/{pool.n_slots} slots, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size, size=(D_BATCH, D_PROMPT))
+    ids = [f"tenant-{i % D_TENANTS}" for i in range(D_BATCH)]
+
+    before = counts()
+    rec = serve_once(base, pool, cfg, ids, prompts, D_GEN)
+    expect("pool", launched(before), gathered_lora_matmul=2 * n_l * D_GEN, ssd_scan=n_l)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    all_logits = [rec["prefill_logits"]] + rec["decode_logits"]
+    if not all(bool(torch.isfinite(x).all()) for x in all_logits):
+        raise AssertionError("path D: non-finite logits on the pool path")
+    t = rec["t"]
+    tok_s = D_BATCH * (D_GEN - 1) / t["decode_s"]
+    print(f"[path D] {card} | pool: prefill {D_BATCH}x{D_PROMPT} tokens {t['prefill_s']:.4f} s, "
+          f"decode {D_GEN - 1} steps {t['decode_s']:.4f} s = {tok_s:.1f} tokens/s, peak memory "
+          f"{peak_gb:.3f} GB, launches {phase['pool']} (ssd_scan = {n_l} layers x 1 prefill)",
+          flush=True)
+    print(f"[path D] pool continuations (first 8 tokens): {rec['tokens'][:, :8].tolist()}",
+          flush=True)
+
+    toks = torch.as_tensor(prompts, device=DEVICE)
+    prefill, _ = serve.make_serving_fns(cfg)
+    slots = pool.acquire(ids)
+    before = counts()
+    wall, busy, top = profiled(lambda: prefill(base, pool.pooled, slots, {"tokens": toks}))
+    expect("profile prefill", launched(before), gathered_lora_matmul=2 * n_l, ssd_scan=n_l)
+    share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
+    print(f"[path D] {card} | one prefill under torch.profiler: host {wall:.4f} s, device "
+          f"{share} of it; top kernels by device ms (name, ms, calls): {top}", flush=True)
+    before = counts()
+    wall, busy, top = profile_decode(base, pool, cfg, rec, C_PROFILE_STEPS)
+    expect("profile decode", launched(before), gathered_lora_matmul=2 * n_l * C_PROFILE_STEPS)
+    share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
+    print(f"[path D] {card} | {C_PROFILE_STEPS} decode steps under torch.profiler: host "
+          f"{wall:.4f} s, device {share} of it; top kernels by device ms (name, ms, "
+          f"calls): {top}", flush=True)
+
+    merged = pool.merged()
+    before = counts()
+    t1 = time.perf_counter()
+    merged_tokens = serve.serve_merged(base, merged, toks, cfg, gen=D_GEN)
+    torch.cuda.synchronize()
+    t_merged = time.perf_counter() - t1
+    merged_logits = forward(base, merged, {"tokens": toks}, cfg, mode="prefill")[0]
+    expect("merged", launched(before), lora_matmul=2 * n_l * (D_GEN + 1), ssd_scan=2 * n_l)
+    gaps = [float((rec["prefill_logits"][i] - merged_logits[i]).abs().max())
+            for i in range(D_BATCH)]
+    if not bool(torch.isfinite(merged_logits).all()) or min(gaps) <= 0.0:
+        raise AssertionError(f"path D: per-tenant logits do not differ from merged: {gaps}")
+    same_tokens = int((merged_tokens == rec["tokens"]).all(dim=1).sum())
+    print(f"[path D] {card} | merged: {D_GEN} tokens in {t_merged:.4f} s; per-request max "
+          f"|pool - merged| prefill logit {min(gaps):.4g}..{max(gaps):.4g}; requests with "
+          f"identical continuations {same_tokens}/{D_BATCH}; launches {phase['merged']}",
+          flush=True)
+
+    before = counts()
+    one_pool = prefill(base, pool.pooled, pool.acquire(["tenant-1"] * D_BATCH),
+                       {"tokens": toks})[0]
+    one_plain = forward(base, trees[1], {"tokens": toks}, cfg, mode="prefill")[0]
+    expect("one tenant", launched(before), gathered_lora_matmul=2 * n_l, lora_matmul=2 * n_l,
+           ssd_scan=2 * n_l)
+    err = max_abs(one_pool, one_plain)
+    scale = float(one_plain.abs().max())
+    if err > C_ONE_TENANT_RTOL * scale:
+        raise AssertionError(f"path D: one tenant via pool vs 2-D adapter {err} > "
+                             f"{C_ONE_TENANT_RTOL} * {scale}")
+    print(f"[path D] {card} | one tenant on every row, pool (gathered) vs 2-D adapter "
+          f"(lora_matmul): max|err| {err:.4g} (max|logit| {scale:.4g}, bitwise "
+          f"{bool(err == 0.0)})", flush=True)
+    del base, pool, trees, rec, merged, merged_logits
+
+    # State handoff at full depth in float32.
+    cfg32 = cfg.replace(dtype="float32")
+    base32 = init_params(cfg32, seed=3, device=DEVICE)
+    pool32 = AdapterPool(tenant_adapter(cfg32, 399), 4)
+    for i in range(4):
+        pool32.publish(f"tenant-{i}", tenant_adapter(cfg32, 400 + i))
+    slots32 = pool32.acquire([f"tenant-{i}" for i in range(4)])
+    long_toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4, D_HANDOFF + 1)),
+                                device=DEVICE)
+    prefill32, decode32 = serve.make_serving_fns(cfg32)
+    before = counts()
+    _, caches = prefill32(base32, pool32.pooled, slots32, {"tokens": long_toks[:, :-1]})
+    caches = serve.extend_caches(caches, 1, cfg32)
+    kept = {"groups": tuple({"self": type(g["self"])(*(x.clone() for x in g["self"]))}
+                            for g in caches["groups"]), "tail": ()}
+    step = decode32(base32, pool32.pooled, slots32, long_toks[:, -1:], kept, D_HANDOFF)[0]
+    whole = prefill32(base32, pool32.pooled, slots32, {"tokens": long_toks})[0]
+    for g in caches["groups"]:
+        g["self"].h.zero_()
+    no_state = decode32(base32, pool32.pooled, slots32, long_toks[:, -1:], caches,
+                        D_HANDOFF)[0]
+    expect("state handoff", launched(before), gathered_lora_matmul=2 * n_l * 4,
+           ssd_scan=2 * n_l)
+    err, scale = max_abs(step, whole), float(whole.abs().max())
+    miss = max_abs(no_state, whole)
+    if not bool(torch.isfinite(step).all()) or err > D_HANDOFF_RTOL * scale:
+        raise AssertionError(f"path D state handoff: {err} > {D_HANDOFF_RTOL} * {scale}")
+    if miss <= D_HANDOFF_RTOL * scale:
+        raise AssertionError(f"path D state handoff: a zeroed state passes too ({miss})")
+    print(f"[path D] {card} | state handoff, 24 layers float32: decode of token "
+          f"{D_HANDOFF + 1} after a {D_HANDOFF}-token prefill vs a {D_HANDOFF + 1}-token "
+          f"prefill: max|err| {err:.4g} (max|logit| {scale:.4g}); from a zeroed state "
+          f"{miss:.4g}", flush=True)
+    del base32, pool32, caches, kept
+
+    card_vs_cpu(cfg, rng, "path D", card, counts, launched, expect,
+                dict(gathered_lora_matmul=4, ssd_scan=2))
+    total = launched(start)
+    print(f"[path D] {card} | launches {total} by phase {phase}", flush=True)
+    return total
+
+
+# --- Path E: the ops.soft_threshold entry point ---------------------------------
+def main_path_e(counts) -> dict:
+    """``ops.soft_threshold``, the only caller of the soft-threshold kernel in
+    the reference, at ranks 3, 2 and 1 on path B's bucket shape, float32 and
+    bf16, t a float and a 0-d tensor on the card; equal bits to the plain
+    version.  Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    start = counts()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x3 = torch.randn((48, 4096, 40), generator=g, device="cuda")
+    calls = [(x3, 0.05), (x3.reshape(-1, 40).to(torch.bfloat16), 0.05),
+             (x3.reshape(-1), torch.tensor(0.5, device="cuda"))]
+    for x, t in calls:
+        got = ops.soft_threshold(x, t)
+        want = ref.soft_threshold_ref(x, torch.as_tensor(t, dtype=x.dtype).cuda())
+        if got.shape != x.shape or not torch.equal(got, want):
+            raise AssertionError(f"path E: ops.soft_threshold at {tuple(x.shape)} "
+                                 f"{x.dtype}: {max_abs(got, want)} from the plain version")
+    total = {k: v - start[k] for k, v in counts().items()}
+    want = {k: (len(calls) if k == "soft_threshold" else 0) for k in total}
+    if total != want:
+        raise AssertionError(f"path E: launches {total} != {want}")
+    print(f"[path E] ops.soft_threshold at ranks 3, 2, 1 of (48, 4096, 40), float32 and "
+          f"bf16: equal to the plain version bit for bit; launches {total}", flush=True)
     return total
 
 
@@ -925,7 +1323,7 @@ def main() -> int:
 
     # Phase 2: build.
     from repro_torch.kernels import (backend, local_attention, lora_matmul, rpca_admm,
-                                     svt_subspace)
+                                     soft_threshold, ssd_scan, svt_subspace)
 
     t0 = time.perf_counter()
     libs = backend.build_all()
@@ -935,13 +1333,16 @@ def main() -> int:
     rec = check_kernels("cuda", bw, flops)
     rec.update(check_lora_kernels(bw, flops, tensor_flops))
     rec.update(check_attention_kernel(bw, flops, tensor_flops))
+    rec.update(check_ssd_kernel(bw, flops))
+    rec.update(check_soft_threshold_kernel(bw, flops))
 
     regime_probe()
 
     wrappers = {"admm_tail": rpca_admm.admm_tail, "subspace_apply": svt_subspace.subspace_apply,
                 "lora_matmul": lora_matmul.lora_matmul,
                 "gathered_lora_matmul": lora_matmul.gathered_lora_matmul,
-                "local_attention": local_attention.local_attention}
+                "local_attention": local_attention.local_attention,
+                "ssd_scan": ssd_scan.ssd_scan, "soft_threshold": soft_threshold.soft_threshold}
     counts = lambda: {k: w.launches for k, w in wrappers.items()}
 
     def zero_counts():
@@ -958,7 +1359,14 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_c = main_path_c(counts, smi)
     print(f"[main path C] {time.perf_counter() - t0:.1f} s, launches {launches_c}", flush=True)
-    launches = {k: launches_ab[k] + launches_c[k] for k in wrappers}
+    zero_counts()
+    t0 = time.perf_counter()
+    launches_d = main_path_d(counts, smi)
+    print(f"[main path D] {time.perf_counter() - t0:.1f} s, launches {launches_d}", flush=True)
+    zero_counts()
+    launches_e = main_path_e(counts)
+    launches = {k: launches_ab[k] + launches_c[k] + launches_d[k] + launches_e[k]
+                for k in wrappers}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on the main path")
@@ -971,6 +1379,8 @@ def main() -> int:
         "gathered_lora_matmul": (csrc + "lora_matmul.cu", "src/repro/kernels/lora_matmul.py:271"),
         "local_attention": (csrc + "local_attention.cu",
                             "src/repro/kernels/local_attention.py:99"),
+        "ssd_scan": (csrc + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:78"),
+        "soft_threshold": (csrc + "soft_threshold.cu", "src/repro/kernels/soft_threshold.py:46"),
     }
     kernels = []
     for name in wrappers:

@@ -1,9 +1,10 @@
 """Architecture registry of the port: the configs the slices so far run.
 
-``get_config(arch_id)`` returns the config of ``stablelm-1.6b`` (served by
-``repro_torch.launch.serve``) or ``paper-vit-b32`` (the LoRA geometry of
-the aggregation paths).  The reference's other architecture ids are known
-but not ported: they raise ``NotImplementedError``.
+``get_config(arch_id)`` returns the config of ``stablelm-1.6b`` or
+``mamba2-130m`` (served by ``repro_torch.launch.serve``) or
+``paper-vit-b32`` (the LoRA geometry of the aggregation paths).  The
+reference's other architecture ids are known but not ported: they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from repro_torch.config import ModelConfig
 
 _ARCH_MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
+    "mamba2-130m": "mamba2_130m",
     "paper-vit-b32": "paper_vit_b32",
 }
 
@@ -24,7 +26,6 @@ NOT_PORTED = (
     "qwen1.5-32b",
     "deepseek-67b",
     "whisper-medium",
-    "mamba2-130m",
     "granite-moe-1b-a400m",
     "gemma-7b",
 )

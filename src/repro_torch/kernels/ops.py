@@ -7,6 +7,17 @@ import torch
 
 from repro_torch.kernels import local_attention as _la
 from repro_torch.kernels import lora_matmul as _lm
+from repro_torch.kernels import soft_threshold as _st
+from repro_torch.kernels import ssd_scan as _ss
+
+
+def soft_threshold(x, t) -> torch.Tensor:
+    """Kernel-backed shrinkage sign(x) * max(|x| - t, 0) for x of any rank,
+    reshaped to 2-D as the reference reshapes it: (-1, last axis), or one
+    row for rank 0 and 1."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1]) if x.ndim >= 2 else x.reshape(1, -1)
+    return _st.soft_threshold(x2.contiguous(), t).reshape(shape)
 
 
 def lora_matmul(x, w, a, b, scale: float = 1.0) -> torch.Tensor:
@@ -51,3 +62,10 @@ def local_attention(q, k, v, *, window: int = 0, causal: bool = True) -> torch.T
     fold = lambda t: t.transpose(1, 2).reshape(bsz * h, s, d)
     out = _la.local_attention(fold(q), fold(k), fold(v), window=window, causal=causal)
     return out.reshape(bsz, h, s, d).transpose(1, 2)
+
+
+def ssd_scan(x, da, b, c, *, chunk: int = 256, return_state: bool = False):
+    """Mamba-2 SSD scan over x (BH, S, P), da (BH, S) and b, c (G, S, N)
+    (see ``kernels.ssd_scan.ssd_scan``); with ``return_state`` also the final
+    state (BH, N, P)."""
+    return _ss.ssd_scan(x, da, b, c, chunk=chunk, return_state=return_state)

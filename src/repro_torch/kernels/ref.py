@@ -98,3 +98,29 @@ def local_attention_ref(q, k, v, *, window: int, causal: bool = True) -> torch.T
     scores = torch.where(mask[None], scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def ssd_scan_ref(x, da, b, c, chunk: int = 256, *, h0=None, return_state: bool = False):
+    """Mamba-2 SSD core, y_t = sum_{j<=t} C_t . B_j exp(sum_{j<k<=t} da_k) x_j,
+    by the sequential scan h_t = exp(da_t) h_{t-1} + B_t^T x_t, y_t = C_t h_t
+    (twin of ``ref.ssd_scan_ref``; exact, so ``chunk`` is unused).
+
+    x (BH, S, P), da (BH, S); b and c (G, S, N) with G dividing BH, row bh
+    reading group bh // (BH // G) (G = BH: one per row).  float32 inside,
+    y in x's dtype.  ``h0`` (BH, N, P) is the state before position 0
+    (zero when None); with ``return_state`` also returns the final state
+    (BH, N, P) in float32.
+    """
+    del chunk
+    bh, s, p = x.shape
+    rep = bh // b.shape[0]
+    xf, daf = x.float(), da.float()
+    bf, cf = (t.float().repeat_interleave(rep, dim=0) for t in (b, c))
+    h = (torch.zeros((bh, b.shape[-1], p), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        h = torch.exp(daf[:, t])[:, None, None] * h + bf[:, t, :, None] * xf[:, t, None, :]
+        ys.append(torch.einsum("bn,bnp->bp", cf[:, t], h))
+    y = (torch.stack(ys, dim=1) if ys else xf.new_zeros((bh, 0, p))).to(x.dtype)
+    return (y, h) if return_state else y

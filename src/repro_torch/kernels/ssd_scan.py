@@ -1,0 +1,91 @@
+"""Mamba-2 SSD chunked scan: the CUDA kernel and its wrapper.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan.py::ssd_scan``:
+the selective-state recurrence h_t = exp(da_t) h_{t-1} + B_t^T x_t,
+y_t = C_t h_t over (BH, S) rows, in the chunked dual form (intra-chunk
+``(L o C B^T) x`` plus the carried state).  The kernel
+(``csrc/ssd_scan.cu``) also writes the final state, which prefill hands to
+decode; see the source note for its tiling.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import backend, ref
+
+_C = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: Largest state width N the kernel is built for.
+MAX_STATE = 128
+
+
+def _lib():
+    lib = backend.load_library("ssd_scan")
+    lib.repro_ssd_scan.argtypes = [_C] * 6 + [_I] * 5 + [_C]
+    lib.repro_ssd_scan.restype = _I
+    return lib
+
+
+def _check(x, da, b, c, chunk):
+    if x.ndim != 3 or da.shape != x.shape[:2]:
+        raise ValueError(f"expected x (BH, S, P) and da (BH, S), got {tuple(x.shape)} "
+                         f"{tuple(da.shape)}")
+    if b.ndim != 3 or b.shape != c.shape or b.shape[1] != x.shape[1]:
+        raise ValueError(f"b {tuple(b.shape)} and c {tuple(c.shape)} are not (G, S, N) "
+                         f"with S = {x.shape[1]}")
+    if b.shape[0] < 1 or x.shape[0] % b.shape[0]:
+        raise ValueError(f"{b.shape[0]} groups of b and c do not divide {x.shape[0]} rows")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+
+def ssd_scan(x, da, b, c, *, chunk: int = 256, return_state: bool = False):
+    """y (BH, S, P) of the SSD scan, and with ``return_state`` the final
+    state (BH, N, P) in float32.
+
+    x (BH, S, P) holds the dt-premultiplied inputs, da (BH, S) the
+    log-decays; b and c are (G, S, N) with G dividing BH: row bh reads
+    group bh // (BH // G), so a single group shared by a batch row's heads
+    is read where it lies (G = batch) rather than copied per head.  The
+    result does not depend on ``chunk`` in exact arithmetic; the kernel
+    tiles by 64 positions.  CPU tensors compute ``ref.ssd_scan_ref``; CUDA
+    tensors (contiguous float32, N <= ``MAX_STATE``) launch the kernel.
+    """
+    _check(x, da, b, c, chunk)
+    if not backend.use_kernel(x):
+        return ref.ssd_scan_ref(x, da, b, c, chunk, return_state=return_state)
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    for t in (da, b, c):
+        if t.device != x.device:
+            raise ValueError(f"ssd_scan: tensors on {t.device} and {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan takes float32 on CUDA, got {t.dtype}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"ssd_scan takes float32 on CUDA, got {x.dtype}")
+    if not all(t.is_contiguous() for t in (x, da, b, c)):
+        raise ValueError("ssd_scan takes contiguous tensors on CUDA")
+    if n > MAX_STATE or bh > 65535 or x.numel() >= 2**31 or b.numel() >= 2**31:
+        raise ValueError(f"ssd_scan: (BH, S, P, N) = {(bh, s, p, n)} exceeds the kernel")
+    y = torch.empty_like(x)
+    h = torch.zeros((bh, n, p), dtype=torch.float32, device=x.device) if return_state else None
+    if p == 0 or n == 0:
+        if s:
+            y.zero_()
+        return (y, h) if return_state else y
+    with torch.cuda.device(x.device):
+        err = _lib().repro_ssd_scan(
+            x.data_ptr(), da.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+            None if h is None else h.data_ptr(), bh, s, p, n, bh // b.shape[0],
+            backend.stream_ptr(x),
+        )
+    backend.check_launch(err, "ssd_scan")
+    ssd_scan.launches += 1
+    return (y, h) if return_state else y
+
+
+#: Kernel launches since the count was last set to 0 (plain version excluded).
+ssd_scan.launches = 0

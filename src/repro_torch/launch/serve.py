@@ -6,13 +6,15 @@ resolves ids to pool slots (``repro_torch.serve.AdapterPool``).  Prefill and
 greedy decode run one forward pass per mixed-tenant batch, in which every
 adapted projection is one launch of the gathered LoRA kernel reading the
 pool in place.  ``--merged`` serves the mean of all adapters instead
-(``lora_matmul`` with one 2-D adapter).
+(``lora_matmul`` with one 2-D adapter).  ``--arch`` is ``stablelm-1.6b``
+(attention blocks) or ``mamba2-130m`` (SSD blocks, prefill through the
+``ssd_scan`` kernel).
 
 On a card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --batch 8 --prompt-len 512 --gen 32 --n-adapters 4 --pool-slots 8
 On the CPU, at the reduced size:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b --reduced \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduced \\
       --device cpu --batch 4 --prompt-len 16 --gen 8 --n-adapters 3 --pool-slots 8
 """
 from __future__ import annotations

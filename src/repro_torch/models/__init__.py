@@ -1,4 +1,5 @@
-"""Models of the port: the decoder LM that ``launch/serve.py`` serves."""
+"""Models of the port: the decoder LM that ``launch/serve.py`` serves, with
+attention (``"attn"``) or Mamba-2 SSD (``"ssd"``) blocks."""
 from repro_torch.models.model import (
     DecoderLM,
     decode_step,
@@ -9,10 +10,10 @@ from repro_torch.models.model import (
     init_params,
     loss_fn,
 )
-from repro_torch.models import attention, blocks, ffn, kvcache, layers
+from repro_torch.models import attention, blocks, ffn, kvcache, layers, ssd
 
 __all__ = [
     "DecoderLM", "decode_step", "extend_caches", "forward", "init_decode_caches",
     "init_lora_params", "init_params", "loss_fn", "attention", "blocks", "ffn", "kvcache",
-    "layers",
+    "layers", "ssd",
 ]

@@ -1,13 +1,15 @@
-"""Transformer block: pre-norm attention and FFN with residuals (port of
-``repro/models/blocks.py``).  This slice runs the ``"attn"`` mixer with an
-FFN; the other mixers, MoE and cross-attention raise."""
+"""Decoder block: pre-norm mixer and optional FFN with residuals (port of
+``repro/models/blocks.py``).  This slice runs the ``"attn"`` mixer
+(full causal attention) and the ``"ssd"`` mixer (Mamba-2), each with a
+SwiGLU FFN when ``d_ff > 0`` and none when ``d_ff == 0``; the other
+mixers, MoE and cross-attention raise."""
 from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models import attention, ffn, layers
+from repro_torch.models import attention, ffn, layers, ssd
 
-PORTED_MIXERS = ("attn",)
+PORTED_MIXERS = ("attn", "ssd")
 
 
 def check_ported(cfg) -> None:
@@ -15,6 +17,8 @@ def check_ported(cfg) -> None:
     missing = []
     if any(k not in PORTED_MIXERS for k in cfg.layer_pattern):
         missing.append(f"mixers {cfg.layer_pattern}")
+    if cfg.n_tail_layers:
+        missing.append(f"{cfg.n_tail_layers} tail layers")
     if cfg.n_experts:
         missing.append("MoE")
     if cfg.encoder_decoder:
@@ -27,37 +31,64 @@ def check_ported(cfg) -> None:
         missing.append("the int8 KV cache")
     if not cfg.tie_embeddings:
         missing.append("an untied output head")
-    if cfg.embed_scale or cfg.d_ff == 0 or cfg.ffn_kind != "swiglu":
-        missing.append(f"embed_scale={cfg.embed_scale}, d_ff={cfg.d_ff}, ffn {cfg.ffn_kind!r}")
+    if cfg.embed_scale:
+        missing.append("embed_scale")
+    if cfg.d_ff and cfg.ffn_kind != "swiglu":
+        missing.append(f"ffn {cfg.ffn_kind!r}")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md queue 1, item 8)"
         )
 
 
-class Block(nn.Module):
-    """One layer: ``norm1``, ``mixer`` (q, k, v, o), ``norm2``, ``ffn``
-    (gate, up, down), keyed as the reference's block pytree."""
+def lora_dims(cfg, kind: str) -> dict:
+    """{target: (d_in, d_out)} of the adapters of a ``kind`` block: the
+    attention projections in ``cfg.lora.targets``, or the SSD mixer's
+    ``in_proj`` ("q") and ``out_proj`` ("v")."""
+    if kind == "ssd":
+        return ssd.lora_dims(cfg)
+    dims = attention.lora_dims(cfg)
+    return {t: dims[t] for t in cfg.lora.targets}
 
-    def __init__(self, cfg, gen, *, dtype, device):
+
+class Block(nn.Module):
+    """One layer: ``norm1``, ``mixer`` (attention q, k, v, o or the SSD
+    mixer) and, when ``d_ff > 0``, ``norm2`` and ``ffn`` (gate, up, down),
+    keyed as the reference's block pytree."""
+
+    def __init__(self, cfg, kind: str, gen, *, dtype, device):
         super().__init__()
+        self.kind = kind
         self.norm1 = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
-        self.mixer = attention.init_attention(gen, cfg, dtype=dtype, device=device)
-        self.norm2 = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
-        self.ffn = ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dtype=dtype,
-                                device=device)
+        if kind == "attn":
+            self.mixer = attention.init_attention(gen, cfg, dtype=dtype, device=device)
+        elif kind == "ssd":
+            self.mixer = ssd.init_ssd(gen, cfg, dtype=dtype, device=device)
+        else:
+            raise ValueError(kind)
+        if cfg.d_ff > 0:
+            self.norm2 = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
+            self.ffn = ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dtype=dtype,
+                                    device=device)
 
     def forward(self, x, lora, cfg, *, positions, mode: str, cache=None, cache_index=None):
-        """Returns (x, new_cache); ``new_cache`` is ``{"self": KVCache}`` in
-        prefill and decode, None otherwise."""
+        """Returns (x, new_cache); ``new_cache`` is ``{"self": KVCache}`` or
+        ``{"self": SSMState}`` in prefill and decode, None otherwise."""
         lora = lora or {}
         h = layers.apply_norm(self.norm1, x, cfg.norm_eps)
-        out, new_self = attention.apply_attention(
-            self.mixer, lora.get("mixer"), h, cfg, positions=positions,
-            cache=None if cache is None else cache["self"], cache_index=cache_index,
-            return_cache=mode == "prefill",
-        )
+        self_cache = None if cache is None else cache["self"]
+        if self.kind == "attn":
+            out, new_self = attention.apply_attention(
+                self.mixer, lora.get("mixer"), h, cfg, positions=positions, cache=self_cache,
+                cache_index=cache_index, return_cache=mode == "prefill",
+            )
+        else:
+            out, new_self = ssd.apply_ssd(
+                self.mixer, lora.get("mixer"), h, cfg, state=self_cache,
+                lora_scale=cfg.lora.scale, return_state=mode == "prefill",
+            )
         x = x + out
-        h2 = layers.apply_norm(self.norm2, x, cfg.norm_eps)
-        x = x + ffn.apply_ffn(self.ffn, h2, cfg.ffn_kind)
+        if cfg.d_ff > 0:
+            h2 = layers.apply_norm(self.norm2, x, cfg.norm_eps)
+            x = x + ffn.apply_ffn(self.ffn, h2, cfg.ffn_kind)
         return x, ({"self": new_self} if mode in ("prefill", "decode") else None)

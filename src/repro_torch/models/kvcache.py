@@ -1,9 +1,11 @@
-"""KV-cache container for decode (port of ``repro/models/kvcache.py``).
+"""KV-cache and recurrent-state containers for decode (port of
+``repro/models/kvcache.py``).
 
 The port's decode writes each new token's K and V into the cache tensors in
-place (``attention.apply_attention``), where the reference returns updated
-copies; the positions and the mask are the reference's.  The int8 cache and
-the recurrent states are not ported yet.
+place (``attention.apply_attention``), and each new SSM state into the
+``SSMState`` tensors (``ssd.apply_ssd``), where the reference returns
+updated copies; the positions, the mask and the recurrences are the
+reference's.  The int8 cache and the RG-LRU state are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +17,11 @@ import torch
 class KVCache(NamedTuple):
     k: torch.Tensor  # (..., B, S_cache, n_kv, head_dim)
     v: torch.Tensor
+
+
+class SSMState(NamedTuple):
+    h: torch.Tensor  # (..., B, n_heads, head_dim, state) float32
+    conv: torch.Tensor  # (..., B, conv_width - 1, conv_dim)
 
 
 def attn_cache(batch: int, length: int, n_kv: int, head_dim: int, dtype,

@@ -7,7 +7,8 @@ the adapter pool keep the reference's layout, so the pool, the aggregation
 engine and the converter share it: layer ``i`` sits at group ``i // unit``
 of pattern slot ``i % unit``, e.g.
 ``{"groups": ({"mixer": {"q": {"A": (n_groups, d_in, r), "B": ...}, "v": ...}},), "tail": ()}``
-and caches ``{"groups": ({"self": KVCache(k=(n_groups, B, S, n_kv, hd), v=...)},), "tail": ()}``.
+and caches ``{"groups": ({"self": KVCache(k=(n_groups, B, S, n_kv, hd), v=...)},), "tail": ()}``
+(``SSMState(h=(n_groups, B, H, P, N), conv=...)`` for an ``"ssd"`` slot).
 
 Modes: ``prefill`` (full prompt, caches, last-position logits) and
 ``decode`` (one token against the caches, written in place).  Training
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import backend
-from repro_torch.models import attention, blocks, layers
+from repro_torch.models import blocks, layers, ssd
 from repro_torch.models.kvcache import KVCache, attn_cache
 
 Tree = Any
@@ -35,7 +36,8 @@ def _train_not_ported():
 
 
 class DecoderLM(nn.Module):
-    """Token embedding, ``cfg.n_layers`` blocks, final norm, and the
+    """Token embedding, ``cfg.n_layers`` blocks (layer ``i`` of mixer
+    ``cfg.layer_pattern[i % unit]``), final norm, and the
     embedding as the (tied) output head.  ``gen=None`` allocates the weights
     unfilled, for the converter to write."""
 
@@ -48,8 +50,10 @@ class DecoderLM(nn.Module):
             embed.normal_(0.0, 0.02, generator=gen)
         self.embed = layers._param(embed)
         self.final_norm = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
+        unit = len(cfg.layer_pattern)
         self.layers = nn.ModuleList(
-            blocks.Block(cfg, gen, dtype=dtype, device=device) for _ in range(cfg.n_layers)
+            blocks.Block(cfg, cfg.layer_pattern[i % unit], gen, dtype=dtype, device=device)
+            for i in range(cfg.n_layers)
         )
 
 
@@ -65,17 +69,17 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> DecoderLM:
 
 def init_lora_params(cfg, *, seed: int = 0, device="cuda") -> Tree:
     """One adapter in the reference's tree layout, A ~ N(0, 1/d_in), B = 0,
-    in ``cfg.lora.dtype`` on ``device``."""
+    in ``cfg.lora.dtype`` on ``device``; each pattern slot carries the
+    adapters of its mixer (``blocks.lora_dims``)."""
     blocks.check_ported(cfg)
     dev = backend.resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dims = attention.lora_dims(cfg)
     dtype = _DTYPES[cfg.lora.dtype]
     groups = tuple(
-        {"mixer": {t: layers.init_lora(gen, *dims[t], cfg.lora.rank, dtype=dtype, device=dev,
+        {"mixer": {t: layers.init_lora(gen, d_in, d_out, cfg.lora.rank, dtype=dtype, device=dev,
                                        lead=(cfg.n_pattern_groups,))
-                   for t in cfg.lora.targets}}
-        for _ in cfg.layer_pattern
+                   for t, (d_in, d_out) in blocks.lora_dims(cfg, kind).items()}}
+        for kind in cfg.layer_pattern
     )
     return {"groups": groups, "tail": ()}
 
@@ -97,11 +101,21 @@ def _layer_trees(tree, cfg):
 
 
 def _layer_caches(caches, cfg):
+    """Per-layer views ``{"self": KVCache | SSMState}`` of the group-stacked
+    caches; writes through a view land in the stacked tensors."""
     unit = len(cfg.layer_pattern)
     if caches is None:
         return [None] * cfg.n_layers
-    return [{"self": KVCache(*(t[i // unit] for t in caches["groups"][i % unit]["self"]))}
-            for i in range(cfg.n_layers)]
+    out = []
+    for i in range(cfg.n_layers):
+        state = caches["groups"][i % unit]["self"]
+        out.append({"self": type(state)(*(t[i // unit] for t in state))})
+    return out
+
+
+def _stack_states(states):
+    """One cache container of layer-stacked tensors from per-layer ones."""
+    return type(states[0])(*(torch.stack(ts) for ts in zip(*states)))
 
 
 def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: str = "prefill",
@@ -135,9 +149,9 @@ def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: s
     logits = layers.softcap(torch.matmul(x, model.embed.T.to(x.dtype)).float(),
                             cfg.logit_softcap)
     if mode == "prefill":
-        caches = {"groups": (
-            {"self": KVCache(k=torch.stack([c["self"].k for c in new]),
-                             v=torch.stack([c["self"].v for c in new]))},
+        unit = len(cfg.layer_pattern)
+        caches = {"groups": tuple(
+            {"self": _stack_states([c["self"] for c in new[slot::unit]])} for slot in range(unit)
         ), "tail": ()}
     return logits, caches, torch.zeros((), device=x.device)
 
@@ -151,12 +165,16 @@ def init_decode_caches(cfg, batch: int, cache_len: int, dtype=None, *, device="c
     returns."""
     blocks.check_ported(cfg)
     dev = backend.resolve_device(device)
-    one = attn_cache(batch, cache_len, cfg.n_kv_heads, cfg.head_dim_,
-                     dtype or _DTYPES[cfg.dtype], device=dev)
+    dtype = dtype or _DTYPES[cfg.dtype]
     n = cfg.n_pattern_groups
+
+    def one(kind):
+        if kind == "attn":
+            return attn_cache(batch, cache_len, cfg.n_kv_heads, cfg.head_dim_, dtype, device=dev)
+        return ssd.init_ssm_state(batch, cfg, dtype, device=dev)
+
     return {"groups": tuple(
-        {"self": KVCache(*(t[None].repeat(n, *(1,) * t.ndim) for t in one))}
-        for _ in cfg.layer_pattern
+        {"self": _stack_states([one(kind)] * n)} for kind in cfg.layer_pattern
     ), "tail": ()}
 
 
@@ -164,15 +182,17 @@ def extend_caches(caches: Tree, extra: int, cfg) -> Tree:
     """Full-attention KV buffers with ``extra`` zero positions appended on
     the sequence axis: prefill emits caches sized to the prompt, decode
     writes one position per step into the headroom.  Allocated once per
-    batch; decode then writes in place."""
+    batch; decode then writes in place.  Recurrent states (``"ssd"``
+    slots) are passed through as they are: they have no sequence axis."""
     def pad(t):
         out = t.new_zeros((*t.shape[:-3], t.shape[-3] + extra, *t.shape[-2:]))
         out[..., : t.shape[-3], :, :] = t
         return out
 
-    return {"groups": tuple({"self": KVCache(*(pad(t) for t in g["self"]))}
-                            for g in caches["groups"]),
-            "tail": caches["tail"]}
+    return {"groups": tuple(
+        dict(g, self=KVCache(*(pad(t) for t in g["self"]))) if kind == "attn" else g
+        for kind, g in zip(cfg.layer_pattern, caches["groups"])
+    ), "tail": caches["tail"]}
 
 
 def decode_step(model, lora, tokens, caches, cache_index: int, cfg):

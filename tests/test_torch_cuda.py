@@ -234,3 +234,81 @@ def test_reduced_serving_card_matches_cpu(cuda):
     want, _ = pre(cpu_base, cpu_pool.pooled, cpu_pool.acquire(["t0", "t1", "t2", "t0"]),
                   {"tokens": toks})
     torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
+
+
+# ssd_scan: the kernel sums each 64-position tile where the plain version
+# steps position by position; held to 1e-4 of the largest output or state
+# entry (fp32 sums of up to S * N products, exp of cumulative decays).
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz,heads,s,p,n,decay", [
+    (8, 24, 512, 64, 128, 1.0), (8, 24, 300, 64, 128, 1e-3), (2, 3, 70, 40, 100, 1e-3),
+    (2, 4, 33, 16, 32, 0.5), (1, 2, 0, 16, 32, 0.5)])
+def test_ssd_scan_kernel_matches_plain(cuda, bsz, heads, s, p, n, decay):
+    from repro_torch.kernels import ssd_scan
+
+    g = torch.Generator().manual_seed(s + p + n)
+    x = torch.randn((bsz * heads, s, p), generator=g).to(cuda)
+    da = (-decay * torch.rand((bsz * heads, s), generator=g)).to(cuda)
+    b, c = (torch.randn((bsz, s, n), generator=g).to(cuda) for _ in range(2))
+    got = ssd_scan.ssd_scan(x, da, b, c, return_state=True)
+    again = ssd_scan.ssd_scan(x, da, b, c, return_state=True)
+    want = ref.ssd_scan_ref(x, da, b, c, return_state=True)
+    for u, v, w in zip(got, again, want):
+        assert torch.equal(u, v)
+        tol = 1e-4 * float(w.abs().max()) if w.numel() else 0.0
+        torch.testing.assert_close(u, w, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(196608, 40), (129, 130), (1, 7)])
+def test_soft_threshold_kernel_matches_plain(cuda, dtype, m, n):
+    """Equal bits: both round the same fp32 difference once."""
+    from repro_torch.kernels import soft_threshold as st
+
+    x = torch.randn((m, n), generator=torch.Generator().manual_seed(m)).to(cuda, dtype)
+    for t in (0.05, torch.tensor(0.7, device=cuda), -0.1):
+        got = st.soft_threshold(x, t)
+        assert torch.equal(got, st.soft_threshold(x, t))
+        assert torch.equal(got, ref.soft_threshold_ref(x, torch.as_tensor(t, dtype=dtype).to(cuda)))
+
+
+@pytest.mark.gpu
+def test_reduced_mamba_serving_card_matches_cpu(cuda):
+    """Reduced Mamba-2 in float32 through the pool on the card (gathered LoRA
+    and ssd_scan) against the same weights and adapters on the CPU, prefill
+    and one decode step."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import init_lora_params, init_params
+    from repro_torch.serve import AdapterPool
+    from repro_torch.utils.pytree import tree_to
+
+    cfg = get_config("mamba2-130m").reduced()
+    base = init_params(cfg, seed=0, device=cuda)
+    cpu_base = copy.deepcopy(base).cpu()
+    pool = AdapterPool(init_lora_params(cfg, seed=1, device=cuda), 4)
+    cpu_pool = AdapterPool(tree_to(init_lora_params(cfg, seed=1, device=cuda), "cpu"), 4)
+    for i in range(3):
+        tree = init_lora_params(cfg, seed=2 + i, device=cuda)
+        for node in tree["groups"][0]["mixer"].values():
+            node["B"].normal_(0.0, 0.3, generator=torch.Generator(device=cuda).manual_seed(i))
+        pool.publish(f"t{i}", tree)
+        cpu_pool.publish(f"t{i}", tree_to(tree, "cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (4, 70), generator=torch.Generator().manual_seed(0))
+    pre, dec = serve.make_serving_fns(cfg)
+    ids = ["t0", "t1", "t2", "t0"]
+    before = (lm.gathered_lora_matmul.launches, ssd_scan.ssd_scan.launches)
+    got, caches = pre(base, pool.pooled, pool.acquire(ids), {"tokens": toks[:, :-1].to(cuda)})
+    assert (lm.gathered_lora_matmul.launches - before[0],
+            ssd_scan.ssd_scan.launches - before[1]) == (2 * cfg.n_layers, cfg.n_layers)
+    want, cpu_caches = pre(cpu_base, cpu_pool.pooled, cpu_pool.acquire(ids),
+                           {"tokens": toks[:, :-1]})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
+    got, _ = dec(base, pool.pooled, pool.acquire(ids), toks[:, -1:].to(cuda), caches, 69)
+    want, _ = dec(cpu_base, cpu_pool.pooled, cpu_pool.acquire(ids), toks[:, -1:], cpu_caches, 69)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)

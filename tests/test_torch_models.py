@@ -56,7 +56,7 @@ def T(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "paper-vit-b32"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "mamba2-130m", "paper-vit-b32"])
 def test_config_and_reduced_match_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jconfigs.get_config(arch))
     assert (dataclasses.asdict(get_config(arch).reduced())
@@ -70,7 +70,7 @@ def test_config_fields_match_reference_classes(cls):
     assert jf == tf
 
 
-@pytest.mark.parametrize("arch,exc", [("mamba2-130m", NotImplementedError),
+@pytest.mark.parametrize("arch,exc", [("recurrentgemma-2b", NotImplementedError),
                                       ("qwen2-vl-2b", NotImplementedError),
                                       ("no-such-arch", KeyError)])
 def test_get_config_refuses_what_is_not_ported(arch, exc):
