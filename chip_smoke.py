@@ -9,9 +9,10 @@ Phases (any failed check raises and the script exits non-zero):
   2. Build: the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source.
   3. Kernel checks, each kernel against its plain PyTorch version on the
      card, two launches bit for bit; times are device time per call from
-     ``torch.profiler`` (``kernel_ms``, ``plain_ms``, ``library_ms``), with
-     the host-inclusive time per call by CUDA events beside them
-     (``call_ms``):
+     ``torch.profiler`` (``kernel_ms``, ``plain_ms``, ``library_ms``; by
+     CUDA events behind a sleep kernel when three profiler captures come
+     back empty), with the host-inclusive time per call by CUDA events
+     beside them (``call_ms``):
      ``admm_tail`` and ``subspace_apply`` at every bucket shape paths A and
      B launch them at (path B's ViT-B/32 LoRA bucket: 48 modules x 4096
      rows, 3072 of them live, 40 dense clients and 20 of 32; path A's
@@ -28,7 +29,9 @@ Phases (any failed check raises and the script exits non-zero):
      (192, 512, 64, 128) and S = 300, the model's decays and weak ones, and
      at odd widths; ``soft_threshold`` at path B's bucket flattened to
      (196608, 40) and at (129, 130), float32 and bf16, equal bits, beside
-     ``F.softshrink`` (timed only).
+     ``F.softshrink`` (timed only); ``subspace_apply_factored`` at path F's
+     shard shape (B, vec, d2, r) = (48, 4096, 10, 8), at the last shard of 30
+     clients padded to 32 (two zero-mask columns) and at (3, 1000, 7, 3).
   4. Main path A: ``run_simulation`` on a planted task at the width of one
      ViT-B/32 attention projection (768 x 768, LoRA rank 4), 20 clients,
      10 rounds of fedavg / fedrpca gram / fedrpca subspace; then 3 rounds of
@@ -57,12 +60,20 @@ Phases (any failed check raises and the script exits non-zero):
      and the same decode from a zeroed state, which must miss); depth 2 in
      float32 on the card and on the CPU.
   8. Path E: ``ops.soft_threshold`` at ranks 3, 2 and 1.
-  9. The ``kernels`` JSON line, the wall time, then the result line.
+  9. Main path F: mesh-sharded ``aggregate(engine="packed",
+     mesh=make_host_mesh(4))`` of path B's tree (4 shards on the card) at 40
+     dense clients, 30 padded to 32 and 20 of 32 in subspace mode and 40 in
+     gram mode, each against the unsharded call on the card and the same
+     call on a CPU mesh; 2 shards against 4; ``mesh_overlap=True`` against
+     False, bit for bit; ``run_simulation(mesh_shards=4)`` on path A's task
+     against ``mesh_shards=0``.
+ 10. The ``kernels`` JSON line, the wall time, then the result line.
 
 Kernel launch counts are set to 0 just before phase 4 and read just after
-phase 5, and set to 0 again just before each of phases 6, 7 and 8 and read
-just after it; every kernel must have launched, and each phase exactly as
-often as its rounds, ADMM iterations, buckets, layers and decode steps say.
+phase 5, and set to 0 again just before each of phases 6, 7, 8 and 9 and
+read just after it; every kernel must have launched, and each phase exactly
+as often as its rounds, ADMM iterations, fallbacks, shards, buckets, layers
+and decode steps say.
 """
 from __future__ import annotations
 
@@ -131,13 +142,20 @@ def bench_ms(fn, reps: int = 20, batches: int = 5) -> float:
     return statistics.median(per)
 
 
+PROFILER_TRIES = 3
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Device time of one call of ``fn``: the durations of the kernels it
     runs, from ``torch.profiler`` (device rows only), summed over ``reps``
     calls after a warm-up and divided by ``reps``.  Host dispatch that is
     slower than the kernels (a Python wrapper around a 20 us kernel) does
     not count, as it does in ``bench_ms``; gaps between the kernels of one
-    call do not count either."""
+    call do not count either.
+
+    The profiler's device trace now and then comes back empty.  The capture
+    is then taken again, up to ``PROFILER_TRIES`` times, and after that the
+    time comes from ``queued_ms`` (CUDA events), with a line saying so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -145,15 +163,37 @@ def device_ms(fn, reps: int = 20) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    total = sum(dev(e) for e in prof.key_averages() if e.device_type != DeviceType.CPU)
-    if total <= 0:
-        raise AssertionError("torch.profiler saw no device time")
-    return total / reps / 1e3
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(dev(e) for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+        if total > 0:
+            return total / reps / 1e3
+    ms = queued_ms(fn, reps)
+    print(f"[timing] torch.profiler saw no device time in {PROFILER_TRIES} captures; "
+          f"{ms:.6f} ms per call by CUDA events behind a sleep kernel", flush=True)
+    return ms
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` by CUDA events: a sleep kernel holds
+    the stream while the host queues ``reps`` calls, so the events time the
+    queued work and not its dispatch (gaps between kernels included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clock: room to queue
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 def max_abs(a, b) -> float:
@@ -270,6 +310,71 @@ def check_kernels(device, bw, flops) -> dict:
                   f"bound_ms={rec[name]['bound_ms']:.4f} ({rec[name]['bound_by']}, "
                   f"{n_bytes / 1e6:.1f} MB) library_ms=null call_ms={call_ms:.4f}", flush=True)
     return rec
+
+# (B, vec, live rows, d2, r, mask, label) of the factored tail: path F's shard of
+# the ViT-B/32 bucket at 40 clients on 4 shards; the last shard of 30 clients
+# padded to 32 (two zero-mask columns); a ragged shape.
+FACTORED_SHAPES = [(48, 4096, 3072, 10, 8, None, "main"),
+                   (48, 4096, 3072, 8, 8, [1.0] * 6 + [0.0] * 2, "padded shard"),
+                   (3, 1000, 1000, 7, 3, None, "ragged")]
+
+
+def check_factored_kernel(bw, flops) -> dict:
+    """subspace_apply_factored against its plain version on the card: two
+    launches bit for bit, ``mask=None`` the bits of an all-ones mask, masked
+    columns of S' and Y' exactly zero; timed at path F's shard shape."""
+    import torch
+    from repro_torch.kernels import ref, svt_subspace
+
+    gen = torch.Generator().manual_seed(17)
+    rec = {}
+    for b, vec, live, d2, r, mask, label in FACTORED_SHAPES:
+        x = bucket_inputs(gen, b, vec, live, d2, None, "cuda")
+        f = torch.randn((b, vec, r), generator=gen)
+        f[:, live:] = 0.0  # rows of W = X V past the live rows are zero
+        f = f.cuda()
+        vr = (torch.randn((b, d2, r), generator=gen) / d2**0.5).cuda()
+        msk = None if mask is None else torch.tensor(mask, device="cuda")
+        m = x["m"] if msk is None else (x["m"] * msk).contiguous()
+        args = (m, x["y"], f, vr, x["rho"], x["mu"], x["th"])
+        run = lambda: svt_subspace.subspace_apply_factored(*args, mask=msk)
+        plain = lambda: ref.svt_subspace_apply_factored_ref(*args, mask=msk)
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        tag = f"{label} (B, vec, d2, r)=({b}, {vec}, {d2}, {r}) mask={mask}"
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"subspace_apply_factored {tag}: two launches differ")
+        err = max(check_elem(g, w, f"subspace_apply_factored {tag}")
+                  for g, w in zip(got[:3], want[:3]))
+        check_sum(got[3], want[3], f"subspace_apply_factored {tag} sums")
+        if msk is None:
+            ones = svt_subspace.subspace_apply_factored(*args, mask=torch.ones(d2, device="cuda"))
+            if not all(torch.equal(u, v) for u, v in zip(got, ones)):
+                raise AssertionError(f"subspace_apply_factored {tag}: mask=None differs from "
+                                     "all-ones")
+        elif bool((got[1][..., msk == 0] != 0).any() or (got[2][..., msk == 0] != 0).any()):
+            raise AssertionError(f"subspace_apply_factored {tag}: masked column not zero")
+        n = b * vec * d2
+        # M, Y, F, Vr, scalars, mask in; L, S', Y', rsq out.
+        n_bytes = 4 * (5 * n + b * vec * r + b * d2 * r + 3 * b + d2 + b)
+        n_ops = n * (2 * r + 12)
+        t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / flops * 1e3
+        bound = max(t_bytes, t_ops)
+        line = (f"[kernels] subspace_apply_factored {tag}: err={err:.3g} bound_ms={bound:.4f} "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'}, {n_bytes / 1e6:.1f} MB, "
+                f"{n_ops / 1e6:.1f} MFLOP)")
+        if label != "main":
+            print(line, flush=True)
+            continue
+        ms, plain_ms, call_ms = device_ms(run), device_ms(plain), bench_ms(run)
+        rec["subspace_apply_factored"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+        )
+        print(f"{line} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null (no single "
+              f"PyTorch call) call_ms={call_ms:.4f}", flush=True)
+    return rec
+
 
 # --- Serving kernels (phase 3) ------------------------------------------------
 # lora_matmul / gathered_lora_matmul against their plain versions.  float32:
@@ -613,7 +718,7 @@ def regime_probe() -> None:
               flush=True)
 
 
-def run_fed(task, method, svt_mode, rounds, device, log=None):
+def run_fed(task, method, svt_mode, rounds, device, log=None, mesh_shards=0):
     from repro_torch.core import AggregatorConfig
     from repro_torch.fed import FedRunConfig, LocalSpec, run_simulation, synth
     from repro_torch.optim import make_optimizer
@@ -624,7 +729,7 @@ def run_fed(task, method, svt_mode, rounds, device, log=None):
     )
     cfg = FedRunConfig(
         aggregator=AggregatorConfig(method=method, rpca_iters=50, svt_mode=svt_mode),
-        local=local, rounds=rounds, seed=0,
+        local=local, rounds=rounds, seed=0, mesh_shards=mesh_shards,
     )
     evalf = lambda l: synth.accuracy(task.base, l, task.test_x, task.test_y, task.lora_scale)
     lora0 = synth.init_lora(task, seed=0)
@@ -753,6 +858,168 @@ def main_path_b(counts) -> None:
             print(f"[path B] nc={nc} valid={n_valid or nc} {mode}: call_s={t_call:.4f} "
                   f"cpu_call_s={t_cpu:.4f} card-vs-cpu max|err|={err:.3g} (max|delta|={scale:.3g}) "
                   f"launches={launched}", flush=True)
+
+# --- Path F: mesh-sharded aggregation -------------------------------------------
+# (svt_mode, clients, live clients): 40 dense, 30 padded to 32 on 4 shards, 20
+# of 32 masked, and gram mode at 40 dense.
+F_CASES = [("subspace", 40, None), ("subspace", 30, None), ("subspace", 32, 20),
+           ("gram", 40, None)]
+F_SHARDS = 4
+
+
+class FallbackSpy:
+    """Records ``n_fallback`` of every ``robust_pca_bucket_sharded`` call the
+    engine makes inside the ``with`` block (the count the launch check needs;
+    ``aggregate`` does not return it)."""
+
+    def __enter__(self):
+        from repro_torch.core import rpca
+
+        self.falls, self._rpca, self._fn = [], rpca, rpca.robust_pca_bucket_sharded
+
+        def spy(*args, **kw):
+            res = self._fn(*args, **kw)
+            self.falls.append(res.n_fallback)
+            return res
+
+        rpca.robust_pca_bucket_sharded = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._rpca.robust_pca_bucket_sharded = self._fn
+
+
+def mesh_launches(mode, shards, chunks, iters, falls) -> dict:
+    """Tail-kernel launches of one sharded call: every exact iteration runs
+    ``admm_tail`` and every Ritz iteration ``subspace_apply_factored``, once a
+    shard and B chunk (gram mode: every iteration is exact; its
+    ``n_fallback`` is 0, as in the unsharded loop)."""
+    exact = iters if mode == "gram" else falls
+    return dict(admm_tail=shards * chunks * exact,
+                subspace_apply_factored=shards * chunks * (iters - exact))
+
+
+def main_path_f(counts, card: str) -> dict:
+    """``aggregate(engine="packed", mesh=make_host_mesh(4))`` of path B's
+    planted ViT-B/32 tree (one bucket of 48 modules x 4096 rows) in the
+    cases of ``F_CASES``, each against the unsharded call on the card and the
+    same sharded call on a CPU mesh; 2 shards against 4 and
+    ``mesh_overlap=True`` against False; then ``run_simulation`` with
+    ``mesh_shards=4`` on path A's task against ``mesh_shards=0``.  Every
+    call's launches must equal the count its fallbacks give.  Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import from_jax_tree
+    from repro_torch.core import AggregatorConfig, aggregate
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.pytree import tree_leaves
+
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path F")
+    mesh, cpu_mesh = make_host_mesh(F_SHARDS), make_host_mesh(F_SHARDS, device="cpu")
+
+    def close(a, b, scale, what):
+        err = 0.0
+        for g, c in zip(tree_leaves(a), tree_leaves(b)):
+            if g.shape != c.shape or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"path F {what}: bad update leaf {tuple(g.shape)}")
+            err = max(err, max_abs(g.cpu(), c.cpu()))
+        if err > AGG_RTOL * scale:
+            raise AssertionError(f"path F {what}: {err} > {AGG_RTOL} * {scale}")
+        return err
+
+    def sharded(name, tree, cfg, mask, on, chunks=1):
+        """One timed sharded call on the card; checks its launches."""
+        torch.cuda.synchronize()
+        before = counts()
+        with FallbackSpy() as spy:
+            t0 = time.perf_counter()
+            out = aggregate(tree, cfg, engine="packed", mask=mask, mesh=on)
+            torch.cuda.synchronize()
+            t_call = time.perf_counter() - t0
+        (falls,) = spy.falls
+        expect(name, launched(before),
+               **mesh_launches(cfg.svt_mode, on.shards, chunks, cfg.rpca_iters, falls))
+        return out, t_call, falls
+
+    for mode, nc, n_valid in F_CASES:
+        tree = planted_vit_deltas(5, nc, n_valid)
+        scale = max(abs(x).max() for x in tree_leaves(tree))
+        mask = None if n_valid is None else (torch.arange(nc) < n_valid).float()
+        gpu_tree = from_jax_tree(tree, "cuda")
+        gpu_mask = None if mask is None else mask.cuda()
+        cfg = AggregatorConfig(method="fedrpca", rpca_iters=50, svt_mode=mode)
+        tag = f"{mode} nc={nc} valid={n_valid or nc}"
+        sharded(f"{tag} warm-up", gpu_tree, cfg, gpu_mask, mesh)
+        out, t_call, falls = sharded(tag, gpu_tree, cfg, gpu_mask, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = counts()
+        base = aggregate(gpu_tree, cfg, engine="packed", mask=gpu_mask)
+        torch.cuda.synchronize()
+        t_base = time.perf_counter() - t0
+        expect(f"{tag} unsharded", launched(before),
+               **{"admm_tail" if mode == "gram" else "subspace_apply": 50})
+        with FallbackSpy() as spy:
+            t0 = time.perf_counter()
+            cpu = aggregate(from_jax_tree(tree, "cpu"), cfg, engine="packed", mask=mask,
+                            mesh=cpu_mesh, device="cpu")
+            t_cpu = time.perf_counter() - t0
+        err_base = close(out, base, scale, f"{tag} sharded vs unsharded")
+        err_cpu = close(out, cpu, scale, f"{tag} card mesh vs CPU mesh")
+        print(f"[path F] {card} | {tag} on {F_SHARDS} shards: call_s={t_call:.4f} "
+              f"unsharded call_s={t_base:.4f} cpu mesh call_s={t_cpu:.4f}; fallbacks card "
+              f"{falls} cpu {spy.falls[0]} of 50; max|err| vs unsharded {err_base:.3g}, vs CPU "
+              f"mesh {err_cpu:.3g} (max|delta| {scale:.3g}); launches {phase[tag]}", flush=True)
+        before = counts()
+        with FallbackSpy() as spy:
+            wall, busy, top = profiled(
+                lambda: aggregate(gpu_tree, cfg, engine="packed", mask=gpu_mask, mesh=mesh))
+        expect(f"{tag} profiled", launched(before),
+               **mesh_launches(mode, F_SHARDS, 1, cfg.rpca_iters, spy.falls[0]))
+        print(f"[path F] {card} | {tag} profiled call: {wall:.4f} s, device busy "
+              f"{'not measured' if busy is None else f'{busy / wall:.1%}'}; top kernels "
+              f"(name, ms, calls) {top}", flush=True)
+        if mode == "subspace" and n_valid is None:
+            # mesh_overlap cuts every psum and tail kernel into 4 B chunks:
+            # the same bits.
+            over = cfg.replace(mesh_overlap=True)
+            got, t_over, _ = sharded(f"{tag} overlap", gpu_tree, over, gpu_mask, mesh, chunks=4)
+            if not all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(out))):
+                raise AssertionError(f"path F {tag}: mesh_overlap changed the bits")
+            print(f"[path F] {card} | {tag} mesh_overlap=True: equal bits, call_s={t_over:.4f}, "
+                  f"launches {phase[tag + ' overlap']}", flush=True)
+        if mode == "subspace" and nc == 40:
+            got, t_two, _ = sharded(f"{tag} 2 shards", gpu_tree, cfg, gpu_mask, make_host_mesh(2))
+            err = close(got, out, scale, f"{tag} 2 vs {F_SHARDS} shards")
+            print(f"[path F] {card} | {tag} 2 shards vs {F_SHARDS}: max|err| {err:.3g}, "
+                  f"call_s={t_two:.4f}", flush=True)
+
+    # The round loop on path A's task, sharded against unsharded on the card.
+    task = make_task("cuda")
+    times = {}
+    before = counts()
+    with FallbackSpy() as spy:
+        gl, gh = run_fed(task, "fedrpca", "subspace", 3, "cuda", mesh_shards=F_SHARDS,
+                         log=lambda r, d: times.setdefault("sharded", []).append(d["t_agg_s"]))
+    expect("round loop", launched(before),
+           **mesh_launches("subspace", F_SHARDS, 1, 50 * 3, sum(spy.falls)))
+    ul, uh = run_fed(task, "fedrpca", "subspace", 3, "cuda",
+                     log=lambda r, d: times.setdefault("unsharded", []).append(d["t_agg_s"]))
+    for k in gl:
+        torch.testing.assert_close(gl[k], ul[k], rtol=1e-3, atol=1e-5)
+    if np.max(np.abs(gh - uh)) > 2.0 / 1024 + 1e-9:
+        raise AssertionError(f"path F round loop: accuracy {gh} vs {uh}")
+    err = max(max_abs(gl[k], ul[k]) for k in gl)
+    print(f"[path F] {card} | run_simulation mesh_shards={F_SHARDS} vs 0, 3 rounds fedrpca "
+          f"subspace: lora max|err|={err:.3g} acc {gh.tolist()} vs {uh.tolist()}; agg s "
+          f"{[round(t, 4) for t in times['sharded']]} vs "
+          f"{[round(t, 4) for t in times['unsharded']]}; fallbacks {spy.falls}", flush=True)
+    total = launched(start)
+    print(f"[path F] {card} | launches {total} by phase {phase}", flush=True)
+    return total
+
 
 # --- Path C: multi-tenant serving ---------------------------------------------
 C_ARCH = "stablelm-1.6b"
@@ -1335,6 +1602,7 @@ def main() -> int:
     rec.update(check_attention_kernel(bw, flops, tensor_flops))
     rec.update(check_ssd_kernel(bw, flops))
     rec.update(check_soft_threshold_kernel(bw, flops))
+    rec.update(check_factored_kernel(bw, flops))
 
     regime_probe()
 
@@ -1342,7 +1610,8 @@ def main() -> int:
                 "lora_matmul": lora_matmul.lora_matmul,
                 "gathered_lora_matmul": lora_matmul.gathered_lora_matmul,
                 "local_attention": local_attention.local_attention,
-                "ssd_scan": ssd_scan.ssd_scan, "soft_threshold": soft_threshold.soft_threshold}
+                "ssd_scan": ssd_scan.ssd_scan, "soft_threshold": soft_threshold.soft_threshold,
+                "subspace_apply_factored": svt_subspace.subspace_apply_factored}
     counts = lambda: {k: w.launches for k, w in wrappers.items()}
 
     def zero_counts():
@@ -1365,7 +1634,11 @@ def main() -> int:
     print(f"[main path D] {time.perf_counter() - t0:.1f} s, launches {launches_d}", flush=True)
     zero_counts()
     launches_e = main_path_e(counts)
-    launches = {k: launches_ab[k] + launches_c[k] + launches_d[k] + launches_e[k]
+    zero_counts()
+    t0 = time.perf_counter()
+    launches_f = main_path_f(counts, smi)
+    print(f"[main path F] {time.perf_counter() - t0:.1f} s, launches {launches_f}", flush=True)
+    launches = {k: launches_ab[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
                 for k in wrappers}
     for name, n in launches.items():
         if n == 0:
@@ -1381,6 +1654,8 @@ def main() -> int:
                             "src/repro/kernels/local_attention.py:99"),
         "ssd_scan": (csrc + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:78"),
         "soft_threshold": (csrc + "soft_threshold.cu", "src/repro/kernels/soft_threshold.py:46"),
+        "subspace_apply_factored": (csrc + "subspace_apply_factored.cu",
+                                    "src/repro/kernels/svt_subspace.py:272"),
     }
     kernels = []
     for name in wrappers:

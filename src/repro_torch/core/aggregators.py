@@ -61,7 +61,7 @@ class AggregatorConfig:
     rpca_tol: float = 1e-7  # stopping tolerance when rpca_fixed_iters=False
     rpca_fixed_iters: bool = True  # False: tolerance-based early stopping
     rpca_fused_tail: bool = False  # inert: the device picks the tail (see above)
-    mesh_overlap: bool = False  # sharded aggregation (not ported yet)
+    mesh_overlap: bool = False  # sharded agg: B-chunk every psum and tail kernel
     svt_mode: str = "gram"  # gram (per-iteration eigh) | subspace (warm-started)
     svt_rank: int = 8  # subspace mode: carried basis width cap
     svt_sweeps: int = 2  # subspace mode: power sweeps per ADMM iteration
@@ -404,7 +404,14 @@ def aggregate(
     ``mask`` is a per-client validity vector (padded cohort slots 0);
     ``weights`` raw nonnegative per-client weights, mask-zeroed and
     normalized here.  ``key`` seeds stochastic methods, none of which is
-    ported yet; ``mesh`` raises until ROADMAP.md queue 1, item 9.
+    ported yet.
+
+    ``mesh`` (a ``launch.mesh.ClientMesh``) shards the packed client axis of
+    the packed engine; the work then runs on the mesh's devices, the
+    replicated part on its first, where the update comes back.  The mesh's
+    device type must be ``device``'s.  The reference engine is the
+    unsharded parity oracle: a multi-shard mesh with it raises, a one-shard
+    mesh is ignored on both engines.
     """
     cfg = cfg or AggregatorConfig()
     if cfg.weighting not in WEIGHTINGS:
@@ -419,11 +426,16 @@ def aggregate(
         raise NotImplementedError(
             f"method {cfg.method!r} is not ported yet (ROADMAP.md queue 1, item 3)"
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded aggregation is not ported yet (ROADMAP.md queue 1, item 9)"
-        )
     dev = backend.resolve_device(device)
+    if rpca_lib.mesh_client_shards(mesh) > 1:
+        if engine == "reference":
+            raise ValueError(
+                "the reference engine is the single-device parity oracle and "
+                "cannot shard the client axis; use engine='packed' with a mesh"
+            )
+        if mesh.devices[0].type != dev.type:
+            raise ValueError(f"a mesh on {mesh.devices[0]} cannot aggregate on {dev}")
+        dev = mesh.devices[0]
     stacked = tree_to(stacked, dev)
     mask = None if mask is None else torch.as_tensor(mask, device=dev)
     weights = None if weights is None else torch.as_tensor(weights, device=dev)
@@ -432,7 +444,7 @@ def aggregate(
 
         return engine_lib.aggregate_packed(
             stacked, cfg, shrink_fn=shrink_fn, mask=mask, weights=weights,
-            with_diagnostics=with_diagnostics,
+            with_diagnostics=with_diagnostics, mesh=mesh,
         )
     if engine != "reference":
         raise ValueError(f"unknown engine: {engine!r} (expected one of {ENGINES})")

@@ -13,9 +13,11 @@ Port of ``repro/core/engine.py``:
 
 Zero padding is lossless: zero rows add nothing to means or Gram matrices
 and stay exactly zero through the SVT and the shrink, and the ADMM
-constants use each module's true vec dim.  Sessions and plans
+constants use each module's true vec dim.  ``mesh=`` (a
+``launch.mesh.ClientMesh`` of more than one shard) runs fedrpca's RPCA as
+``rpca.robust_pca_bucket_sharded``.  Sessions and plans
 (``plan_aggregation``, ``AggSession``, carries, re-tiering) are ROADMAP.md
-queue 1, item 1; ``mesh=`` raises until item 9.
+queue 1, item 1.
 """
 from __future__ import annotations
 
@@ -100,12 +102,10 @@ def pack(
     matrix.  ``joint_ab`` concatenates each ``{"A", "B"}`` node's vec dims
     into one joint matrix (App. B.2).  ``client_mask`` zeroes padded client
     columns; ``weights`` ride on the buckets; ``cohort_size`` zero-pads the
-    client axis and extends the mask with zeros.
+    client axis and extends the mask with zeros.  ``mesh`` places nothing:
+    the sharded loop owns the column layout, and a one-shard mesh is the
+    unsharded packing.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded packing is not ported yet (ROADMAP.md queue 1, item 9)"
-        )
     if granularity not in ("module", "leaf"):
         raise ValueError(f"unknown granularity: {granularity!r}")
     leaves = tree_leaves(stacked)
@@ -296,8 +296,10 @@ def _fedrpca_bucket(
     shrink_fn: Callable,
     svt_rank: int | None = None,
     true_cols: int | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
-    """FedRPCA over one bucket in one ``robust_pca_bucket`` call:
+    """FedRPCA over one bucket in one ``robust_pca_bucket`` call, or one
+    ``robust_pca_bucket_sharded`` call on a multi-shard ``mesh``:
     ((B, vec) update, diagnostics).
 
     The mask rides into the RPCA (n_eff constants, masked tail) and the
@@ -316,7 +318,12 @@ def _fedrpca_bucket(
         w_uniform = bucket.client_mask / n_eff
     if col_scaled:
         m = m * (bucket.weights * n_eff)[None, None, :]
-    res = rpca_lib.robust_pca_bucket(
+    rpca_fn = rpca_lib.robust_pca_bucket
+    rpca_kwargs = {}
+    if rpca_lib.mesh_client_shards(mesh) > 1:
+        rpca_fn = rpca_lib.robust_pca_bucket_sharded
+        rpca_kwargs = {"mesh": mesh, "mesh_overlap": cfg.mesh_overlap}
+    res = rpca_fn(
         m,
         bucket.true_dims,
         n_iter=cfg.rpca_iters,
@@ -328,6 +335,7 @@ def _fedrpca_bucket(
         svt_sweeps=cfg.svt_sweeps,
         svt_fallback_tol=cfg.svt_fallback_tol,
         true_cols=true_cols,
+        **rpca_kwargs,
     )
     w_post = w_uniform if col_scaled else bucket.weights
     diag_extra = {}
@@ -377,11 +385,11 @@ def aggregate_packed(
     ``weights`` are the cohort validity mask and raw weights; masked bucket
     columns are zeroed at pack time.  Diagnostics of fedrpca come back as
     an ``EngineDiagnostics``.
+
+    ``mesh`` shards every bucket's client axis for fedrpca; the means of
+    fedavg and task_arithmetic do not depend on it.  A one-shard mesh is
+    the unsharded call, bit for bit.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded aggregation is not ported yet (ROADMAP.md queue 1, item 9)"
-        )
     cfg = cfg or AggregatorConfig()
     method = cfg.method
     dev = tree_leaves(stacked)[0].device
@@ -404,7 +412,9 @@ def aggregate_packed(
         )
         diag_arrays = {k: {} for k in names}
         for bkey, bucket in buckets.items():
-            updates[bkey], d = _fedrpca_bucket(bucket, cfg, shrink_fn, true_cols=spec.n_clients)
+            updates[bkey], d = _fedrpca_bucket(
+                bucket, cfg, shrink_fn, true_cols=spec.n_clients, mesh=mesh
+            )
             for k in names:
                 diag_arrays[k][bkey] = d[k]
     else:

@@ -32,6 +32,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.kernels import backend
+from repro_torch.launch.mesh import client_shard_count
+
 _EPS = 1e-12
 
 #: Valid ``svt_mode`` values.
@@ -191,20 +194,28 @@ def _exact_projector(g, t, r, shrink_fn):
     return p, v_top, n_live, rel
 
 
-def _orthonormalize(z: torch.Tensor) -> torch.Tensor:
-    """Batched CholeskyQR: Q with span(Q) = span(Z), Q = Z R^-1 where
-    Z^T Z = R^T R, with the reference's trace-scaled jitter.  A Cholesky that
-    fails gives NaN, as JAX's does (``cholesky_ex`` instead of raising)."""
-    szz = z.mT @ z
+def _jittered_cholesky(szz: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of the (B, r, r) Gram ``szz`` plus the
+    reference's trace-scaled jitter.  A Cholesky that fails gives NaN, as
+    JAX's does (``cholesky_ex`` instead of raising)."""
     r = szz.shape[-1]
     trace = torch.diagonal(szz, dim1=-2, dim2=-1).sum(-1)
     jitter = (1e-6 / r) * (trace + _EPS)[:, None, None]
     eye = torch.eye(r, dtype=szz.dtype, device=szz.device)
     chol, info = torch.linalg.cholesky_ex(szz + jitter * eye)
-    chol = torch.where((info > 0)[:, None, None], torch.full_like(chol, float("nan")), chol)
-    # X @ chol^T = Z, as lax.linalg.triangular_solve(left_side=False,
-    # lower=True, transpose_a=True).
+    return torch.where((info > 0)[:, None, None], torch.full_like(chol, float("nan")), chol)
+
+
+def _solve_chol_t(chol: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """V with V @ chol^T = Z, as lax.linalg.triangular_solve(left_side=False,
+    lower=True, transpose_a=True)."""
     return torch.linalg.solve_triangular(chol.mT, z, upper=True, left=False)
+
+
+def _orthonormalize(z: torch.Tensor) -> torch.Tensor:
+    """Batched CholeskyQR: Q with span(Q) = span(Z), Q = Z R^-1 where
+    Z^T Z = R^T R."""
+    return _solve_chol_t(_jittered_cholesky(z.mT @ z), z)
 
 
 def _ritz_projector(g, t, v, n_sweeps, shrink_fn):
@@ -663,3 +674,348 @@ def _bucket_admm(
     if cmask is not None:
         l = l * cmask
     return RPCAResult(l.to(orig_dtype), s.to(orig_dtype), n_done, err, falls)
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded bucket RPCA
+# ---------------------------------------------------------------------------
+#
+# The packed client axis (d2) of a bucket is the axis that scales: cohorts
+# grow, vec dims do not.  The sharded loop cuts the client COLUMNS into equal
+# shards, one per device of a ``launch.mesh.ClientMesh``, and keeps each
+# shard's columns of M, L, S, Y on its device.  Everything elementwise
+# (shrink, dual ascent, masking) is column-local.  The subspace SVT
+# decomposes around the projected factor W = X V:
+#
+#   W      = psum_k(X_k V_k)                one (B, d1, r) sum per sweep
+#   (GV)_k = X_k^T W                        shard-local rows of G V
+#   CholeskyQR, Rayleigh-Ritz               r x r psums, solved once
+#   L_k    = F Vr_k^T, F = (W W_rot) coef   shard-local columns of L
+#
+# so the d2 x d2 Gram is never formed on the Ritz path.  Only the exact
+# fallback (the cold start, a residual breach, a saturated rank) gathers X
+# to eigh the full Gram once and hands each shard its rows of the basis.
+# Values every shard shares (the scalars, the r x r algebra, the gates) are
+# computed once on the first shard's device; every gate reads such a value,
+# so all shards take the same branch, and each gate is one host read per
+# iteration.  On a CUDA mesh each shard's tail is a kernel: Ritz iterations
+# run ``svt_subspace.subspace_apply_factored``, exact iterations
+# ``rpca_admm.admm_tail``; on a CPU mesh the same contraction runs as plain
+# tensor code.
+
+#: Mesh axis names the reference shards the packed client axis over; a
+#: ``ClientMesh`` is one such axis.
+CLIENT_AXIS_NAMES = ("pod", "data")
+
+#: Bucket-axis chunks of ``mesh_overlap=True``, as in the reference.
+_MESH_OVERLAP_CHUNKS = 4
+
+
+def mesh_client_shards(mesh) -> int:
+    """Client shards of ``mesh``; 1 (``None`` or a one-shard mesh) means
+    'take the single-device path'."""
+    return client_shard_count(mesh)
+
+
+def robust_pca_bucket_sharded(
+    m: torch.Tensor,
+    true_dims: torch.Tensor | None = None,
+    *,
+    mesh,
+    n_iter: int = 50,
+    tol: float | None = None,
+    mu: float | None = None,
+    lam: float | None = None,
+    shrink_fn: Callable = soft_threshold,
+    fused_tail: bool = False,
+    client_mask: torch.Tensor | None = None,
+    svt_mode: str = "gram",
+    svt_rank: int = 8,
+    svt_sweeps: int = 2,
+    svt_fallback_tol: float = 1e-3,
+    carry=None,
+    return_carry: bool = False,
+    carry_gate: float = 1.0,
+    mesh_overlap: bool = False,
+    true_cols: int | None = None,
+) -> RPCAResult:
+    """``robust_pca_bucket`` with the client axis sharded across ``mesh``
+    (a ``launch.mesh.ClientMesh``).
+
+    Same contract as the unsharded loop, fp32-allclose to it.  One client
+    shard (``None`` or a one-shard mesh) delegates to ``robust_pca_bucket``
+    and gives its bits.  A ragged cohort (d2 not a multiple of the shard
+    count) is zero-padded with zero-mask columns, which add exactly zero to
+    every sum, and sliced back on exit.  ``n_fallback`` counts the exact
+    iterations of subspace mode, the cold one included.
+
+    ``mesh_overlap=True`` cuts every psum and every tail-kernel call into
+    B chunks, as the reference's overlap schedule does.  No value changes:
+    psums are elementwise and a kernel's per-module results do not depend
+    on the other modules of its launch.  ``fused_tail`` is inert (the
+    mesh's device picks the tail); a custom ``shrink_fn`` on a CUDA mesh
+    raises.  The results come back on ``m``'s device.
+    """
+    if mesh_client_shards(mesh) == 1:
+        return robust_pca_bucket(
+            m, true_dims, n_iter=n_iter, tol=tol, mu=mu, lam=lam, shrink_fn=shrink_fn,
+            fused_tail=fused_tail, client_mask=client_mask, svt_mode=svt_mode,
+            svt_rank=svt_rank, svt_sweeps=svt_sweeps, svt_fallback_tol=svt_fallback_tol,
+            carry=carry, return_carry=return_carry, carry_gate=carry_gate,
+            true_cols=true_cols,
+        )
+    if m.ndim != 3:
+        raise ValueError(f"robust_pca_bucket expects (B, d1, d2), got {tuple(m.shape)}")
+    if svt_mode not in SVT_MODES:
+        raise ValueError(f"unknown svt_mode: {svt_mode!r} (expected one of {SVT_MODES})")
+    _refuse_carry(carry, return_carry)
+    return _sharded_admm(
+        m, true_dims, mesh=mesh, n_iter=n_iter, tol=tol, mu=mu, lam=lam,
+        shrink_fn=shrink_fn, client_mask=client_mask, svt_mode=svt_mode,
+        svt_rank=svt_rank, svt_sweeps=svt_sweeps, svt_fallback_tol=svt_fallback_tol,
+        mesh_overlap=mesh_overlap, true_cols=true_cols,
+    )
+
+
+def _sharded_admm(
+    m, true_dims, *, mesh, n_iter, tol, mu, lam, shrink_fn, client_mask, svt_mode,
+    svt_rank, svt_sweeps, svt_fallback_tol, mesh_overlap, true_cols,
+) -> RPCAResult:
+    devs = mesh.devices
+    d0 = devs[0]
+    n_sh = len(devs)
+    psum, rep = mesh.psum, mesh.replicate
+    orig_dtype, out_dev = m.dtype, m.device
+    m = m.to(torch.float32)
+    b, d1p, d2 = m.shape
+    # The rank cap keeps the true d2; padding columns only fill the shards.
+    r = subspace_rank(d2, svt_rank, true_cols)
+    if true_dims is None:
+        true_dims = torch.full((b,), d1p, dtype=torch.int32)
+    dims_f = true_dims.to(device=d0, dtype=torch.float32)
+    cmask = (torch.ones((d2,), dtype=torch.float32, device=m.device) if client_mask is None
+             else client_mask.to(device=m.device, dtype=torch.float32))
+    d2p = n_sh * -(-d2 // n_sh)
+    if d2p != d2:
+        m = torch.nn.functional.pad(m, (0, d2p - d2))
+        cmask = torch.nn.functional.pad(cmask, (0, d2p - d2))
+    d2_loc = d2p // n_sh
+    cols = [slice(k * d2_loc, (k + 1) * d2_loc) for k in range(n_sh)]
+    cm = [cmask[c].to(dev).contiguous() for c, dev in zip(cols, devs)]
+    mk = [(m[:, :, c].to(dev) * ck).contiguous() for c, dev, ck in zip(cols, devs, cm)]
+    use_kernel = backend.use_kernel(mk[0])
+
+    n_eff = torch.clamp_min(psum([torch.sum(ck) for ck in cm])[0], 1.0)
+    abs_sum = psum([torch.sum(torch.abs(x), dim=(1, 2)) for x in mk])[0]
+    numel = dims_f * n_eff
+    mu_v = torch.where(
+        abs_sum > _EPS, numel / (4.0 * torch.clamp_min(abs_sum, _EPS)), torch.ones_like(abs_sum)
+    )
+    if mu is not None:
+        mu_v = torch.full((b,), mu, dtype=torch.float32, device=d0)
+    if lam is not None:
+        lam_v = torch.full((b,), lam, dtype=torch.float32, device=d0)
+    else:
+        lam_v = 1.0 / torch.sqrt(torch.clamp_min(dims_f, n_eff))
+    rho = 1.0 / mu_v
+    thresh = rho * lam_v
+    m_norm = torch.clamp_min(
+        torch.sqrt(psum([torch.sum(x * x, dim=(1, 2)) for x in mk])[0]), _EPS
+    )
+    rho_k, mu_k, th_k = rep(rho), rep(mu_v), rep(thresh)
+    rho3 = [x[:, None, None] for x in rho_k]
+    use_subspace = svt_mode == "subspace"
+
+    # B chunks of the overlap schedule: one chunk unless mesh_overlap.
+    bsl = [(0, b)]
+    if mesh_overlap and b > 1:
+        step_b = -(-b // min(b, _MESH_OVERLAP_CHUNKS))
+        bsl = [(lo, min(lo + step_b, b)) for lo in range(0, b, step_b)]
+
+    def psum_b(parts):
+        if len(bsl) == 1:
+            return psum(parts)
+        chunks = [psum([p[lo:hi] for p in parts]) for lo, hi in bsl]
+        return [torch.cat([c[k] for c in chunks]) for k in range(n_sh)]
+
+    def by_chunk(fn, *args):
+        """``fn`` over the B chunks of its (B, ...) arguments, outputs
+        concatenated along B."""
+        if len(bsl) == 1:
+            return fn(*args)
+        outs = [fn(*(a[lo:hi] for a in args)) for lo, hi in bsl]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    if use_kernel:
+        if shrink_fn is not soft_threshold:
+            raise ValueError(
+                "the fused tail kernels hardcode soft-threshold shrinkage; a "
+                "custom shrink_fn needs a CPU mesh"
+            )
+        from repro_torch.kernels import rpca_admm, svt_subspace
+
+    def plain_tail(k, l, y):
+        s = shrink_fn(mk[k] - l + rho3[k] * y, th_k[k][:, None, None]) * cm[k]
+        resid = (mk[k] - l - s) * cm[k]
+        y_new = (y + mu_k[k][:, None, None] * resid) * cm[k]
+        return s, y_new, torch.sum(resid * resid, dim=(1, 2))
+
+    def tail_exact(l, y):
+        """Shard tails after an exact SVT: (S', Y', ||resid||)."""
+        outs = []
+        for k in range(n_sh):
+            if use_kernel:
+                outs.append(by_chunk(
+                    lambda *a: rpca_admm.admm_tail(*a, mask=cm[k]),
+                    mk[k], l[k].contiguous(), y[k], rho_k[k], mu_k[k], th_k[k],
+                ))
+            else:
+                outs.append(plain_tail(k, l[k], y[k]))
+        s2, y2, rsq = zip(*outs)
+        return list(s2), list(y2), torch.sqrt(psum_b(rsq)[0])
+
+    def tail_ritz(f, vr, y):
+        """Shard tails of a Ritz SVT, L_k = F Vr_k^T: (L, S', Y', ||resid||)."""
+        outs = []
+        for k in range(n_sh):
+            if use_kernel:
+                outs.append(by_chunk(
+                    lambda *a: svt_subspace.subspace_apply_factored(*a, mask=cm[k]),
+                    mk[k], y[k], f[k], vr[k], rho_k[k], mu_k[k], th_k[k],
+                ))
+            else:
+                l = f[k] @ vr[k].mT
+                outs.append((l, *plain_tail(k, l, y[k])))
+        l2, s2, y2, rsq = zip(*outs)
+        return list(l2), list(s2), list(y2), torch.sqrt(psum_b(rsq)[0])
+
+    def exact_svt(x, t):
+        """Exact SVT of the gathered X: each shard's L columns and top-r
+        basis rows, the live count, a zero residual."""
+        xg = mesh.all_gather(x, dim=2)
+        w_eig, v_full = _eigh(xg.mT @ xg)
+        s_ = torch.sqrt(torch.clamp_min(w_eig, 0.0))
+        s_shrunk = shrink_fn(s_, t[:, None])
+        xvc = (xg @ v_full) * _shrink_coef(s_, s_shrunk)[:, None, :]
+        l, v_top = [], []
+        for c, dev in zip(cols, devs):
+            v_loc = v_full[:, c, :].to(dev)
+            l.append(xvc.to(dev) @ v_loc.mT)
+            v_top.append(v_loc[:, :, -r:])
+        n_live = torch.sum((s_shrunk > 0.0).to(torch.int32), dim=-1, dtype=torch.int32)
+        return l, v_top, n_live, torch.zeros((b,), dtype=torch.float32, device=d0)
+
+    def sweep_wz(x, v):
+        """W = psum(X_k V_k) and Z_k = X_k^T W."""
+        w = psum_b([xk @ vk for xk, vk in zip(x, v)])
+        return w, [xk.mT @ wk for xk, wk in zip(x, w)]
+
+    def ritz_factors(x, t, v, n_sweeps):
+        """Power sweeps on the shards' rows, then Rayleigh-Ritz: (the shrink
+        factor F per shard, Ritz basis rows, live count, live-direction
+        subspace residual)."""
+        for _ in range(n_sweeps):
+            _, z = sweep_wz(x, v)
+            chol = rep(_jittered_cholesky(psum([zk.mT @ zk for zk in z])[0]))
+            v = [_solve_chol_t(ck, zk) for ck, zk in zip(chol, z)]
+        w, gv = sweep_wz(x, v)
+        theta, w_rot = _eigh(psum([vk.mT @ gk for vk, gk in zip(v, gv)])[0])
+        w_rot_k, theta_k = rep(w_rot), rep(theta)
+        vr = [vk @ wk for vk, wk in zip(v, w_rot_k)]
+        gvr = [gk @ wk for gk, wk in zip(gv, w_rot_k)]
+        s_ = torch.sqrt(torch.clamp_min(theta, 0.0))
+        s_shrunk = shrink_fn(s_, t[:, None])
+        # X Vr = W W_rot is in hand and replicated: F needs no more sums.
+        f = (w[0] @ w_rot) * _shrink_coef(s_, s_shrunk)[:, None, :]
+        live = (s_shrunk > 0.0).to(torch.float32)
+        live_k = rep(live)
+        res = [(g - v_ * th[:, None, :]) * lv[:, None, :]
+               for g, v_, th, lv in zip(gvr, vr, theta_k, live_k)]
+        g_mass = torch.sum(torch.clamp_min(theta, 0.0), dim=-1)
+        rel = torch.sqrt(psum([torch.sum(x_ * x_, dim=(1, 2)) for x_ in res])[0])
+        rel = rel / torch.clamp_min(g_mass, _EPS)
+        n_live = torch.sum(live.to(torch.int32), dim=-1, dtype=torch.int32)
+        return rep(f.contiguous()), [x_.contiguous() for x_ in vr], n_live, rel
+
+    def svt_step(x, v, n_live, rel_prev, cold):
+        """The reference's gates as Python ``if``s on replicated values:
+        (("exact", L) or ("ritz", F, Vr), basis, live, residual, fell)."""
+
+        def exact():
+            l, v2, live, rel = exact_svt(x, rho)
+            return ("exact", l), v2, live, rel, True
+
+        def attempt():
+            n = max(svt_sweeps, 1)
+            if svt_sweeps > 1 and bool(torch.max(rel_prev) <= 0.1 * svt_fallback_tol):
+                n = 1
+            f, vr, live, rel = ritz_factors(x, rho, v, n)
+            if bool(torch.any(rel > svt_fallback_tol) | torch.any(live >= r)):
+                return exact()
+            return ("ritz", f, vr), vr, live, rel, False
+
+        pre_full = cold or bool(torch.any(n_live >= r))
+        svt, v2, live2, rel2, fell = exact() if pre_full else attempt()
+        if fell:
+            rel2 = torch.full_like(rel2, 0.5 * svt_fallback_tol)
+        return svt, v2, live2, rel2, fell
+
+    def step(l, s, y, sub, it):
+        x = [a - b_ + r3 * c for a, b_, r3, c in zip(mk, s, rho3, y)]
+        if not use_subspace:
+            l, *_ = exact_svt(x, rho)
+            s2, y2, rnorm = tail_exact(l, y)
+            return l, s2, y2, rnorm / m_norm, sub, False
+        v, n_live, rel = sub
+        svt, v2, live2, rel2, fell = svt_step(x, v, n_live, rel, cold=it == 0)
+        if svt[0] == "exact":
+            l = svt[1]
+            s2, y2, rnorm = tail_exact(l, y)
+        else:
+            l, s2, y2, rnorm = tail_ritz(svt[1], svt[2], y)
+        return l, s2, y2, rnorm / m_norm, (v2, live2, rel2), fell
+
+    sub = None
+    if use_subspace:
+        eye = torch.eye(d2p, r, dtype=torch.float32)
+        sub = (
+            [eye[c].to(dev).expand(b, d2_loc, r) for c, dev in zip(cols, devs)],
+            torch.full((b,), r, dtype=torch.int32, device=d0),
+            torch.full((b,), math.inf, dtype=torch.float32, device=d0),
+        )
+    l, s, y = ([torch.zeros_like(x) for x in mk] for _ in range(3))
+    err = torch.full((b,), math.inf, dtype=torch.float32, device=d0)
+    falls = 0
+    if tol is None:
+        for it in range(n_iter):
+            l, s, y, err, sub, fell = step(l, s, y, sub, it)
+            falls += int(fell)
+        n_done = torch.full((b,), n_iter, dtype=torch.int32, device=d0)
+    else:
+        n_done = torch.zeros((b,), dtype=torch.int32, device=d0)
+        i = 0
+        while i < n_iter and bool(torch.any(err > tol)):
+            l2, s2, y2, err2, sub2, fell = step(l, s, y, sub, i)
+            # Freeze converged modules by select, on every shard.
+            active = err > tol
+            a3 = [a[:, None, None] for a in rep(active)]
+            sel = lambda new, old: [torch.where(a, n_, o) for a, n_, o in zip(a3, new, old)]
+            l, s, y = sel(l2, l), sel(s2, s), sel(y2, y)
+            err = torch.where(active, err2, err)
+            if sub is not None:
+                sub = (
+                    sel(sub2[0], sub[0]),
+                    torch.where(active, sub2[1], sub[1]),
+                    torch.where(active, sub2[2], sub[2]),
+                )
+            i += 1
+            n_done = torch.where(active, torch.full_like(n_done, i), n_done)
+            falls += int(fell)
+
+    def gather(parts):
+        return mesh.all_gather(parts, dim=2)[:, :, :d2].to(device=out_dev, dtype=orig_dtype)
+
+    return RPCAResult(
+        gather([lk * ck for lk, ck in zip(l, cm)]), gather(s), n_done.to(out_dev),
+        err.to(out_dev), falls,
+    )

@@ -8,15 +8,18 @@ a plain loop over the rounds, which is what this module runs.
 Minibatch indices come from an index stream: by default a CPU
 ``torch.Generator`` seeded with ``cfg.seed`` (so the same seed draws the
 same batches on every device), or the ``batch_indices`` callable a caller
-injects.  Each of these raises until its later ROADMAP.md item:
-``clients_per_round`` below the client count, ``pipeline=True``, ``faults``,
-a ``guard`` config, ``mesh_shards > 1``, a non-dense ``uplink``,
+injects.  ``mesh_shards > 1`` shards every aggregation's client axis over
+``launch.mesh.make_host_mesh(mesh_shards)`` on the run's device (the
+reference engine warns and runs unsharded).  Each of these raises until its
+later ROADMAP.md item: ``clients_per_round`` below the client count,
+``pipeline=True``, ``faults``, a ``guard`` config, a non-dense ``uplink``,
 ``client_ranks`` and ``carry_mode != "none"``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -31,6 +34,7 @@ from repro_torch.core.aggregators import (
 )
 from repro_torch.fed.client import LocalSpec, make_local_fn
 from repro_torch.kernels import backend
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_to, tree_zeros_like
 
 Tree = Any
@@ -104,7 +108,6 @@ def _check_config(cfg: FedRunConfig, n_clients: int) -> None:
         (cfg.pipeline, "the async round pipeline", "queue 1, item 5"),
         (cfg.faults is not None, "fault injection", "queue 1, item 5"),
         (cfg.guard not in (None, False), "the update quarantine (guard)", "queue 1, item 5"),
-        (cfg.mesh_shards > 1, "mesh-sharded aggregation", "queue 1, item 9"),
         (cfg.uplink not in (None, "dense"), "compressed uplinks", "queue 1, item 6"),
         (cfg.client_ranks is not None, "heterogeneous client ranks", "queue 1, item 6"),
     ]
@@ -135,10 +138,23 @@ def make_round_fn(
     ``batch_indices(round_idx)`` returns the round's (n_clients,
     local_steps, batch_size) minibatch indices; None draws them from the
     state's generator.  ``client_weights`` feed the aggregation
-    under ``weighting="data_size"`` / ``"data_size_rpca"``.
+    under ``weighting="data_size"`` / ``"data_size_rpca"``.  With
+    ``cfg.mesh_shards > 1`` every aggregation runs on a mesh of that many
+    client shards on ``data_x``'s device.
     """
     n_clients, n_local = data_x.shape[0], data_x.shape[1]
     _check_config(cfg, n_clients)
+    mesh = None
+    if cfg.mesh_shards > 1:
+        if cfg.engine != "packed":
+            warnings.warn(
+                f"mesh_shards={cfg.mesh_shards} with engine={cfg.engine!r}: the "
+                "reference engine is the single-device parity oracle; running "
+                "the aggregation replicated",
+                stacklevel=2,
+            )
+        else:
+            mesh = make_host_mesh(cfg.mesh_shards, device=data_x.device)
     local_fn = make_local_fn(cfg.local)
     dev = data_x.device
     agg_cfg = cfg.aggregator
@@ -173,11 +189,12 @@ def make_round_fn(
         if agg_cfg.method == "fedrpca":
             update, ediag = aggregate(
                 deltas, agg_cfg, engine=cfg.engine, weights=w_all, with_diagnostics=True,
-                device=dev,
+                mesh=mesh, device=dev,
             )
             rpca_diags = rpca_diag_summary(ediag)
         else:
-            update = aggregate(deltas, agg_cfg, engine=cfg.engine, weights=w_all, device=dev)
+            update = aggregate(deltas, agg_cfg, engine=cfg.engine, weights=w_all, mesh=mesh,
+                               device=dev)
             rpca_diags = {}
         lora_global = tree_map(lambda g, u: g + u, state.lora_global, update)
         finite = torch.stack([torch.isfinite(u).all() for u in tree_leaves(update)]).all()

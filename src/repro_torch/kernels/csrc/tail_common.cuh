@@ -1,6 +1,6 @@
 // Shared device helpers of the RPCA ADMM tail kernels (admm_tail.cu,
-// subspace_apply.cu): the soft-threshold shrink and a deterministic
-// block-wide sum.
+// subspace_apply.cu, subspace_apply_factored.cu) and soft_threshold.cu: the
+// soft-threshold shrink and a deterministic block-wide sum.
 #pragma once
 
 #include <cuda_runtime.h>

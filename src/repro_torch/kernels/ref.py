@@ -55,6 +55,22 @@ def svt_subspace_apply_ref(m, s, y, p, rho, mu, thresh, mask=None):
     return low, s_new, y_new, rsq, g_next
 
 
+def svt_subspace_apply_factored_ref(m, y, f, vr, rho, mu, thresh, mask=None):
+    """Factored-projector SVT tail of one client shard (twin of
+    ``ref.svt_subspace_apply_factored_ref``): L = F Vr^T in fp32 from the
+    (B, vec, r) shrink factor and the (B, clients, r) basis rows, then the
+    ADMM tail; the residual sum is this shard's partial.  L is left
+    unmasked."""
+    rho_, mu_, th_ = _scalars(m, rho, mu, thresh)
+    msk = _mask(m, mask)
+    low = torch.matmul(f.to(torch.float32), vr.to(torch.float32).mT).to(m.dtype)
+    s_new = soft_threshold_ref(m - low + rho_ * y, th_) * msk
+    resid = (m - low - s_new) * msk
+    y_new = (y + mu_ * resid) * msk
+    rsq = torch.sum(torch.square(resid.to(torch.float32)), dim=(1, 2))
+    return low, s_new, y_new, rsq
+
+
 def lora_matmul_ref(x, w, a, b, scale: float = 1.0) -> torch.Tensor:
     """y = x @ w + scale * (x @ a) @ b (twin of ``ref.lora_matmul_ref``),
     rounded where the kernel rounds: every operand is taken in x's dtype

@@ -1,6 +1,6 @@
-"""Fused subspace-SVT sweep tail: the CUDA kernel and its wrapper.
+"""Fused subspace-SVT sweep tails: the CUDA kernels and their wrappers.
 
-Replaces the Pallas TPU kernel
+``subspace_apply`` replaces the Pallas TPU kernel
 ``src/repro/kernels/svt_subspace.py::subspace_apply``.  In subspace SVT
 mode one ADMM iteration is the small-matrix algebra that yields the
 (B, d2, d2) shrink projector P (power sweeps, CholeskyQR, Rayleigh-Ritz —
@@ -20,6 +20,14 @@ six bucket tensors plus P and G' — and keeps X and X' in shared memory; the
 Gram and residual partials of its row groups are summed in group order by a
 second pass (no float atomics; see the source note).  Both products are
 full fp32 FMA, never TF32.
+
+``subspace_apply_factored`` replaces the Pallas TPU kernel
+``src/repro/kernels/svt_subspace.py::subspace_apply_factored``: the tail of
+one client shard of the mesh-sharded loop (``core/rpca.py``), which rebuilds
+its own columns L = F Vr^T from the replicated (B, vec, r) shrink factor and
+the shard's (B, d2, r) Ritz basis rows, so no d2 x d2 projector exists, and
+returns the shard's partial residual sum (no Gram).  Its kernel
+(``csrc/subspace_apply_factored.cu``) is bound by device-memory bytes.
 """
 from __future__ import annotations
 
@@ -44,12 +52,21 @@ MAX_PCOLS = 128
 TARGET_BLOCKS = 4 * 132
 #: Scratch budget of the Gram partials, in floats (256 MiB).
 SCRATCH_FLOATS = 1 << 26
+#: Elements of M a block of the factored kernel walks (16 per thread).
+FACTORED_TILE_ELEMS = 4096
 
 
 def _lib():
     lib = backend.load_library("subspace_apply")
     lib.repro_subspace_apply.argtypes = [_C] * 15 + [_I] * 7 + [_C]
     lib.repro_subspace_apply.restype = _I
+    return lib
+
+
+def _factored_lib():
+    lib = backend.load_library("subspace_apply_factored")
+    lib.repro_subspace_apply_factored.argtypes = [_C] * 13 + [_I] * 6 + [_C]
+    lib.repro_subspace_apply_factored.restype = _I
     return lib
 
 
@@ -150,3 +167,98 @@ def subspace_apply(
 
 #: Kernel launches since the count was last set to 0 (plain version excluded).
 subspace_apply.launches = 0
+
+
+def factored_tiling(vec: int, d2: int, r: int) -> dict:
+    """Launch geometry of the factored kernel: rows per tile (one block per
+    tile and module) and the number of tiles.  It depends on the shard's
+    shape only, never on the module count.  Raises when the basis rows do
+    not fit the shared-memory budget."""
+    room = SMEM_FLOATS - d2 * r - d2
+    tile_rows = min(max(vec, 1), max(1, FACTORED_TILE_ELEMS // d2), room // max(r, 1))
+    if tile_rows < 1:
+        raise ValueError(f"subspace_apply_factored: basis ({d2}, {r}) is too wide for the kernel")
+    return dict(tile_rows=tile_rows, n_groups=-(-vec // tile_rows))
+
+
+def _check_factored(m, y, f, vr, rho, mu, thresh, mask):
+    if m.ndim != 3:
+        raise ValueError(f"expected (B, vec, clients) input, got {tuple(m.shape)}")
+    if m.shape != y.shape:
+        raise ValueError(f"shape mismatch: {tuple(m.shape)} {tuple(y.shape)}")
+    b, d1, d2 = m.shape
+    r = f.shape[-1]
+    if f.shape != (b, d1, r):
+        raise ValueError(f"factor shape {tuple(f.shape)} != {(b, d1, r)}")
+    if vr.shape != (b, d2, r):
+        raise ValueError(f"basis shape {tuple(vr.shape)} != {(b, d2, r)}")
+    for name, v in (("rho", rho), ("mu", mu), ("thresh", thresh)):
+        if v.shape != (b,):
+            raise ValueError(f"{name} must have shape {(b,)}, got {tuple(v.shape)}")
+    if mask is not None and mask.shape != (d2,):
+        raise ValueError(f"mask must have shape {(d2,)}, got {tuple(mask.shape)}")
+
+
+def subspace_apply_factored(
+    m: torch.Tensor,
+    y: torch.Tensor,
+    f: torch.Tensor,
+    vr: torch.Tensor,
+    rho: torch.Tensor,
+    mu: torch.Tensor,
+    thresh: torch.Tensor,
+    *,
+    mask: Optional[torch.Tensor] = None,
+):
+    """Factored-projector SVT tail of one client shard: L = F Vr^T, then
+    the shrink, dual and residual tail.
+
+    ``m``, ``y`` are the shard's (B, vec, d2) columns, ``f`` the replicated
+    (B, vec, r) shrink factor (X Vr) diag(coef), ``vr`` the shard's
+    (B, d2, r) Ritz basis rows; ``rho``, ``mu``, ``thresh`` per-module (B,)
+    scalars; ``mask`` the shard's optional (d2,) column mask (masked
+    columns of S'/Y' exactly zero and out of the residual sums, ``None`` the
+    same bits as all-ones).  L is not masked.  Returns (L, S', Y',
+    resid_sumsq) with resid_sumsq the (B,) float32 partial of these columns;
+    the caller sums the shards' partials.
+
+    CPU tensors compute ``ref.svt_subspace_apply_factored_ref``.  CUDA
+    tensors must be contiguous float32 on one device, and launch the kernel.
+    """
+    _check_factored(m, y, f, vr, rho, mu, thresh, mask)
+    if not backend.use_kernel(m):
+        return ref.svt_subspace_apply_factored_ref(m, y, f, vr, rho, mu, thresh, mask)
+    b, vec, d2 = m.shape
+    r = f.shape[-1]
+    ins = [m, y, f, vr, rho, mu, thresh] + ([] if mask is None else [mask])
+    for t in ins:
+        if t.device != m.device:
+            raise ValueError(f"subspace_apply_factored: tensors on {t.device} and {m.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"subspace_apply_factored takes float32 on CUDA, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("subspace_apply_factored takes contiguous tensors on CUDA")
+    l_out = torch.empty_like(m)
+    s_out = torch.empty_like(m)
+    y_out = torch.empty_like(m)
+    rsq = torch.empty((b,), dtype=torch.float32, device=m.device)
+    if m.numel() == 0:
+        return l_out, s_out, y_out, rsq.zero_()
+    geo = factored_tiling(vec, d2, r)
+    mvec = torch.ones((d2,), dtype=torch.float32, device=m.device) if mask is None else mask
+    r_part = torch.empty((b, geo["n_groups"]), dtype=torch.float32, device=m.device)
+    lib = _factored_lib()
+    with torch.cuda.device(m.device):
+        err = lib.repro_subspace_apply_factored(
+            m.data_ptr(), y.data_ptr(), f.data_ptr(), vr.data_ptr(), rho.data_ptr(),
+            mu.data_ptr(), thresh.data_ptr(), mvec.data_ptr(), l_out.data_ptr(),
+            s_out.data_ptr(), y_out.data_ptr(), r_part.data_ptr(), rsq.data_ptr(), b, vec,
+            d2, r, geo["tile_rows"], geo["n_groups"], backend.stream_ptr(m),
+        )
+    backend.check_launch(err, "subspace_apply_factored")
+    subspace_apply_factored.launches += 1
+    return l_out, s_out, y_out, rsq
+
+
+#: Kernel launches since the count was last set to 0 (plain version excluded).
+subspace_apply_factored.launches = 0

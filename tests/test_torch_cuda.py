@@ -138,6 +138,53 @@ def test_aggregate_runs_on_the_card_by_default(cuda):
         torch.testing.assert_close(out[k].cpu(), cpu[k], atol=1e-4 * float(tree[k].abs().max()), rtol=0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,vec,d2,r,n_valid", [(48, 4096, 10, 8, None), (3, 1000, 7, 3, 5)])
+def test_subspace_apply_factored_kernel_matches_plain(cuda, b, vec, d2, r, n_valid):
+    """The factored tail of one client shard against its plain version, two
+    launches bit for bit, ``mask=None`` bit for bit an all-ones mask."""
+    x = inputs(5, b, vec, d2, n_valid, cuda)
+    gen = torch.Generator().manual_seed(6)
+    f = torch.randn((b, vec, r), generator=gen).to(cuda)
+    vr = (torch.randn((b, d2, r), generator=gen) / d2**0.5).to(cuda)
+    args = (x["m"], x["y"], f, vr, x["rho"], x["mu"], x["th"])
+    got = svt_subspace.subspace_apply_factored(*args, mask=x["mask"])
+    again = svt_subspace.subspace_apply_factored(*args, mask=x["mask"])
+    want = ref.svt_subspace_apply_factored_ref(*args, mask=x["mask"])
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    assert_sums_close(got[3], want[3])
+    if x["mask"] is None:
+        ones = svt_subspace.subspace_apply_factored(*args, mask=torch.ones(d2, device=cuda))
+        assert all(torch.equal(a, c) for a, c in zip(got, ones))
+    else:
+        assert not bool(got[1][..., n_valid:].any()) and not bool(got[2][..., n_valid:].any())
+
+
+@pytest.mark.gpu
+def test_sharded_aggregate_on_the_card_matches_unsharded(cuda):
+    """``aggregate`` on a 4-shard mesh of the card against the unsharded
+    card call, 10 clients padded to 12; the Ritz iterations launch the
+    factored kernel once a shard."""
+    from repro_torch.core import AggregatorConfig, aggregate
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rng = np.random.default_rng(7)
+    core = rng.normal(size=(2, 96, 2)) @ rng.normal(size=(2, 2, 10))
+    spikes = np.where(rng.random(core.shape) < 0.05, 5.0 * rng.normal(size=core.shape), 0.0)
+    tree = {"w": torch.from_numpy(np.moveaxis(core + spikes, -1, 0).reshape(10, 2, 12, 8)
+                                  .astype(np.float32))}
+    cfg = AggregatorConfig(method="fedrpca", rpca_iters=20, svt_mode="subspace")
+    base = aggregate(tree, cfg)
+    before = svt_subspace.subspace_apply_factored.launches
+    got = aggregate(tree, cfg, mesh=make_host_mesh(4))
+    assert (svt_subspace.subspace_apply_factored.launches - before) % 4 == 0
+    assert svt_subspace.subspace_apply_factored.launches > before
+    scale = float(tree["w"].abs().max())
+    torch.testing.assert_close(got["w"], base["w"], atol=1e-4 * scale, rtol=0)
+
+
 # --- Serving kernels -----------------------------------------------------------
 # float32: K products summed in two orders (FMA kernel vs cuBLAS), error
 # ~sqrt(K) ulps of the largest output.  bfloat16: each rounds fp32 sums to

@@ -187,10 +187,16 @@ def test_guard_weights_match_jax():
 
 @pytest.mark.parametrize("what", ["ties", "dare", "fedexp", "mesh"])
 def test_unported_raise(what):
+    """Unported methods, and the one part of mesh aggregation still to port:
+    carries of the sharded loop."""
     tree = from_jax_tree(planted_tree(4, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "mesh":
-            aggregate(tree, AggregatorConfig(method="fedavg"), mesh=object(), device="cpu")
+            from repro_torch.core import rpca
+            from repro_torch.launch.mesh import make_host_mesh
+
+            m = torch.zeros((2, 8, 4))
+            rpca.robust_pca_bucket_sharded(m, mesh=make_host_mesh(2, "cpu"), return_carry=True)
         else:
             aggregate(tree, AggregatorConfig(method=what), key=0, device="cpu")
 

@@ -114,7 +114,7 @@ def test_run_simulation_needs_an_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("clients_per_round", 2), ("pipeline", True), ("faults", object()), ("mesh_shards", 2),
+    ("clients_per_round", 2), ("pipeline", True), ("faults", object()), ("guard", True),
     ("uplink", "sketch"), ("client_ranks", "2,1"),
 ])
 def test_unported_round_options_raise(field, value):
