@@ -22,10 +22,14 @@ Phases (any failed check raises and the script exits non-zero):
      (decode) and (129, 513, 130, 8), float32 and bf16, on a layer's slice
      of an 8-slot pool with 4 tenants, slot -1 the bits of a zero adapter,
      one slot on every row equal to ``lora_matmul``, also at Mamba-2's
-     ``in_proj`` (4096, 768, 3352) and ``out_proj`` (4096, 1536, 768);
-     ``local_attention`` at (BH, S, D) = (256, 512, 64), S = 300 and window
-     128, float32 and bf16, beside ``F.scaled_dot_product_attention`` (timed
-     only); ``ssd_scan`` (y and the final state) at (BH, S, P, N) =
+     ``in_proj`` (4096, 768, 3352) and ``out_proj`` (4096, 1536, 768), each
+     bf16 shape timed beside cuBLAS ``x @ W``; ``local_attention`` at (BH,
+     S, D) = (256, 512, 64), S = 300 and window 128, float32 and bf16,
+     beside ``F.scaled_dot_product_attention`` (timed only).  Each checked
+     shape prints its route (``lora_matmul.route``,
+     ``local_attention.route``: bf16 on the tensor cores, float32 and the
+     ragged bf16 LoRA shape on fp32 FMA) and its tensor-route launches must
+     match it; ``ssd_scan`` (y and the final state) at (BH, S, P, N) =
      (192, 512, 64, 128) and S = 300, the model's decays and weak ones, and
      at odd widths; ``soft_threshold`` at path B's bucket flattened to
      (196608, 40) and at (129, 130), float32 and bf16, equal bits, beside
@@ -50,9 +54,10 @@ Phases (any failed check raises and the script exits non-zero):
      the merged adapter; one tenant on every row against its 2-D adapter;
      a FedRPCA aggregate of 4 client deltas hot-swapped into tenant 0 with
      ``publish_round`` and decoded again (only tenant 0 moves, the pool keeps
-     its storage); and the serving run at depth 2 in float32 on the card and
-     on the CPU.  Prefill seconds, decode tokens/s and peak memory beside the
-     card's name and power limit.
+     its storage); a profiled decode window and a profiled warm prefill; and
+     the serving run at depth 2 in float32 on the card and on the CPU.
+     Prefill seconds, decode tokens/s and peak memory beside the card's name
+     and power limit.
   7. Main path D: the same serving of ``configs/mamba2_130m.py`` at full
      width (24 layers, bf16): pool, merged, one tenant, a profiled prefill
      and decode window; the state handoff (decoding token S+1 after a
@@ -73,7 +78,10 @@ Kernel launch counts are set to 0 just before phase 4 and read just after
 phase 5, and set to 0 again just before each of phases 6, 7, 8 and 9 and
 read just after it; every kernel must have launched, and each phase exactly
 as often as its rounds, ADMM iterations, fallbacks, shards, buckets, layers
-and decode steps say.
+and decode steps say.  Beside them the tensor-route launches of the LoRA
+and attention kernels are counted: paths C and D must launch every bf16
+call on the tensor route and every float32 one (the depth-2 card-vs-CPU
+runs, the state handoff) off it.
 """
 from __future__ import annotations
 
@@ -176,6 +184,26 @@ def device_ms(fn, reps: int = 20) -> float:
     print(f"[timing] torch.profiler saw no device time in {PROFILER_TRIES} captures; "
           f"{ms:.6f} ms per call by CUDA events behind a sleep kernel", flush=True)
     return ms
+
+
+def device_ms_by_kernel(fn, reps: int = 20) -> dict:
+    """Device time per call of each kernel ``fn`` launches, by name (the
+    first 40 characters), from one ``torch.profiler`` capture after a
+    warm-up; empty when the trace comes back empty."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    return {e.key[:40]: round(dev(e) / reps / 1e3, 4) for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and dev(e) > 0}
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -441,7 +469,9 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
             a, b = a_pool[:, 1], b_pool[:, 1]  # layer 1's slice, slot stride 3*K*R
             scale = 2.0
             rs = request_slots(m, 8, [TENANT_SLOTS[i % 4] for i in range(8)])
-            tag = f"{label} M={m} K={k} N={n} R={r} {str(dtype)[6:]}"
+            route = lm.route(k, n, dtype)
+            tag = f"{label} M={m} K={k} N={n} R={r} {str(dtype)[6:]} route={route}"
+            tc_before = lm.lora_matmul.tc_launches + lm.gathered_lora_matmul.tc_launches
 
             run1 = lambda: lm.lora_matmul(x, w, a[3], b[3], scale)
             plain1 = lambda: ref.lora_matmul_ref(x, w, a[3], b[3], scale)
@@ -472,6 +502,9 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
             one = lm.gathered_lora_matmul(x, w, a, b, torch.full_like(rs, 3), scale)
             err_one = check_close(one, got, lora_tol(dtype, k, got),
                                   f"gathered (one slot) vs lora_matmul {tag}")
+            tc = lm.lora_matmul.tc_launches + lm.gathered_lora_matmul.tc_launches - tc_before
+            if tc != (7 if route == "tensor" else 0):
+                raise AssertionError(f"{tag}: {tc} tensor-route launches of 7")
             print(f"[kernels] {tag}: lora_matmul_err={err1:.3g} gathered_err={errg:.3g} "
                   f"one_slot_vs_lora_matmul={err_one:.3g} slot-1==zero-adapter bitwise",
                   flush=True)
@@ -499,6 +532,10 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
                       f"cublas_x@W_ms={floor_ms:.4f} call_ms={call_ms:.4f}", flush=True)
                 if label == "prefill":
                     rec[name] = out
+            # Where a call's device time goes: x @ A, the base product with its
+            # epilogue, and the split-K finish.
+            print(f"[kernels] gathered_lora_matmul {tag}: device ms by kernel "
+                  f"{device_ms_by_kernel(rung)}", flush=True)
     return rec
 
 
@@ -518,11 +555,15 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
                        for _ in range(3))
             run = lambda: la.local_attention(q, k, v, window=window)
             plain = lambda: ref.local_attention_ref(q, k, v, window=window)
+            route = la.route(d, dtype)
+            tc_before = la.local_attention.tc_launches
             got, again, want = run(), run(), plain()
             torch.cuda.synchronize()
-            tag = f"{label} BH={bh} S={s} D={d} window={window} {str(dtype)[6:]}"
+            tag = f"{label} BH={bh} S={s} D={d} window={window} {str(dtype)[6:]} route={route}"
             if not torch.equal(got, again):
                 raise AssertionError(f"local_attention {tag}: two launches differ")
+            if la.local_attention.tc_launches - tc_before != (2 if route == "tensor" else 0):
+                raise AssertionError(f"local_attention {tag}: launched off its route")
             tol = (ATTN_F32_ATOL if dtype == torch.float32
                    else ATTN_BF16_RTOL * float(want.double().abs().max()))
             err = check_close(got, want, tol, f"local_attention {tag}")
@@ -1281,7 +1322,8 @@ def main_path_c(counts, card: str) -> dict:
     before = counts()
     rec = serve_once(base, pool, cfg, ids, prompts, C_GEN)
     expect("pool", launched(before), gathered_lora_matmul=2 * n_l * C_GEN,
-           local_attention=n_l)
+           gathered_lora_matmul_tc=2 * n_l * C_GEN, local_attention=n_l,
+           local_attention_tc=n_l)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     all_logits = [rec["prefill_logits"]] + rec["decode_logits"]
     if not all(bool(torch.isfinite(x).all()) for x in all_logits):
@@ -1295,13 +1337,26 @@ def main_path_c(counts, card: str) -> dict:
           f"{rec['tokens'][:, :8].tolist()}", flush=True)
     before = counts()
     wall, busy, top = profile_decode(base, pool, cfg, rec, C_PROFILE_STEPS)
-    expect("profile", launched(before), gathered_lora_matmul=2 * n_l * C_PROFILE_STEPS)
+    expect("profile", launched(before), gathered_lora_matmul=2 * n_l * C_PROFILE_STEPS,
+           gathered_lora_matmul_tc=2 * n_l * C_PROFILE_STEPS)
     share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
     print(f"[path C] {card} | {C_PROFILE_STEPS} decode steps under torch.profiler: host "
           f"{wall:.4f} s, device {share} of it; top kernels by device ms (name, ms, "
           f"calls): {top}", flush=True)
 
+    # A warm prefill of the same batch: the pool run's prefill is the model's
+    # first, and its host time carries first-call costs.
     toks = torch.as_tensor(prompts, device=DEVICE)
+    prefill = serve.make_serving_fns(cfg)[0]
+    slots = pool.acquire(ids)
+    before = counts()
+    wall, busy, top = profiled(lambda: prefill(base, pool.pooled, slots, {"tokens": toks}))
+    expect("profile prefill", launched(before), gathered_lora_matmul=2 * n_l,
+           gathered_lora_matmul_tc=2 * n_l, local_attention=n_l, local_attention_tc=n_l)
+    share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
+    print(f"[path C] {card} | one prefill under torch.profiler: host {wall:.4f} s, device "
+          f"{share} of it; top kernels by device ms (name, ms, calls): {top}", flush=True)
+
     merged = pool.merged()
     before = counts()
     t1 = time.perf_counter()
@@ -1309,7 +1364,9 @@ def main_path_c(counts, card: str) -> dict:
     torch.cuda.synchronize()
     t_merged = time.perf_counter() - t1
     merged_logits = forward(base, merged, {"tokens": toks}, cfg, mode="prefill")[0]
-    expect("merged", launched(before), lora_matmul=2 * n_l * (C_GEN + 1), local_attention=2 * n_l)
+    expect("merged", launched(before), lora_matmul=2 * n_l * (C_GEN + 1),
+           lora_matmul_tc=2 * n_l * (C_GEN + 1), local_attention=2 * n_l,
+           local_attention_tc=2 * n_l)
     gaps = [float((rec["prefill_logits"][i] - merged_logits[i]).abs().max())
             for i in range(C_BATCH)]
     if not bool(torch.isfinite(merged_logits).all()) or min(gaps) <= 0.0:
@@ -1321,11 +1378,12 @@ def main_path_c(counts, card: str) -> dict:
           flush=True)
 
     before = counts()
-    one_pool = serve.make_serving_fns(cfg)[0](
-        base, pool.pooled, pool.acquire(["tenant-1"] * C_BATCH), {"tokens": toks})[0]
+    one_pool = prefill(base, pool.pooled, pool.acquire(["tenant-1"] * C_BATCH),
+                       {"tokens": toks})[0]
     one_plain = forward(base, trees[1], {"tokens": toks}, cfg, mode="prefill")[0]
     expect("one tenant", launched(before), gathered_lora_matmul=2 * n_l,
-           lora_matmul=2 * n_l, local_attention=2 * n_l)
+           gathered_lora_matmul_tc=2 * n_l, lora_matmul=2 * n_l, lora_matmul_tc=2 * n_l,
+           local_attention=2 * n_l, local_attention_tc=2 * n_l)
     err = max_abs(one_pool, one_plain)
     scale = float(one_plain.abs().max())
     if err > C_ONE_TENANT_RTOL * scale:
@@ -1347,7 +1405,8 @@ def main_path_c(counts, card: str) -> dict:
     t_swap = time.perf_counter() - t1
     new_logits, new_tokens = decode_again(base, pool, cfg, rec, C_GEN)
     expect("hot swap", launched(before), admm_tail=5 * n_buckets,
-           gathered_lora_matmul=2 * n_l * (C_GEN - 1))
+           gathered_lora_matmul=2 * n_l * (C_GEN - 1),
+           gathered_lora_matmul_tc=2 * n_l * (C_GEN - 1))
     if [x.data_ptr() for x in tree_leaves(pool.pooled)] != ptrs:
         raise AssertionError("path C: publish_round moved the pooled tensors")
     tenant0 = torch.tensor([i % C_TENANTS == 0 for i in range(C_BATCH)], device=DEVICE)
@@ -1426,7 +1485,8 @@ def main_path_d(counts, card: str) -> dict:
 
     before = counts()
     rec = serve_once(base, pool, cfg, ids, prompts, D_GEN)
-    expect("pool", launched(before), gathered_lora_matmul=2 * n_l * D_GEN, ssd_scan=n_l)
+    expect("pool", launched(before), gathered_lora_matmul=2 * n_l * D_GEN,
+           gathered_lora_matmul_tc=2 * n_l * D_GEN, ssd_scan=n_l)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     all_logits = [rec["prefill_logits"]] + rec["decode_logits"]
     if not all(bool(torch.isfinite(x).all()) for x in all_logits):
@@ -1445,13 +1505,15 @@ def main_path_d(counts, card: str) -> dict:
     slots = pool.acquire(ids)
     before = counts()
     wall, busy, top = profiled(lambda: prefill(base, pool.pooled, slots, {"tokens": toks}))
-    expect("profile prefill", launched(before), gathered_lora_matmul=2 * n_l, ssd_scan=n_l)
+    expect("profile prefill", launched(before), gathered_lora_matmul=2 * n_l,
+           gathered_lora_matmul_tc=2 * n_l, ssd_scan=n_l)
     share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
     print(f"[path D] {card} | one prefill under torch.profiler: host {wall:.4f} s, device "
           f"{share} of it; top kernels by device ms (name, ms, calls): {top}", flush=True)
     before = counts()
     wall, busy, top = profile_decode(base, pool, cfg, rec, C_PROFILE_STEPS)
-    expect("profile decode", launched(before), gathered_lora_matmul=2 * n_l * C_PROFILE_STEPS)
+    expect("profile decode", launched(before), gathered_lora_matmul=2 * n_l * C_PROFILE_STEPS,
+           gathered_lora_matmul_tc=2 * n_l * C_PROFILE_STEPS)
     share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
     print(f"[path D] {card} | {C_PROFILE_STEPS} decode steps under torch.profiler: host "
           f"{wall:.4f} s, device {share} of it; top kernels by device ms (name, ms, "
@@ -1464,7 +1526,8 @@ def main_path_d(counts, card: str) -> dict:
     torch.cuda.synchronize()
     t_merged = time.perf_counter() - t1
     merged_logits = forward(base, merged, {"tokens": toks}, cfg, mode="prefill")[0]
-    expect("merged", launched(before), lora_matmul=2 * n_l * (D_GEN + 1), ssd_scan=2 * n_l)
+    expect("merged", launched(before), lora_matmul=2 * n_l * (D_GEN + 1),
+           lora_matmul_tc=2 * n_l * (D_GEN + 1), ssd_scan=2 * n_l)
     gaps = [float((rec["prefill_logits"][i] - merged_logits[i]).abs().max())
             for i in range(D_BATCH)]
     if not bool(torch.isfinite(merged_logits).all()) or min(gaps) <= 0.0:
@@ -1479,7 +1542,8 @@ def main_path_d(counts, card: str) -> dict:
     one_pool = prefill(base, pool.pooled, pool.acquire(["tenant-1"] * D_BATCH),
                        {"tokens": toks})[0]
     one_plain = forward(base, trees[1], {"tokens": toks}, cfg, mode="prefill")[0]
-    expect("one tenant", launched(before), gathered_lora_matmul=2 * n_l, lora_matmul=2 * n_l,
+    expect("one tenant", launched(before), gathered_lora_matmul=2 * n_l,
+           gathered_lora_matmul_tc=2 * n_l, lora_matmul=2 * n_l, lora_matmul_tc=2 * n_l,
            ssd_scan=2 * n_l)
     err = max_abs(one_pool, one_plain)
     scale = float(one_plain.abs().max())
@@ -1612,11 +1676,18 @@ def main() -> int:
                 "local_attention": local_attention.local_attention,
                 "ssd_scan": ssd_scan.ssd_scan, "soft_threshold": soft_threshold.soft_threshold,
                 "subspace_apply_factored": svt_subspace.subspace_apply_factored}
-    counts = lambda: {k: w.launches for k, w in wrappers.items()}
+    # Beside each kernel's launches, the tensor-route launches of the three
+    # kernels that have two routes ("<name>_tc"): paths C and D expect every
+    # bf16 launch there and every float32 launch off it.
+    routed = ("lora_matmul", "gathered_lora_matmul", "local_attention")
+    counts = lambda: {**{k: w.launches for k, w in wrappers.items()},
+                      **{f"{k}_tc": wrappers[k].tc_launches for k in routed}}
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
+        for k in routed:
+            wrappers[k].tc_launches = wrappers[k].scalar_launches = 0
 
     zero_counts()
     t0 = time.perf_counter()

@@ -9,48 +9,66 @@
 //
 // with the reference's online softmax: a running max m, normalizer l and
 // accumulator acc per query row in fp32, masked scores set to -1e30 (not
-// -inf), out = acc / max(l, 1e-30).  q, k, v and out are float or bf16;
-// every product and sum is fp32.
+// -inf), out = acc / max(l, 1e-30).  D is 32 or 64.  Both routes visit only
+// the key tiles a query tile needs (the causal and window skip of the TPU
+// kernel), mask keys past S in a ragged last tile, and use no atomics: the
+// same inputs give the same bits on every launch.
 //
-// Bound: at prefill (BH = 256, S = 512, D = 64, causal) the kernel does
-// 4 * D operations per (query, key) pair it keeps, 8.6 GFLOP, against
-// 67 MB of bf16 operands: at the tensor cores' rate the bytes would bind
-// (0.020 ms against 0.009 ms), but this kernel runs its products as fp32
-// FMA on the CUDA cores, where the operations bind (0.13 ms at 67 TFLOP/s).
+// Two routes, chosen by the wrapper from the dtype alone
+// (``local_attention.route``):
 //
-// Design.  One block of 64 threads per 64-query tile of one (batch*head);
-// each thread owns one query row, holding q and acc (D floats each) in
-// registers, so the softmax needs no cross-thread reduction.  The block
-// walks only the key tiles its rows need (the causal and window skip of the
-// TPU kernel): from the tile of the oldest key in the window of its first
-// row to the tile of its last row.  Each 32-key tile of K and V is staged in
-// shared memory as fp32 and read by all threads at the same address (a
-// broadcast).  Keys past S in a ragged last tile are masked.  No atomics:
-// the same inputs give the same bits on every launch.  D is 32 or 64: two
-// D-float register arrays per thread must fit the 255-register limit.
+// * Tensor route (bf16): attention_tc.  A block of 4 warps takes 64 query
+//   rows, 16 a warp, four blocks an SM; the blocks of the longest causal rows
+//   launch first.  Q is staged once in shared memory; 64-key tiles of K and
+//   V are double-buffered there by cp.async (the next tile's copy runs under
+//   this tile's products), each read once per query tile (128-row blocks of
+//   8 warps measured slower).  S = Q K^T and
+//   O += P V run on the tensor cores as mma.sync m16n8k16 bf16 -> fp32 with
+//   ldmatrix fragments (V through ldmatrix.trans).  mma.sync and not wgmma:
+//   at the prefill shape (BH, S, D) = (256, 512, 64) causal the kernel is
+//   bound by its 67 MB of bytes even at the tensor-core rate (0.020 ms
+//   against 0.009 ms for the operations), so what counts is reading K and
+//   V once per query tile and overlapping the copies, not the last factor
+//   of the MMA rate; m16n8k16 keeps each warp's 16 rows and their softmax
+//   in registers without a warpgroup's 64-row granularity, and lets a warp
+//   skip a tile that is masked for all its rows (exact: such a tile's p
+//   are 0, or garbage that the first kept key wipes).  The softmax is fp32
+//   and online, in log2 units (scores scaled by log2(e) / sqrt(D), the
+//   SFU's ex2.approx):
+//   each row's 64 scores of a tile sit in the 4 threads of a quad, whose
+//   running max is combined by a fixed shuffle tree (xor 1, then 2); each
+//   thread keeps a partial normalizer, added over the quad the same way at
+//   the end.  The scores' C fragments are the A fragments of P V once
+//   rounded to bf16.  That rounding is one the plain version does not make:
+//   each p_j in [0, 1] moves by at most 2^-9 p_j, so an output
+//   sum_j p_j v_j / l moves by at most 2^-9 max|v| -- inside the bf16
+//   tolerance of 2^-7 max|out| (max|out| is of the order of max|v|: the
+//   first query row's output is v_0).
+// * Scalar route (float32): attention_scalar.  One block of 64 threads per
+//   64-query tile, each thread one query row with q and acc (D floats each)
+//   in registers; each 32-key tile of K and V is staged in shared memory and
+//   read by all threads at the same address (a broadcast); products and
+//   sums are fp32 FMA on the CUDA cores, where the operations bind.  float32
+//   stays here because TF32 tensor cores would not hold the float32 serving
+//   check against the CPU.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int BQ = 64;   // query rows per block, one per thread
-constexpr int BKV = 32;  // keys per shared-memory tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// --- Scalar route (float32) ----------------------------------------------------
+constexpr int BQ = 64;   // query rows per block, one per thread
+constexpr int BKV = 32;  // keys per shared-memory tile
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BQ)
-local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S, int window,
-                       int causal, float scale) {
+attention_scalar(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S, int window,
+                 int causal, float scale) {
   __shared__ __align__(16) float ks[BKV][D];
   __shared__ __align__(16) float vs[BKV][D];
   const int q_lo = blockIdx.x * BQ;
@@ -60,7 +78,7 @@ local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[D], acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = qi < S ? to_f(q[base + static_cast<size_t>(qi) * D + d]) : 0.f;
+    qr[d] = qi < S ? q[base + static_cast<size_t>(qi) * D + d] : 0.f;
     acc[d] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -73,8 +91,8 @@ local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = e / D, d = e % D;
       const int kpos = t0 + j;
       const size_t off = base + static_cast<size_t>(kpos) * D + d;
-      ks[j][d] = kpos < S ? to_f(k[off]) : 0.f;
-      vs[j][d] = kpos < S ? to_f(v[off]) : 0.f;
+      ks[j][d] = kpos < S ? k[off] : 0.f;
+      vs[j][d] = kpos < S ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -128,19 +146,277 @@ local_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qi < S) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* out = o + base + static_cast<size_t>(qi) * D;
+    float* out = o + base + static_cast<size_t>(qi) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) out[d] = from_f<T>(acc[d] * inv);
+    for (int d = 0; d < D; ++d) out[d] = acc[d] * inv;
   }
 }
 
-template <typename T, int D>
+// --- Tensor route (bf16) -------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BQ = 64;      // query rows per block: 4 warps of 16
+constexpr int BKV = 64;     // keys per tile
+constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared rows padded by 16 bytes: the 8 rows an ldmatrix phase reads fall
+// in 8 distinct 16-byte bank groups (row strides 144 and 80 bytes).
+template <int D>
+struct Tiles {
+  bf16 q[BQ][D + 8];
+  bf16 k[2][BKV][D + 8];
+  bf16 v[2][BKV][D + 8];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (rows past S).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of one (S, D) head into a padded shared tile.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(bf16 (*dst)[D + 8], const bf16* src, int row0, int S) {
+  constexpr int kPerRow = D / 8;  // 16-byte pieces of a row
+  for (int c = threadIdx.x; c < ROWS * kPerRow; c += kThreads) {
+    const int r = c / kPerRow, p = c % kPerRow;
+    const int row = row0 + r;
+    const bool valid = row < S;
+    cp_async16(&dst[r][p * 8], src + static_cast<size_t>(valid ? row : 0) * D + p * 8, valid);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) @ b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the SFU (ex2.approx, ~2 ulp): exactly 0 for the masked -1e30
+// differences, exactly 1 at 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Fragment layout (m16n8): thread lane holds rows g = lane / 4 and g + 8,
+// columns 2 (lane % 4) and + 1 of each 8-column block; index 2 h + e is
+// row g + 8 h, column 2 (lane % 4) + e.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 4)
+attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o, int S, int window, int causal,
+             float scale_log2) {
+  extern __shared__ __align__(16) unsigned char tiles_raw[];
+  Tiles<D>& sm = *reinterpret_cast<Tiles<D>*>(tiles_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // The longest causal rows first: the last query tile is block 0.
+  const int q_lo = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
+  const bf16* qh = q + base;
+  const bf16* kh = k + base;
+  const bf16* vh = v + base;
+
+  const int q_last = min(q_lo + BQ, S) - 1;
+  const int key_last = causal ? q_last : S - 1;
+  const int key_first = window ? max(0, q_lo - window + 1) : 0;
+  const int t_first = key_first / BKV;
+  const int n_tiles = key_last / BKV - t_first + 1;
+
+  load_tile<D, BQ>(sm.q, qh, q_lo, S);
+  load_tile<D, BKV>(sm.k[0], kh, t_first * BKV, S);
+  load_tile<D, BKV>(sm.v[0], vh, t_first * BKV, S);
+  cp_async_commit();
+
+  const int w_lo = q_lo + warp * 16;  // this warp's rows [w_lo, w_lo + 16)
+  uint32_t qf[D / 16][4];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_part[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < n_tiles) {
+      load_tile<D, BKV>(sm.k[buf ^ 1], kh, (t_first + i + 1) * BKV, S);
+      load_tile<D, BKV>(sm.v[buf ^ 1], vh, (t_first + i + 1) * BKV, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldmatrix_x4(qf[kk], &sm.q[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+    }
+    const int t0 = (t_first + i) * BKV;
+    // A tile masked for every row of this warp changes nothing it keeps
+    // (its p are 0, or garbage wiped by the first kept key): skip it.
+    const bool empty = w_lo >= S || (causal && t0 > w_lo + 15) ||
+                       (window && t0 + BKV - 1 <= w_lo - window);
+    if (!empty) {
+      // S = Q K^T: 8 blocks of 8 keys, D / 16 steps of 16.
+      float s[BKV / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < BKV / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int nb2 = 0; nb2 < BKV / 16; ++nb2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, &sm.k[buf][nb2 * 16 + (lane & 7) + (lane >> 4) * 8]
+                                 [kk * 16 + ((lane >> 3) & 1) * 8]);
+          mma_bf16(s[2 * nb2], qf[kk], b[0], b[1]);
+          mma_bf16(s[2 * nb2 + 1], qf[kk], b[2], b[3]);
+        }
+
+      // Scale (to log2 units) and mask; a tile wholly inside every row's
+      // window skips the mask.
+      const bool masked = (causal && t0 + BKV - 1 > w_lo) || t0 + BKV > S ||
+                          (window && t0 <= w_lo + 15 - window);
+#pragma unroll
+      for (int nb = 0; nb < BKV / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sc = s[nb][e] * scale_log2;
+          if (masked) {
+            const int row = w_lo + g + 8 * (e >> 1), key = t0 + nb * 8 + 2 * t4 + (e & 1);
+            bool keep = key < S;
+            if (causal) keep = keep && row >= key;
+            if (window) keep = keep && key > row - window;
+            if (!keep) sc = kNegInf;
+          }
+          s[nb][e] = sc;
+        }
+
+      // Online softmax per row (h = 0: row g, h = 1: row g + 8).
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int nb = 0; nb < BKV / 8; ++nb) mx = fmaxf(mx, fmaxf(s[nb][2 * h], s[nb][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[h], mx);
+        const float alpha = exp2_approx(m_run[h] - m_new);
+        float psum = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < BKV / 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2_approx(s[nb][2 * h + e] - m_new);
+            s[nb][2 * h + e] = p;
+            psum += p;
+          }
+        l_part[h] = l_part[h] * alpha + psum;
+        m_run[h] = m_new;
+#pragma unroll
+        for (int nb = 0; nb < D / 8; ++nb) {
+          acc[nb][2 * h] *= alpha;
+          acc[nb][2 * h + 1] *= alpha;
+        }
+      }
+
+      // O += P V: P's C fragments, rounded to bf16, are the A fragments.
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int nb2 = 0; nb2 < D / 16; ++nb2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, &sm.v[buf][kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8]
+                                        [nb2 * 16 + (lane >> 4) * 8]);
+          mma_bf16(acc[2 * nb2], pa, b[0], b[1]);
+          mma_bf16(acc[2 * nb2 + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's copy overwrites this buffer
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_part[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = w_lo + g + 8 * h;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    bf16* out = o + base + static_cast<size_t>(row) * D + 2 * t4;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(out + nb * 8) =
+          __floats2bfloat162_rn(acc[nb][2 * h] * inv, acc[nb][2 * h + 1] * inv);
+  }
+}
+
+}  // namespace tc
+
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, int window,
-           int causal, cudaStream_t st) {
-  dim3 grid((S + BQ - 1) / BQ, BH);
-  local_attention_kernel<T, D><<<grid, BQ, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, window, causal, 1.f / sqrtf(static_cast<float>(D)));
+           int causal, bool tensor, cudaStream_t st) {
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  if (tensor) {
+    constexpr int kSmem = sizeof(tc::Tiles<D>);
+    const cudaError_t err = cudaFuncSetAttribute(
+        tc::attention_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((S + tc::BQ - 1) / tc::BQ, BH);
+    tc::attention_tc<D><<<grid, tc::kThreads, kSmem, st>>>(
+        static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+        static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), S, window, causal,
+        scale * tc::kLog2e);
+  } else {
+    dim3 grid((S + BQ - 1) / BQ, BH);
+    attention_scalar<D><<<grid, BQ, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), S, window, causal, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -149,14 +425,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, 
 extern "C" {
 
 // Launches the kernel on `stream`; returns the launch's cudaError_t.
+// tensor_route (the wrapper's route rule) takes bf16 tensors, the scalar
+// route float32 ones.
 int repro_local_attention(const void* q, const void* k, const void* v, void* o, int BH, int S,
-                          int D, int window, int causal, int bf16, void* stream) {
+                          int D, int window, int causal, int bf16, int tensor_route,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BH > 65535 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 64) return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, BH, S, window, causal, st)
-                           : launch<float, 64>(q, k, v, o, BH, S, window, causal, st);
-  if (D == 32) return bf16 ? launch<__nv_bfloat16, 32>(q, k, v, o, BH, S, window, causal, st)
-                           : launch<float, 32>(q, k, v, o, BH, S, window, causal, st);
+  if (BH > 65535 || S < 1 || (tensor_route != 0) != (bf16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool tensor = tensor_route != 0;
+  if (D == 64) return launch<64>(q, k, v, o, BH, S, window, causal, tensor, st);
+  if (D == 32) return launch<32>(q, k, v, o, BH, S, window, causal, tensor, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

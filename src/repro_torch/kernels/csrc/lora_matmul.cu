@@ -16,32 +16,72 @@
 //
 // Bound: at prefill (M = 4096, K = N = 2048) the base product is 34 GFLOP
 // against 25 MB of bf16 operands, far above the card's operations-per-byte
-// balance, so operations bind; at decode (M = 8) the 8 MB of W bind.  The
-// rank-R correction adds 2*M*R*(K + N) operations, under 1% at R = 8.
+// balance, so operations bind (0.035 ms at the bf16 tensor-core rate); at
+// decode (M = 8) the 8 MB of W bind (0.0026 ms).  The rank-R correction
+// adds 2*M*R*(K + N) operations, under 1% at R = 8.
 //
 // Design.  The TPU kernel padded R to 128 lanes and sorted rows into
 // single-adapter 128-row tiles (segment_layout), so a decode batch of 8
 // requests filled whole tiles.  Here no row is moved and R is not padded to
-// a lane width:
-//   1. lora_xa: one warp per row reads its own slot, takes x[m] @ A[s_m]
-//      over K (lanes stride K, a fixed shuffle tree adds them: deterministic)
-//      and writes the R values, rounded to T, to an (M, RP) fp32 scratch,
-//      RP = 8 or 64 the register width at or above R.
-//   2. lora_gemm: a 128 x 128 output tile per block of 256 threads, each
-//      thread an 8 x 8 register tile, K in steps of 8 staged in shared memory
-//      as fp32 (scalar FMA, no tensor cores yet).  The epilogue reads each
-//      row's slot and R scratch values and adds scale * xa @ B[s_m] to the
-//      fp32 accumulator before the single rounding.
+// a lane width.  Three kernels:
+//   1. lora_xa: a block of 256 threads takes x[m] @ A[s_m] for 8 rows at
+//      prefill and 1 at decode, each row reading its own slot.  A lane owns
+//      a rank column and a run of 8 consecutive k, so A is read in whole
+//      32-byte sectors; a step loads every row's x before using any (the
+//      loads overlap instead of waiting one by one) and A once per slot.
+//      Sums go lane by lane over k, through a fixed shuffle tree and then
+//      over the 8 warps in order through shared memory (deterministic; at
+//      decode the K loop is spread over a whole block).  The R values,
+//      rounded to T, go to an (M, RP) fp32 scratch, RP = 8 or 64.
+//   2. The base product, by one of two routes, which the wrapper chooses
+//      from the dtype and the alignment alone (``lora_matmul.route``):
+//      * tensor route (bf16 x and W, K and N multiples of 8 so that every
+//        TMA row stride is a multiple of 16 bytes, 16-byte aligned bases):
+//        lora_gemm_tc.  A 128 x 128 output tile per block (64 x 128 when
+//        M <= 64, the decode tile, rows past M zero-filled by TMA).  One
+//        producer warp keeps a ring of 3 shared-memory stages full by TMA
+//        (cp.async.bulk.tensor, 128-byte swizzle, completion on an
+//        mbarrier per stage): x as (BM, 64) K-major tiles, W as two (64,
+//        64) tiles of its row-major (K, N) layout, read N-major through
+//        the descriptor's transpose bit (W is never copied).  One or two
+//        consumer warpgroups each issue wgmma.mma_async m64n128k16 bf16 ->
+//        fp32 on their 64 rows, keep one group of products in flight and
+//        hand a stage back through its "empty" mbarrier.  Two blocks share
+//        an SM, so one block's epilogue runs under the other's products.
+//        Bound by the tensor cores at prefill, by W's bytes at decode.
+//      * scalar route (float32, or bf16 with K or N not a multiple of 8):
+//        lora_gemm, a 128 x 128 tile per block of 256 threads, each thread
+//        an 8 x 8 register tile, K in steps of 8 staged in shared memory as
+//        fp32 (scalar FMA).  float32 stays here because TF32 tensor cores
+//        would not hold the float32 serving check against the CPU.
+//      Both epilogues read each output's row and column (on the tensor
+//      route from the wgmma fragment layout), the row's slot and R scratch
+//      values, add scale * xa @ B[s_m][:, col] to the fp32 accumulator in r
+//      order and round once.  On the tensor route each warpgroup first
+//      stages B[s][:, tile columns], rounded to bf16, in shared memory for
+//      the slot s of its first row (rows come grouped by request); a row of
+//      another slot, or a rank above 8, reads B from global memory, with
+//      the same values.
 //   3. When the output tiles cannot give the 132 SMs two blocks each (decode:
-//      M = 8 is 16 tiles), K is split across blocks; each writes its fp32
-//      partial sums and lora_finish adds the splits in split order (no
-//      atomics, so a launch repeats bit for bit) before the same epilogue.
+//      M = 8 is 16 tiles), K is split across blocks (k_splits, the same rule
+//      for both routes; on the tensor route each split is a whole number of
+//      64-wide K steps); each writes its fp32 partial sums, and lora_finish
+//      (lora_finish_pairs on the tensor route, two adjacent outputs a
+//      thread) adds the splits in split order (no atomics) before the same
+//      epilogue.  Every sum has one order, so a launch repeats bit for bit.
 // A pool is addressed through its slot stride, so a layer's slice of a
 // (n_slots, n_layers, K, R) pool is used where it lies, never copied.
-// Ragged M, N and K are masked in the kernels.  Slots outside [-1, n_slots)
-// trap rather than read another adapter's memory.
+// Ragged M, N and K are masked in the kernels (by TMA's zero fill on the
+// tensor route).  Slots outside [-1, n_slots) trap rather than read another
+// adapter's memory.  The TMA tensor maps are encoded on the host for every
+// call through cuTensorMapEncodeTiled, taken with cudaGetDriverEntryPoint,
+// so the library links no libcuda.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -62,47 +102,142 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <typename T, typename P>
 __device__ __forceinline__ float round_to(P v) { return to_f(from_f<T>(to_f(v))); }
 
+// The single rounding of an output: the fp32 base sum plus the correction.
+template <typename T>
+__device__ __forceinline__ T combine(float acc, float lora, float scale) {
+  return from_f<T>(acc + scale * lora);
+}
+
 __device__ __forceinline__ int row_slot_of(const int* row_slot, int m, int n_slots) {
   const int s = row_slot ? row_slot[m] : 0;
   if (s < -1 || s >= n_slots) __trap();
   return s;
 }
 
+// Eight consecutive x values of one row, kept in x's own type until used
+// (a bf16 run is one 16-byte register quad).
+template <typename T> struct X8;
+template <> struct __align__(16) X8<float> {
+  float v[8];
+  __device__ __forceinline__ float at(int t) const { return v[t]; }
+};
+template <> struct __align__(16) X8<__nv_bfloat16> {
+  __nv_bfloat162 h[4];
+  __device__ __forceinline__ float at(int t) const {
+    return t % 2 ? __high2float(h[t / 2]) : __low2float(h[t / 2]);
+  }
+};
+
+// x[k0 .. k0 + 8) of row xr: one vector load when `vec` (K a multiple of 8,
+// x aligned), else element by element with the ragged end zeroed.
+__device__ __forceinline__ X8<float> load_x8(const float* xr, int k0, int K, bool vec) {
+  X8<float> x;
+  if (vec) {
+    x = *reinterpret_cast<const X8<float>*>(xr + k0);
+  } else {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) x.v[t] = k0 + t < K ? xr[k0 + t] : 0.f;
+  }
+  return x;
+}
+__device__ __forceinline__ X8<__nv_bfloat16> load_x8(const __nv_bfloat16* xr, int k0, int K,
+                                                     bool vec) {
+  X8<__nv_bfloat16> x;
+  if (vec) {
+    x = *reinterpret_cast<const X8<__nv_bfloat16>*>(xr + k0);
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      x.h[t] = __halves2bfloat162(k0 + 2 * t < K ? xr[k0 + 2 * t] : zero,
+                                  k0 + 2 * t + 1 < K ? xr[k0 + 2 * t + 1] : zero);
+  }
+  return x;
+}
+
+constexpr int kXaRows = 8;  // most rows a lora_xa block takes
+
+// x @ A[s] of `rows` rows from m0 = blockIdx.x * rows (1 at decode, 8 at
+// prefill).  Lane l of a warp owns rank column r = l % RP (and r + 32 when
+// RP = 64) and a run of 8 consecutive k, so A is read in whole sectors; the
+// block's 8 warps take the runs in turn along K.  Each step loads the rows'
+// x first (independent loads in flight together), then A once and again
+// only where a row's slot differs from the row before it.  Sums: each lane
+// over its k in order, a fixed shuffle tree over the lanes of a rank
+// column, then the 8 warp partials in warp order through shared memory.
 template <typename T, typename P, int RP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 lora_xa(const T* __restrict__ x, const P* __restrict__ a, const int* __restrict__ row_slot,
-        float* __restrict__ xa, int M, int K, int R, long long a_slot_stride, int n_slots) {
-  const int m = (blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (m >= M) return;
-  const int slot = row_slot_of(row_slot, m, n_slots);
-  float acc[RP];
+        float* __restrict__ xa, int M, int K, int R, long long a_slot_stride, int n_slots,
+        int rows, int vec) {
+  constexpr int kLanes = RP < 32 ? RP : 32;  // lanes that share a run of k
+  constexpr int kGroups = 32 / kLanes;       // runs of k in a warp
+  constexpr int NR = RP / kLanes;            // rank columns a lane owns
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kStep = kWarps * kGroups * 8;  // k a block covers per step
+  __shared__ float part[kWarps][kXaRows][RP];
+  const int m0 = blockIdx.x * rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = lane % kLanes;
+  int slot[kXaRows];
+  float acc[kXaRows][NR];
 #pragma unroll
-  for (int r = 0; r < RP; ++r) acc[r] = 0.f;
-  if (slot >= 0) {
-    const P* as = a + slot * a_slot_stride;
-    const T* xr = x + static_cast<size_t>(m) * K;
-    for (int k = lane; k < K; k += 32) {
-      const float xv = to_f(xr[k]);
-      const P* ak = as + static_cast<size_t>(k) * R;
+  for (int i = 0; i < kXaRows; ++i) {
+    slot[i] = (i < rows && m0 + i < M) ? row_slot_of(row_slot, m0 + i, n_slots) : -1;
 #pragma unroll
-      for (int r = 0; r < RP; ++r)
-        if (r < R) acc[r] = fmaf(xv, round_to<T>(ak[r]), acc[r]);
+    for (int j = 0; j < NR; ++j) acc[i][j] = 0.f;
+  }
+  for (int k0 = (warp * kGroups + lane / kLanes) * 8; k0 < K; k0 += kStep) {
+    X8<T> xv[kXaRows];
+#pragma unroll
+    for (int i = 0; i < kXaRows; ++i)
+      if (slot[i] >= 0) xv[i] = load_x8(x + static_cast<size_t>(m0 + i) * K, k0, K, vec != 0);
+    float av[8][NR];
+#pragma unroll
+    for (int i = 0; i < kXaRows; ++i) {
+      if (slot[i] < 0) continue;
+      if (i == 0 || slot[i] != slot[i - 1]) {
+        const P* as = a + slot[i] * a_slot_stride;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int j = 0; j < NR; ++j) {
+            const int r = r0 + 32 * j;
+            av[t][j] = (k0 + t < K && r < R)
+                           ? round_to<T>(as[static_cast<size_t>(k0 + t) * R + r])
+                           : 0.f;
+          }
+      }
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int j = 0; j < NR; ++j) acc[i][j] = fmaf(xv[i].at(t), av[t][j], acc[i][j]);
     }
   }
 #pragma unroll
-  for (int r = 0; r < RP; ++r)
+  for (int i = 0; i < kXaRows; ++i) {
+    if (i >= rows) break;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-  if (lane == 0) {
+    for (int j = 0; j < NR; ++j) {
+      float v = acc[i][j];
 #pragma unroll
-    for (int r = 0; r < RP; ++r)
-      if (r < R) xa[static_cast<size_t>(m) * RP + r] = to_f(from_f<T>(acc[r]));
+      for (int off = kLanes; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane < kLanes) part[warp][i][r0 + 32 * j] = v;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows * RP; e += kThreads) {
+    const int i = e / RP, r = e % RP, m = m0 + i;
+    if (m >= M || r >= R) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += part[w][i][r];
+    xa[static_cast<size_t>(m) * RP + r] = to_f(from_f<T>(s));
   }
 }
 
 // One output: the fp32 base sum plus scale * xa @ B[slot][:, col], rounded
-// once.  Shared by the one-pass and split-K epilogues.
+// once.  Shared by the scalar route's one-pass and split-K epilogues.
 template <typename T, typename P>
 __device__ __forceinline__ T finish(float acc, const float* __restrict__ xa_row,
                                     const P* __restrict__ b, int slot, long long b_slot_stride,
@@ -114,12 +249,13 @@ __device__ __forceinline__ T finish(float acc, const float* __restrict__ xa_row,
     for (int r = 0; r < R; ++r)
       lora = fmaf(xa_row[r], round_to<T>(bs[static_cast<size_t>(r) * N]), lora);
   }
-  return from_f<T>(acc + scale * lora);
+  return combine<T>(acc, lora, scale);
 }
 
-// The base product over K range [kz * k_chunk, +k_chunk) of one 128 x 128
-// tile.  With `partial` null (one split) the epilogue runs here; otherwise
-// the fp32 sums go to partial[kz] and lora_finish adds the splits in order.
+// Scalar route: the base product over K range [kz * k_chunk, +k_chunk) of
+// one 128 x 128 tile.  With `partial` null (one split) the epilogue runs
+// here; otherwise the fp32 sums go to partial[kz] and lora_finish adds the
+// splits in order.
 template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
 lora_gemm(const T* __restrict__ x, const T* __restrict__ w, const P* __restrict__ b,
@@ -208,8 +344,416 @@ lora_finish(const float* __restrict__ partial, const P* __restrict__ b,
                       row_slot_of(row_slot, row, n_slots), b_slot_stride, R, N, col, scale);
 }
 
+// --- Tensor route: TMA ring + wgmma -------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BK = 64;       // K per stage: one 128-byte swizzle row of bf16
+constexpr int kChunk = 64;   // W columns per TMA box (128 bytes, the swizzle width)
+
+constexpr int BN = 128;      // output columns per block
+constexpr int kStages = 3;   // two blocks share an SM
+
+template <int CWG>  // consumer warpgroups: 64 output rows each
+struct Cfg {
+  static constexpr int BM = 64 * CWG;
+  static constexpr int kThreads = 128 * CWG + 32;  // then one producer warp
+  static constexpr int kABytes = BM * BK * 2;
+  static constexpr int kBBytes = BK * BN * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  // The epilogue's B rows (rank <= 8) per consumer warpgroup, fp32.
+  static constexpr int kEpiBytes = CWG * 8 * BN * 4;
+  // Stages, a full and an empty barrier per stage, the epilogue's B rows,
+  // and slack to align the stages to the 1024-byte swizzle atom.
+  static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + kEpiBytes + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box at (c0 innermost, c1) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, fp32) += A (64 x 16, K-major) @ B (16 x 128, N-major: the
+// transpose bit), both bf16 in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The base product of one (BM, 128) output tile over K range
+// [kz * k_chunk, +k_chunk), k_chunk a multiple of 64, then the epilogue (one
+// split) or the fp32 partial sums (split K, finished by lora_finish_pairs).
+template <typename P, int CWG>
+__global__ void __launch_bounds__(Cfg<CWG>::kThreads, 2)
+lora_gemm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+             const P* __restrict__ b, const int* __restrict__ row_slot,
+             const float* __restrict__ xa, bf16* __restrict__ y, float* __restrict__ partial,
+             int M, int N, int K, int R, int xa_stride, long long b_slot_stride, int n_slots,
+             int k_chunk, float scale) {
+  using C = Cfg<CWG>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full0 = smem + kStages * C::kStageBytes;  // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * kStages;
+  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int n_iter = max(0, (min(K, k_begin + k_chunk) - k_begin + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 128 * CWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * CWG) {  // producer warp: one lane issues every load
+    if (threadIdx.x == 128 * CWG) {
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty0 + 8 * s, ((it / kStages) - 1) & 1);
+        const uint32_t a_s = smem + s * C::kStageBytes, b_s = a_s + C::kABytes;
+        const uint32_t bar = full0 + 8 * s;
+        const int k = k_begin + it * BK;
+        mbar_expect_tx(bar, C::kStageBytes);
+        tma_load_2d(a_s, &tm_x, k, m0, bar);
+#pragma unroll
+        for (int c = 0; c < BN / kChunk; ++c)
+          tma_load_2d(b_s + c * BK * kChunk * 2, &tm_w, n0 + c * kChunk, k, bar);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: rows [m0 + 64 wg, +64) of the tile.
+  const int wg = threadIdx.x / 128;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages;
+    mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+    __syncwarp();  // the warpgroup's .aligned instructions need converged warps
+    // A: 64 rows of 128 bytes, 8-row swizzle atoms 1024 bytes apart; a 16-wide
+    // K step is 32 bytes along the row.  B: (64 K rows, 64 columns) boxes of
+    // 128-byte rows, the second 64 columns 8192 bytes on (leading offset),
+    // 8 K rows 1024 bytes apart (stride offset); a K step is 16 rows.
+    const uint32_t a_s = smem + s * C::kStageBytes + wg * 64 * BK * 2;
+    const uint32_t b_s = smem + s * C::kStageBytes + C::kABytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16(acc, smem_desc(a_s + kk * 32, 16, 1024),
+                       smem_desc(b_s + kk * 16 * kChunk * 2, BK * kChunk * 2, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: hand it back
+    if (it > 0) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // Fragment layout of m64n128: acc[4j + 2h + e] is row 16 warp + 8 h + lane/4
+  // and column 8 j + 2 (lane % 4) + e of the warpgroup's 64 x 128 block.
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int c0 = n0 + 2 * (lane & 3);
+  // The warpgroup stages B[s0][:, n0:n0+128], rounded to bf16, where s0 is
+  // the slot of its first row (rows are grouped by request, so nearly every
+  // row shares it); rows of another slot, and ranks above 8, read B from
+  // global memory.  The values are the same either way.
+  float* bsm = reinterpret_cast<float*>(smem_raw + (empty0 + 8 * kStages - smem_u32(smem_raw))) +
+               wg * 8 * BN;
+  int s0 = -1;
+  if (!partial && R <= 8) {
+    if (m0 + wg * 64 < M) s0 = row_slot_of(row_slot, m0 + wg * 64, n_slots);
+    if (s0 >= 0)
+      for (int e = threadIdx.x & 127; e < R * BN; e += 128) {
+        const int r = e / BN, col = n0 + e % BN;
+        bsm[e] = col < N ? round_to<bf16>(b[s0 * b_slot_stride + static_cast<size_t>(r) * N + col])
+                         : 0.f;
+      }
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + wg * 64 + warp * 16 + h * 8 + (lane >> 2);
+    if (row >= M) continue;
+    if (partial) {
+      float* prow =
+          partial + static_cast<size_t>(blockIdx.z) * M * N + static_cast<size_t>(row) * N;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        if (c0 + 8 * j < N)
+          *reinterpret_cast<float2*>(prow + c0 + 8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      continue;
+    }
+    const int slot = row_slot_of(row_slot, row, n_slots);
+    const float* xr = xa + static_cast<size_t>(row) * xa_stride;
+    bf16* yrow = y + static_cast<size_t>(row) * N;
+    const bool staged = slot >= 0 && slot == s0;
+    float xv[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) xv[r] = staged && r < R ? xr[r] : 0.f;
+    // Four column pairs at a time, each summing its correction over r in
+    // order (N is a multiple of 8: a pair is in or out whole).
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int cq = c0 + 32 * q;  // column of pair j: cq + 8 j
+      float l[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) l[j][0] = l[j][1] = 0.f;
+      if (staged) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          if (r >= R) break;
+          const float* br = bsm + r * BN + (cq - n0);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 bv = *reinterpret_cast<const float2*>(br + 8 * j);
+            l[j][0] = fmaf(xv[r], bv.x, l[j][0]);
+            l[j][1] = fmaf(xv[r], bv.y, l[j][1]);
+          }
+        }
+      } else if (slot >= 0) {
+        const P* bs = b + slot * b_slot_stride + cq;
+        for (int r = 0; r < R; ++r) {
+          const float xr_r = xr[r];
+          const P* br = bs + static_cast<size_t>(r) * N;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (cq + 8 * j < N) {
+              const float2 bv = load_pair(br + 8 * j);
+              l[j][0] = fmaf(xr_r, round_to<bf16>(bv.x), l[j][0]);
+              l[j][1] = fmaf(xr_r, round_to<bf16>(bv.y), l[j][1]);
+            }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jj = 4 * q + j;
+        if (cq + 8 * j < N)
+          *reinterpret_cast<__nv_bfloat162*>(yrow + cq + 8 * j) =
+              __halves2bfloat162(combine<bf16>(acc[4 * jj + 2 * h], l[j][0], scale),
+                                 combine<bf16>(acc[4 * jj + 2 * h + 1], l[j][1], scale));
+      }
+    }
+  }
+}
+
+// Split-K epilogue of the tensor route: one thread per pair of adjacent
+// outputs adds the splits in order, then adds the correction as the one-pass
+// epilogue does.
+template <typename P>
+__global__ void __launch_bounds__(kThreads)
+lora_finish_pairs(const float* __restrict__ partial, const P* __restrict__ b,
+                  const int* __restrict__ row_slot, const float* __restrict__ xa,
+                  bf16* __restrict__ y, int M, int N, int R, int xa_stride,
+                  long long b_slot_stride, int n_slots, int splits, float scale) {
+  const size_t o = 2 * (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x);
+  if (o >= static_cast<size_t>(M) * N) return;
+  const int row = static_cast<int>(o / N), col = static_cast<int>(o % N);
+  float a0 = 0.f, a1 = 0.f;
+  for (int z = 0; z < splits; ++z) {
+    const float2 v =
+        *reinterpret_cast<const float2*>(partial + static_cast<size_t>(z) * M * N + o);
+    a0 += v.x;
+    a1 += v.y;
+  }
+  const int slot = row_slot_of(row_slot, row, n_slots);
+  float l0 = 0.f, l1 = 0.f;
+  if (slot >= 0) {
+    const float* xr = xa + static_cast<size_t>(row) * xa_stride;
+    const P* bs = b + slot * b_slot_stride + col;
+    if (R <= 8) {  // every load issued before the first use
+      float xv[8];
+      float2 bv[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (r < R) {
+          xv[r] = xr[r];
+          bv[r] = load_pair(bs + static_cast<size_t>(r) * N);
+        }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (r < R) {
+          l0 = fmaf(xv[r], round_to<bf16>(bv[r].x), l0);
+          l1 = fmaf(xv[r], round_to<bf16>(bv[r].y), l1);
+        }
+    } else {
+      for (int r = 0; r < R; ++r) {
+        const float2 bv = load_pair(bs + static_cast<size_t>(r) * N);
+        l0 = fmaf(xr[r], round_to<bf16>(bv.x), l0);
+        l1 = fmaf(xr[r], round_to<bf16>(bv.y), l1);
+      }
+    }
+  }
+  *reinterpret_cast<__nv_bfloat162*>(y + o) =
+      __halves2bfloat162(combine<bf16>(a0, l0, scale), combine<bf16>(a1, l1, scale));
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major (outer, inner) bf16 matrix read in (box_outer, box_inner)
+// boxes, 128-byte swizzle, zero fill out of bounds.
+bool encode_2d(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer,
+               uint32_t box_inner, uint32_t box_outer) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * sizeof(bf16)};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename P, int CWG>
+int launch_gemm(const void* x, const void* w, const P* b, const int* row_slot, const float* xa,
+                bf16* y, float* partial, int M, int N, int K, int R, int xa_stride,
+                long long b_stride, int n_slots, int splits, float scale, cudaStream_t st) {
+  using C = Cfg<CWG>;
+  CUtensorMap tm_x, tm_w;
+  if (!encode_2d(&tm_x, x, K, M, BK, C::BM) || !encode_2d(&tm_w, w, N, K, kChunk, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(lora_gemm_tc<P, CWG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int k_steps = (K + BK - 1) / BK;
+  const int k_chunk = ((k_steps + splits - 1) / splits) * BK;
+  dim3 grid((N + BN - 1) / BN, (M + C::BM - 1) / C::BM, splits);
+  lora_gemm_tc<P, CWG><<<grid, C::kThreads, C::kSmem, st>>>(
+      tm_x, tm_w, b, row_slot, xa, y, splits > 1 ? partial : nullptr, M, N, K, R, xa_stride,
+      b_stride, n_slots, k_chunk, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long pairs = static_cast<long long>(M) * N / 2;
+  lora_finish_pairs<P><<<static_cast<unsigned>((pairs + kThreads - 1) / kThreads), kThreads, 0,
+                         st>>>(partial, b, row_slot, xa, y, M, N, R, xa_stride, b_stride,
+                               n_slots, splits, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 // Splits of K: one unless the output tiles leave the card's 132 SMs short of
-// two blocks each, and never fewer than 16 K steps per split.
+// two blocks each, and never fewer than 16 K steps of 8 per split.
 int k_splits(int M, int N, int K) {
   const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int target = 2 * 132;
@@ -218,32 +762,49 @@ int k_splits(int M, int N, int K) {
   return max(1, min((target + tiles - 1) / tiles, by_steps));
 }
 
+// K splits of a call: the tensor route splits only at decode (M <= 64),
+// where its 64-row tiles leave the card empty; at prefill a second pass over
+// fp32 partial sums costs more than the blocks it adds.
+int route_splits(int M, int N, int K, bool tensor) {
+  return tensor && M > 64 ? 1 : k_splits(M, N, K);
+}
+
 int rank_width(int R) { return R <= 8 ? 8 : (R <= 64 ? 64 : -1); }
 
 template <typename T, typename P>
 int launch(const void* x, const void* w, const void* a, const void* b, const int* row_slot,
            float* xa, float* partial, void* y, int M, int N, int K, int R, long long a_stride,
-           long long b_stride, int n_slots, float scale, cudaStream_t st) {
-  const int rows_per_block = kThreads / 32;
-  const int xa_grid = (M + rows_per_block - 1) / rows_per_block;
+           long long b_stride, int n_slots, float scale, bool tensor, cudaStream_t st) {
+  // One row a block at decode (the K loop spread over 8 warps), 8 at
+  // prefill; 8-wide x loads when K and x's base allow them.
+  const int xa_rows = M <= 64 ? 1 : kXaRows;
+  const int vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % (8 * sizeof(T)) == 0;
+  const int xa_grid = (M + xa_rows - 1) / xa_rows;
   if (R <= 8)
     lora_xa<T, P, 8><<<xa_grid, kThreads, 0, st>>>(static_cast<const T*>(x),
-                                                    static_cast<const P*>(a), row_slot, xa, M,
-                                                    K, R, a_stride, n_slots);
+                                                   static_cast<const P*>(a), row_slot, xa, M, K,
+                                                   R, a_stride, n_slots, xa_rows, vec);
   else
     lora_xa<T, P, 64><<<xa_grid, kThreads, 0, st>>>(static_cast<const T*>(x),
-                                                     static_cast<const P*>(a), row_slot, xa, M,
-                                                     K, R, a_stride, n_slots);
+                                                    static_cast<const P*>(a), row_slot, xa, M,
+                                                    K, R, a_stride, n_slots, xa_rows, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int splits = k_splits(M, N, K);
+  const int splits = route_splits(M, N, K, tensor);
+  if (tensor) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return (M <= 64 ? tc::launch_gemm<P, 1> : tc::launch_gemm<P, 2>)(
+          x, w, static_cast<const P*>(b), row_slot, xa, static_cast<T*>(y), partial, M, N, K, R,
+          rank_width(R), b_stride, n_slots, splits, scale, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int k_steps = (K + BK - 1) / BK;
   const int k_chunk = ((k_steps + splits - 1) / splits) * BK;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   lora_gemm<T, P><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const P*>(b), row_slot,
-      xa, static_cast<T*>(y), splits > 1 ? partial : nullptr, M, N, K, R, rank_width(R),
-      b_stride, n_slots, k_chunk, scale);
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const P*>(b), row_slot, xa,
+      static_cast<T*>(y), splits > 1 ? partial : nullptr, M, N, K, R, rank_width(R), b_stride,
+      n_slots, k_chunk, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long outs = static_cast<long long>(M) * N;
@@ -259,33 +820,42 @@ int launch(const void* x, const void* w, const void* a, const void* b, const int
 extern "C" {
 
 // Width of the x @ A scratch for rank R (it holds M * width floats), and
-// the number of K splits for an (M, N, K) product (the split-K scratch
-// holds splits * M * N floats when splits > 1).
+// the number of K splits for an (M, N, K) product on a route (the split-K
+// scratch holds splits * M * N floats when splits > 1).
 int repro_lora_rank_width(int R) { return rank_width(R); }
-int repro_lora_splits(int M, int N, int K) { return k_splits(M, N, K); }
+int repro_lora_splits(int M, int N, int K, int tensor_route) {
+  return route_splits(M, N, K, tensor_route != 0);
+}
 
 // y = x @ w + scale * round(x @ a[s]) @ b[s] per row; row_slot may be null
 // (slot 0 for every row).  Strides are the pools' slot strides in elements.
-// Returns the launch's cudaError_t.
+// tensor_route selects the wgmma route, which takes bf16 x and W with K and
+// N multiples of 8 and 16-byte aligned x and W (the wrapper's route rule);
+// 0 the scalar route.  Returns the launch's cudaError_t.
 int repro_lora_matmul(const void* x, const void* w, const void* a, const void* b,
                       const int* row_slot, float* xa, float* partial, void* y, int M, int N,
                       int K, int R, int n_slots, long long a_slot_stride,
                       long long b_slot_stride, float scale, int x_bf16, int pool_bf16,
-                      void* stream) {
+                      int tensor_route, void* stream) {
   if (R < 1 || R > 64) return static_cast<int>(cudaErrorInvalidValue);
+  const bool tensor = tensor_route != 0;
+  if (tensor && !(x_bf16 && K % 8 == 0 && N % 8 == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16 && pool_bf16)
     return launch<__nv_bfloat16, __nv_bfloat16>(x, w, a, b, row_slot, xa, partial, y, M, N, K,
                                                 R, a_slot_stride, b_slot_stride, n_slots,
-                                                scale, st);
+                                                scale, tensor, st);
   if (x_bf16)
     return launch<__nv_bfloat16, float>(x, w, a, b, row_slot, xa, partial, y, M, N, K, R,
-                                        a_slot_stride, b_slot_stride, n_slots, scale, st);
+                                        a_slot_stride, b_slot_stride, n_slots, scale, tensor,
+                                        st);
   if (pool_bf16)
     return launch<float, __nv_bfloat16>(x, w, a, b, row_slot, xa, partial, y, M, N, K, R,
-                                        a_slot_stride, b_slot_stride, n_slots, scale, st);
+                                        a_slot_stride, b_slot_stride, n_slots, scale, false,
+                                        st);
   return launch<float, float>(x, w, a, b, row_slot, xa, partial, y, M, N, K, R, a_slot_stride,
-                              b_slot_stride, n_slots, scale, st);
+                              b_slot_stride, n_slots, scale, false, st);
 }
 
 }  // extern "C"

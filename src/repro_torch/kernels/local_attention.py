@@ -5,7 +5,8 @@ local_attention``: attention over (BH, S, D) with an fp32 online softmax,
 causal, keys limited to the last ``window`` positions when ``window > 0``
 (0 = full causal).  The kernel (``csrc/local_attention.cu``) visits only the
 key tiles a query tile needs and keeps scores out of device memory; see the
-source note.
+source note.  ``route`` says which of its two routes a call takes: bf16 runs
+QK^T and PV on the tensor cores, float32 stays on fp32 FMA.
 """
 from __future__ import annotations
 
@@ -24,15 +25,27 @@ HEAD_DIMS = (32, 64)
 
 def _lib():
     lib = backend.load_library("local_attention")
-    lib.repro_local_attention.argtypes = [_C] * 4 + [_I] * 6 + [_C]
+    lib.repro_local_attention.argtypes = [_C] * 4 + [_I] * 7 + [_C]
     lib.repro_local_attention.restype = _I
     return lib
+
+
+def route(d: int, dtype: torch.dtype) -> str:
+    """The kernel route for head width ``d`` and ``dtype``: ``"tensor"``
+    (bfloat16: QK^T and PV as bf16 tensor-core products, fp32 softmax) or
+    ``"scalar"`` (float32: fp32 FMA throughout).  Raises for what neither
+    route takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"local_attention takes float32 or bfloat16 on CUDA, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"local_attention: head width {d} not in {HEAD_DIMS}")
+    return "tensor" if dtype == torch.bfloat16 else "scalar"
 
 
 def local_attention(q, k, v, *, window: int = 0, causal: bool = True) -> torch.Tensor:
     """Attention over q, k, v of shape (BH, S, D).  CPU tensors compute
     ``ref.local_attention_ref``; CUDA tensors (contiguous float32 or
-    bfloat16, D in ``HEAD_DIMS``) launch the kernel."""
+    bfloat16, D in ``HEAD_DIMS``) launch the kernel by ``route``."""
     if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"expected three (BH, S, D) tensors, got {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
@@ -44,12 +57,12 @@ def local_attention(q, k, v, *, window: int = 0, causal: bool = True) -> torch.T
     for t in (k, v):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError("local_attention: q, k, v differ in device or dtype")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"local_attention takes float32 or bfloat16 on CUDA, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"local_attention: head width {d} not in {HEAD_DIMS}")
+    tensor = route(d, q.dtype) == "tensor"
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("local_attention takes contiguous tensors on CUDA")
+    if tensor and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("local_attention: the tensor route copies 16-byte pieces; q, k and v "
+                         "must start 16-byte aligned")
     if bh > 65535 or bh * s * d >= 2**62:
         raise ValueError(f"local_attention: {bh} rows of {s} x {d} exceed the launch grid")
     out = torch.empty_like(q)
@@ -58,13 +71,20 @@ def local_attention(q, k, v, *, window: int = 0, causal: bool = True) -> torch.T
     with torch.cuda.device(q.device):
         err = _lib().repro_local_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
-            int(window), int(bool(causal)), int(q.dtype == torch.bfloat16),
+            int(window), int(bool(causal)), int(q.dtype == torch.bfloat16), int(tensor),
             backend.stream_ptr(q),
         )
     backend.check_launch(err, "local_attention")
     local_attention.launches += 1
+    if tensor:
+        local_attention.tc_launches += 1
+    else:
+        local_attention.scalar_launches += 1
     return out
 
 
-#: Kernel launches since the count was last set to 0 (plain version excluded).
+#: Kernel launches since the count was last set to 0 (plain version
+#: excluded): all of them, and those of the tensor and the scalar route.
 local_attention.launches = 0
+local_attention.tc_launches = 0
+local_attention.scalar_launches = 0

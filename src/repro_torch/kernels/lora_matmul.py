@@ -6,15 +6,17 @@ adapters, one slot per row):
 
     y[m] = x[m] @ W + scale * (x[m] @ A[s_m]) @ B[s_m]
 
-Both wrappers launch the same kernels of ``csrc/lora_matmul.cu``: a warp per
-row takes x @ A at the real rank and a tiled kernel computes x @ W with the
-correction in its epilogue (splitting K across blocks when the output has
-too few tiles to fill the card, as at decode).  Every row reads its own
-slot, so rows are never sorted or padded into single-adapter tiles and the
-reference's ``segment_layout`` has no counterpart here (see the source
-note).  A pool is
-handed over with its slot stride: a layer's slice ``pool[:, layer]`` of a
-``(n_slots, n_layers, K, R)`` pool is used in place.
+Both wrappers launch the same kernels of ``csrc/lora_matmul.cu``: a block
+per few rows takes x @ A at the real rank and a tiled kernel computes x @ W
+with the correction in its epilogue (splitting K across blocks when the
+output has too few tiles to fill the card, as at decode).  ``route`` says
+which base product a call takes: bf16 with 16-byte row strides runs on the
+tensor cores (TMA-fed ``wgmma``), everything else on fp32 FMA.  Every row
+reads its own slot, so rows are never sorted or padded into single-adapter
+tiles and the reference's ``segment_layout`` has no counterpart here (see
+the source note).  A pool is handed over with its slot stride: a layer's
+slice ``pool[:, layer]`` of a ``(n_slots, n_layers, K, R)`` pool is used in
+place.
 """
 from __future__ import annotations
 
@@ -36,14 +38,36 @@ _TYPES = (torch.float32, torch.bfloat16)
 def _lib():
     lib = backend.load_library("lora_matmul")
     lib.repro_lora_matmul.argtypes = (
-        [_C] * 8 + [_I] * 5 + [_LL, _LL, ctypes.c_float, _I, _I, _C]
+        [_C] * 8 + [_I] * 5 + [_LL, _LL, ctypes.c_float, _I, _I, _I, _C]
     )
     lib.repro_lora_matmul.restype = _I
     lib.repro_lora_rank_width.argtypes = [_I]
     lib.repro_lora_rank_width.restype = _I
-    lib.repro_lora_splits.argtypes = [_I] * 3
+    lib.repro_lora_splits.argtypes = [_I] * 4
     lib.repro_lora_splits.restype = _I
     return lib
+
+
+def route(k: int, n: int, dtype: torch.dtype, *, aligned: bool = True) -> str:
+    """The base product's route for an (M, K) @ (K, N) call with activations
+    of ``dtype``: ``"tensor"`` (TMA loads and bf16 ``wgmma``) for bfloat16
+    when every TMA row stride is a multiple of 16 bytes (K and N positive
+    multiples of 8) and the operands are ``aligned`` (see ``_aligned``);
+    ``"scalar"`` (fp32 FMA) for float32, whose products TF32 would not
+    hold to the float32 checks, and for a ragged bfloat16 shape."""
+    if dtype not in _TYPES:
+        raise TypeError(f"lora_matmul takes float32 or bfloat16 on CUDA, got {dtype}")
+    if dtype == torch.bfloat16 and k > 0 and k % 8 == 0 and n % 8 == 0 and aligned:
+        return "tensor"
+    return "scalar"
+
+
+def _aligned(x, w, b) -> bool:
+    """TMA reads x and W from 16-byte aligned bases; the tensor route's
+    epilogue reads B in pairs of columns."""
+    pair = 2 * b.element_size()
+    return (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 and b.data_ptr() % pair == 0
+            and b.stride(0) % 2 == 0)
 
 
 def _check_pool_layout(name, t, inner):
@@ -80,10 +104,11 @@ def _launch(x, w, a, b, row_slot, scale, name):
         raise ValueError(f"{name}: dimension too large for the kernel")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
-        return y
+        return y, None
+    tensor = route(k, n, x.dtype, aligned=_aligned(x, w, b)) == "tensor"
     lib = _lib()
     xa = torch.empty((m, lib.repro_lora_rank_width(r)), dtype=torch.float32, device=x.device)
-    splits = lib.repro_lora_splits(m, n, k)
+    splits = lib.repro_lora_splits(m, n, k, int(tensor))
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
     with torch.cuda.device(x.device):
@@ -92,11 +117,23 @@ def _launch(x, w, a, b, row_slot, scale, name):
             None if row_slot is None else row_slot.data_ptr(), xa.data_ptr(),
             None if partial is None else partial.data_ptr(), y.data_ptr(),
             m, n, k, r, n_slots, a.stride(0), b.stride(0), float(scale),
-            int(x.dtype == torch.bfloat16), int(a.dtype == torch.bfloat16),
+            int(x.dtype == torch.bfloat16), int(a.dtype == torch.bfloat16), int(tensor),
             backend.stream_ptr(x),
         )
     backend.check_launch(err, name)
-    return y
+    return y, tensor
+
+
+def _count(fn, tensor):
+    """One launch of ``fn``'s kernel on the tensor (True) or scalar route;
+    an empty output (None) launches nothing."""
+    if tensor is None:
+        return
+    fn.launches += 1
+    if tensor:
+        fn.tc_launches += 1
+    else:
+        fn.scalar_launches += 1
 
 
 def _check_shapes(x, w, a, b, name):
@@ -118,8 +155,8 @@ def lora_matmul(x, w, a, b, scale: float = 1.0) -> torch.Tensor:
         raise ValueError("lora_matmul takes a 2-D adapter; use gathered_lora_matmul for a pool")
     if not backend.use_kernel(x):
         return ref.lora_matmul_ref(x, w, a, b, scale)
-    y = _launch(x, w, a[None], b[None], None, scale, "lora_matmul")
-    lora_matmul.launches += 1
+    y, tensor = _launch(x, w, a[None], b[None], None, scale, "lora_matmul")
+    _count(lora_matmul, tensor)
     return y
 
 
@@ -139,11 +176,12 @@ def gathered_lora_matmul(x, w, a_pool, b_pool, row_slot, scale: float = 1.0) -> 
         raise ValueError(f"row_slot {tuple(row_slot.shape)} is not ({x.shape[0]},)")
     if not backend.use_kernel(x):
         return ref.gathered_lora_matmul_ref(x, w, a_pool, b_pool, row_slot, scale)
-    y = _launch(x, w, a_pool, b_pool, row_slot, scale, "gathered_lora_matmul")
-    gathered_lora_matmul.launches += 1
+    y, tensor = _launch(x, w, a_pool, b_pool, row_slot, scale, "gathered_lora_matmul")
+    _count(gathered_lora_matmul, tensor)
     return y
 
 
-#: Kernel launches since the count was last set to 0 (plain version excluded).
-lora_matmul.launches = 0
-gathered_lora_matmul.launches = 0
+#: Kernel launches since the count was last set to 0 (plain version
+#: excluded): all of them, and those of the tensor and the scalar route.
+for _fn in (lora_matmul, gathered_lora_matmul):
+    _fn.launches = _fn.tc_launches = _fn.scalar_launches = 0

@@ -203,7 +203,15 @@ def lora_case(cuda, m, k, n, r, dtype, n_slots=8, seed=0):
     return x, w, a_pool[:, 1], b_pool[:, 1]  # a layer's slice: strided slots
 
 
-LORA_SHAPES = [(4096, 2048, 2048, 8), (8, 2048, 2048, 8), (129, 513, 130, 8), (5, 64, 40, 33)]
+# The serving path's shapes (StableLM q / v at prefill and decode, Mamba-2's
+# in_proj and out_proj) take the tensor route in bf16; float32 and the ragged
+# (129, 513, 130) take the scalar route.
+LORA_SHAPES = [(4096, 2048, 2048, 8), (8, 2048, 2048, 8), (4096, 768, 3352, 8),
+               (4096, 1536, 768, 8), (129, 513, 130, 8), (5, 64, 40, 33)]
+
+
+def route_counts(fn):
+    return fn.tc_launches, fn.scalar_launches
 
 
 @pytest.mark.gpu
@@ -212,7 +220,10 @@ LORA_SHAPES = [(4096, 2048, 2048, 8), (8, 2048, 2048, 8), (129, 513, 130, 8), (5
 def test_lora_kernels_match_plain(cuda, dtype, m, k, n, r):
     from repro_torch.kernels import lora_matmul as lm
 
+    tensor = dtype == torch.bfloat16 and (k, n) != (513, 130)
+    assert lm.route(k, n, dtype) == ("tensor" if tensor else "scalar")
     x, w, a, b = lora_case(cuda, m, k, n, r, dtype)
+    before = [route_counts(fn) for fn in (lm.lora_matmul, lm.gathered_lora_matmul)]
     got = lm.lora_matmul(x, w, a[2], b[2], 2.0)
     assert torch.equal(got, lm.lora_matmul(x, w, a[2], b[2], 2.0))
     want = ref.lora_matmul_ref(x, w, a[2], b[2], 2.0)
@@ -227,19 +238,31 @@ def test_lora_kernels_match_plain(cuda, dtype, m, k, n, r):
     a_z[7], b_z[7] = 0.0, 0.0
     zero = lm.gathered_lora_matmul(x, w, a_z, b_z, torch.where(slots < 0, 7, slots), 2.0)
     assert torch.equal(got, zero)
+    # One slot on every row: the bits of the single-adapter kernel.
+    one = lm.gathered_lora_matmul(x, w, a, b, torch.full_like(slots, 2), 2.0)
+    assert torch.equal(one, lm.lora_matmul(x, w, a[2], b[2], 2.0))
+    after = [route_counts(fn) for fn in (lm.lora_matmul, lm.gathered_lora_matmul)]
+    for (tc0, sc0), (tc1, sc1), n_calls in zip(before, after, (3, 4)):
+        assert (tc1 - tc0, sc1 - sc0) == ((n_calls, 0) if tensor else (0, n_calls))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,s,d,window", [(256, 512, 64, 0), (256, 300, 64, 0),
-                                           (256, 512, 64, 128), (7, 45, 32, 0), (3, 70, 32, 9)])
+                                           (256, 512, 64, 128), (7, 45, 32, 0), (3, 70, 32, 9),
+                                           (64, 300, 32, 128)])
 def test_local_attention_kernel_matches_plain(cuda, dtype, bh, s, d, window):
+    """bf16 on the tensor route, float32 on the scalar one."""
     from repro_torch.kernels import local_attention as la
 
     g = torch.Generator().manual_seed(s + window)
     q, k, v = (torch.randn((bh, s, d), generator=g).to(cuda, dtype) for _ in range(3))
+    before = route_counts(la.local_attention)
     got = la.local_attention(q, k, v, window=window)
     assert torch.equal(got, la.local_attention(q, k, v, window=window))
+    after = route_counts(la.local_attention)
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        (2, 0) if dtype == torch.bfloat16 else (0, 2))
     want = ref.local_attention_ref(q, k, v, window=window)
     # float32: online vs materialized softmax; bf16: one ulp of the largest output.
     tol = 2e-5 if dtype == torch.float32 else 2.0**-7 * float(want.float().abs().max())

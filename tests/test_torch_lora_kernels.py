@@ -149,12 +149,20 @@ def test_ops_local_attention_repeats_grouped_heads():
     assert torch.equal(got, want)
 
 
+def launch_counts():
+    """Every launch counter of the three serving wrappers: all launches and
+    those of each route."""
+    return tuple(getattr(fn, c) for fn in (lm.lora_matmul, lm.gathered_lora_matmul,
+                                           la.local_attention)
+                 for c in ("launches", "tc_launches", "scalar_launches"))
+
+
 def test_cpu_wrappers_take_the_plain_version():
-    """CPU tensors compute the plain version bit for bit and launch nothing."""
+    """CPU tensors compute the plain version bit for bit and launch nothing:
+    no counter of either route moves."""
     d = lora_inputs(9, 10, 16, 8, 4, n_slots=2)
     rs = torch.tensor([0, 1] * 5, dtype=torch.int32)
-    before = (lm.lora_matmul.launches, lm.gathered_lora_matmul.launches,
-              la.local_attention.launches)
+    before = launch_counts()
     args = (T(d["x"]), T(d["w"]))
     assert torch.equal(lm.lora_matmul(*args, T(d["a"][0]), T(d["b"][0]), 2.0),
                        ref.lora_matmul_ref(*args, T(d["a"][0]), T(d["b"][0]), 2.0))
@@ -162,8 +170,62 @@ def test_cpu_wrappers_take_the_plain_version():
                        ref.gathered_lora_matmul_ref(*args, T(d["a"]), T(d["b"]), rs, 2.0))
     q = T(d["x"]).reshape(2, 5, 16)
     assert torch.equal(la.local_attention(q, q, q), ref.local_attention_ref(q, q, q, window=0))
-    assert (lm.lora_matmul.launches, lm.gathered_lora_matmul.launches,
-            la.local_attention.launches) == before
+    bf = lambda t: t.bfloat16()
+    lm.gathered_lora_matmul(bf(T(d["x"])), bf(T(d["w"])), T(d["a"]), T(d["b"]), rs, 2.0)
+    la.local_attention(bf(q), bf(q), bf(q))
+    assert launch_counts() == before
+
+
+# The route rule: bf16 activations whose TMA row strides are multiples of 16
+# bytes take the tensor-core (wgmma) route, everything else the scalar one.
+@pytest.mark.parametrize("k,n,dtype,aligned,want", [
+    (2048, 2048, torch.bfloat16, True, "tensor"),   # StableLM q and v, prefill and decode
+    (768, 3352, torch.bfloat16, True, "tensor"),    # Mamba-2 in_proj (N ragged to the tile)
+    (1536, 768, torch.bfloat16, True, "tensor"),    # Mamba-2 out_proj
+    (64, 40, torch.bfloat16, True, "tensor"),
+    (2048, 2048, torch.float32, True, "scalar"),    # TF32 would miss the float32 checks
+    (513, 130, torch.bfloat16, True, "scalar"),     # the ragged check shape
+    (513, 2048, torch.bfloat16, True, "scalar"),    # K not a multiple of 8
+    (2048, 130, torch.bfloat16, True, "scalar"),    # N not a multiple of 8
+    (0, 2048, torch.bfloat16, True, "scalar"),      # no K: nothing for TMA to read
+    (2048, 2048, torch.bfloat16, False, "scalar"),  # a base TMA cannot read
+])
+def test_lora_route_rule(k, n, dtype, aligned, want):
+    assert lm.route(k, n, dtype, aligned=aligned) == want
+
+
+def test_lora_route_alignment():
+    """A bf16 x that starts 2 bytes into its storage, or a B pool whose
+    column pairs are split, is not aligned for the tensor route."""
+    d = lora_inputs(11, 8, 16, 8, 4, n_slots=2)
+    x, w, b = T(d["x"]).bfloat16(), T(d["w"]).bfloat16(), T(d["b"])
+    assert lm._aligned(x, w, b)
+    shifted = torch.empty(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape)
+    assert shifted.is_contiguous() and not lm._aligned(shifted, w, b)
+    odd_b = torch.empty(b.numel() + 1)[1:].view(b.shape)
+    assert not lm._aligned(x, w, odd_b)
+
+
+def test_lora_route_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        lm.route(64, 64, torch.float16)
+
+
+@pytest.mark.parametrize("d,dtype,want", [(64, torch.bfloat16, "tensor"),
+                                          (32, torch.bfloat16, "tensor"),
+                                          (64, torch.float32, "scalar"),
+                                          (32, torch.float32, "scalar")])
+def test_attention_route_rule(d, dtype, want):
+    assert la.route(d, dtype) == want
+
+
+@pytest.mark.parametrize("d,dtype,exc", [(48, torch.bfloat16, ValueError),
+                                         (128, torch.float32, ValueError),
+                                         (16, torch.bfloat16, ValueError),
+                                         (64, torch.float16, TypeError)])
+def test_attention_route_refuses(d, dtype, exc):
+    with pytest.raises(exc):
+        la.route(d, dtype)
 
 
 @pytest.mark.parametrize("bad", ["chain", "adapter", "pool", "row_slot", "attn", "window"])
