@@ -418,7 +418,9 @@ ATTN_F32_ATOL = 2e-5
 ATTN_BF16_RTOL = 2.0**-7
 LORA_SHAPES = [(4096, 2048, 2048, 8, "prefill"), (8, 2048, 2048, 8, "decode"),
                (129, 513, 130, 8, "ragged"), (4096, 768, 3352, 8, "mamba2 in_proj"),
-               (4096, 1536, 768, 8, "mamba2 out_proj")]
+               (8, 768, 3352, 8, "mamba2 in_proj decode"),
+               (4096, 1536, 768, 8, "mamba2 out_proj"),
+               (8, 1536, 768, 8, "mamba2 out_proj decode")]
 ATTN_SHAPES = [(256, 512, 64, 0, "prefill"), (256, 300, 64, 0, "ragged"),
                (256, 512, 64, 128, "window")]
 TENANT_SLOTS = (1, 3, 4, 6)  # 4 tenants resident in a pool of 8 slots
@@ -470,7 +472,12 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
             scale = 2.0
             rs = request_slots(m, 8, [TENANT_SLOTS[i % 4] for i in range(8)])
             route = lm.route(k, n, dtype)
-            tag = f"{label} M={m} K={k} N={n} R={r} {str(dtype)[6:]} route={route}"
+            splits = lm.k_splits(m, n, k, route)
+            if route == "tensor" and (splits > 1) != (m == 8):
+                raise AssertionError(f"{label}: {splits} K splits on the tensor route, where "
+                                     f"decode (M = 8) and only decode splits K")
+            tag = (f"{label} M={m} K={k} N={n} R={r} {str(dtype)[6:]} route={route} "
+                   f"k_splits={splits}")
             tc_before = lm.lora_matmul.tc_launches + lm.gathered_lora_matmul.tc_launches
 
             run1 = lambda: lm.lora_matmul(x, w, a[3], b[3], scale)
@@ -1687,7 +1694,7 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         for k in routed:
-            wrappers[k].tc_launches = wrappers[k].scalar_launches = 0
+            wrappers[k].tc_launches = 0
 
     zero_counts()
     t0 = time.perf_counter()

@@ -403,9 +403,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, 
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   if (tensor) {
     constexpr int kSmem = sizeof(tc::Tiles<D>);
-    const cudaError_t err = cudaFuncSetAttribute(
-        tc::attention_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    static_assert(kSmem <= 48 * 1024, "attention_tc's tiles need a shared-memory opt-in");
     dim3 grid((S + tc::BQ - 1) / tc::BQ, BH);
     tc::attention_tc<D><<<grid, tc::kThreads, kSmem, st>>>(
         static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),

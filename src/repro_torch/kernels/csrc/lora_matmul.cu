@@ -61,25 +61,29 @@
 //      stages B[s][:, tile columns], rounded to bf16, in shared memory for
 //      the slot s of its first row (rows come grouped by request); a row of
 //      another slot, or a rank above 8, reads B from global memory, with
-//      the same values.
+//      the same values.  At the serving prefill shapes the staging takes
+//      15-18% off the GEMM against every row reading global memory (H100,
+//      tools/kernel_call_costs.py).
 //   3. When the output tiles cannot give the 132 SMs two blocks each (decode:
 //      M = 8 is 16 tiles), K is split across blocks (k_splits, the same rule
 //      for both routes; on the tensor route each split is a whole number of
 //      64-wide K steps); each writes its fp32 partial sums, and lora_finish
-//      (lora_finish_pairs on the tensor route, two adjacent outputs a
-//      thread) adds the splits in split order (no atomics) before the same
-//      epilogue.  Every sum has one order, so a launch repeats bit for bit.
+//      (one for both routes) adds the splits in split order (no atomics)
+//      before the same epilogue.  Every sum has one order, so a launch
+//      repeats bit for bit.
 // A pool is addressed through its slot stride, so a layer's slice of a
 // (n_slots, n_layers, K, R) pool is used where it lies, never copied.
 // Ragged M, N and K are masked in the kernels (by TMA's zero fill on the
 // tensor route).  Slots outside [-1, n_slots) trap rather than read another
 // adapter's memory.  The TMA tensor maps are encoded on the host for every
 // call through cuTensorMapEncodeTiled, taken with cudaGetDriverEntryPoint,
-// so the library links no libcuda.
+// so the library links no libcuda; the GEMM's shared-memory opt-in is set
+// once per device.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -474,7 +478,7 @@ __device__ __forceinline__ float2 load_pair(const bf16* p) {
 
 // The base product of one (BM, 128) output tile over K range
 // [kz * k_chunk, +k_chunk), k_chunk a multiple of 64, then the epilogue (one
-// split) or the fp32 partial sums (split K, finished by lora_finish_pairs).
+// split) or the fp32 partial sums (split K, finished by lora_finish).
 template <typename P, int CWG>
 __global__ void __launch_bounds__(Cfg<CWG>::kThreads, 2)
 lora_gemm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
@@ -634,57 +638,6 @@ lora_gemm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
   }
 }
 
-// Split-K epilogue of the tensor route: one thread per pair of adjacent
-// outputs adds the splits in order, then adds the correction as the one-pass
-// epilogue does.
-template <typename P>
-__global__ void __launch_bounds__(kThreads)
-lora_finish_pairs(const float* __restrict__ partial, const P* __restrict__ b,
-                  const int* __restrict__ row_slot, const float* __restrict__ xa,
-                  bf16* __restrict__ y, int M, int N, int R, int xa_stride,
-                  long long b_slot_stride, int n_slots, int splits, float scale) {
-  const size_t o = 2 * (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x);
-  if (o >= static_cast<size_t>(M) * N) return;
-  const int row = static_cast<int>(o / N), col = static_cast<int>(o % N);
-  float a0 = 0.f, a1 = 0.f;
-  for (int z = 0; z < splits; ++z) {
-    const float2 v =
-        *reinterpret_cast<const float2*>(partial + static_cast<size_t>(z) * M * N + o);
-    a0 += v.x;
-    a1 += v.y;
-  }
-  const int slot = row_slot_of(row_slot, row, n_slots);
-  float l0 = 0.f, l1 = 0.f;
-  if (slot >= 0) {
-    const float* xr = xa + static_cast<size_t>(row) * xa_stride;
-    const P* bs = b + slot * b_slot_stride + col;
-    if (R <= 8) {  // every load issued before the first use
-      float xv[8];
-      float2 bv[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        if (r < R) {
-          xv[r] = xr[r];
-          bv[r] = load_pair(bs + static_cast<size_t>(r) * N);
-        }
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        if (r < R) {
-          l0 = fmaf(xv[r], round_to<bf16>(bv[r].x), l0);
-          l1 = fmaf(xv[r], round_to<bf16>(bv[r].y), l1);
-        }
-    } else {
-      for (int r = 0; r < R; ++r) {
-        const float2 bv = load_pair(bs + static_cast<size_t>(r) * N);
-        l0 = fmaf(xr[r], round_to<bf16>(bv.x), l0);
-        l1 = fmaf(xr[r], round_to<bf16>(bv.y), l1);
-      }
-    }
-  }
-  *reinterpret_cast<__nv_bfloat162*>(y + o) =
-      __halves2bfloat162(combine<bf16>(a0, l0, scale), combine<bf16>(a1, l1, scale));
-}
-
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -724,6 +677,8 @@ bool encode_2d(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+constexpr int kMaxDevices = 64;
+
 template <typename P, int CWG>
 int launch_gemm(const void* x, const void* w, const P* b, const int* row_slot, const float* xa,
                 bf16* y, float* partial, int M, int N, int K, int R, int xa_stride,
@@ -732,9 +687,19 @@ int launch_gemm(const void* x, const void* w, const P* b, const int* row_slot, c
   CUtensorMap tm_x, tm_w;
   if (!encode_2d(&tm_x, x, K, M, BK, C::BM) || !encode_2d(&tm_w, w, N, K, kChunk, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(lora_gemm_tc<P, CWG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  // The opt-in to more than 48 KB of dynamic shared memory holds for the
+  // device's context: set it on a device's first launch only.
+  static std::atomic<bool> opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(lora_gemm_tc<P, CWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[dev].store(true, std::memory_order_relaxed);
+  }
   const int k_steps = (K + BK - 1) / BK;
   const int k_chunk = ((k_steps + splits - 1) / splits) * BK;
   dim3 grid((N + BN - 1) / BN, (M + C::BM - 1) / C::BM, splits);
@@ -743,10 +708,10 @@ int launch_gemm(const void* x, const void* w, const P* b, const int* row_slot, c
       b_stride, n_slots, k_chunk, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long pairs = static_cast<long long>(M) * N / 2;
-  lora_finish_pairs<P><<<static_cast<unsigned>((pairs + kThreads - 1) / kThreads), kThreads, 0,
-                         st>>>(partial, b, row_slot, xa, y, M, N, R, xa_stride, b_stride,
-                               n_slots, splits, scale);
+  const long long outs = static_cast<long long>(M) * N;
+  lora_finish<bf16, P><<<static_cast<unsigned>((outs + kThreads - 1) / kThreads), kThreads, 0,
+                         st>>>(partial, b, row_slot, xa, y, M, N, R, xa_stride, b_stride, n_slots,
+                               splits, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -76,15 +76,11 @@ def local_attention(q, k, v, *, window: int = 0, causal: bool = True) -> torch.T
         )
     backend.check_launch(err, "local_attention")
     local_attention.launches += 1
-    if tensor:
-        local_attention.tc_launches += 1
-    else:
-        local_attention.scalar_launches += 1
+    local_attention.tc_launches += int(tensor)
     return out
 
 
 #: Kernel launches since the count was last set to 0 (plain version
-#: excluded): all of them, and those of the tensor and the scalar route.
+#: excluded): all of them, and those of the tensor route.
 local_attention.launches = 0
 local_attention.tc_launches = 0
-local_attention.scalar_launches = 0

@@ -62,6 +62,14 @@ def route(k: int, n: int, dtype: torch.dtype, *, aligned: bool = True) -> str:
     return "scalar"
 
 
+def k_splits(m: int, n: int, k: int, route_name: str) -> int:
+    """How many blocks share the K range of an (M, K) @ (K, N) call on
+    route ``route_name``: more than one only where the output tiles leave
+    the card short of blocks (decode), the splits then added in order by a
+    second kernel.  Builds the kernels on first use."""
+    return _lib().repro_lora_splits(m, n, k, int(route_name == "tensor"))
+
+
 def _aligned(x, w, b) -> bool:
     """TMA reads x and W from 16-byte aligned bases; the tensor route's
     epilogue reads B in pairs of columns."""
@@ -130,10 +138,7 @@ def _count(fn, tensor):
     if tensor is None:
         return
     fn.launches += 1
-    if tensor:
-        fn.tc_launches += 1
-    else:
-        fn.scalar_launches += 1
+    fn.tc_launches += int(tensor)
 
 
 def _check_shapes(x, w, a, b, name):
@@ -182,6 +187,6 @@ def gathered_lora_matmul(x, w, a_pool, b_pool, row_slot, scale: float = 1.0) -> 
 
 
 #: Kernel launches since the count was last set to 0 (plain version
-#: excluded): all of them, and those of the tensor and the scalar route.
+#: excluded): all of them, and those of the tensor route.
 for _fn in (lora_matmul, gathered_lora_matmul):
-    _fn.launches = _fn.tc_launches = _fn.scalar_launches = 0
+    _fn.launches = _fn.tc_launches = 0

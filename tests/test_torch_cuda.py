@@ -203,15 +203,17 @@ def lora_case(cuda, m, k, n, r, dtype, n_slots=8, seed=0):
     return x, w, a_pool[:, 1], b_pool[:, 1]  # a layer's slice: strided slots
 
 
-# The serving path's shapes (StableLM q / v at prefill and decode, Mamba-2's
-# in_proj and out_proj) take the tensor route in bf16; float32 and the ragged
-# (129, 513, 130) take the scalar route.
+# The serving path's shapes (StableLM q / v, Mamba-2's in_proj and out_proj,
+# each at prefill and decode) take the tensor route in bf16, K split at
+# decode; float32 and the ragged (129, 513, 130) take the scalar route.
 LORA_SHAPES = [(4096, 2048, 2048, 8), (8, 2048, 2048, 8), (4096, 768, 3352, 8),
-               (4096, 1536, 768, 8), (129, 513, 130, 8), (5, 64, 40, 33)]
+               (8, 768, 3352, 8), (4096, 1536, 768, 8), (8, 1536, 768, 8),
+               (129, 513, 130, 8), (5, 64, 40, 33)]
 
 
 def route_counts(fn):
-    return fn.tc_launches, fn.scalar_launches
+    """Launches on the tensor route and on the scalar route."""
+    return fn.tc_launches, fn.launches - fn.tc_launches
 
 
 @pytest.mark.gpu
@@ -222,6 +224,8 @@ def test_lora_kernels_match_plain(cuda, dtype, m, k, n, r):
 
     tensor = dtype == torch.bfloat16 and (k, n) != (513, 130)
     assert lm.route(k, n, dtype) == ("tensor" if tensor else "scalar")
+    if tensor:  # the serving shapes split K at decode (M = 8) only
+        assert (lm.k_splits(m, n, k, "tensor") > 1) == (m == 8)
     x, w, a, b = lora_case(cuda, m, k, n, r, dtype)
     before = [route_counts(fn) for fn in (lm.lora_matmul, lm.gathered_lora_matmul)]
     got = lm.lora_matmul(x, w, a[2], b[2], 2.0)

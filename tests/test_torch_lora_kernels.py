@@ -151,10 +151,10 @@ def test_ops_local_attention_repeats_grouped_heads():
 
 def launch_counts():
     """Every launch counter of the three serving wrappers: all launches and
-    those of each route."""
+    those of the tensor route."""
     return tuple(getattr(fn, c) for fn in (lm.lora_matmul, lm.gathered_lora_matmul,
                                            la.local_attention)
-                 for c in ("launches", "tc_launches", "scalar_launches"))
+                 for c in ("launches", "tc_launches"))
 
 
 def test_cpu_wrappers_take_the_plain_version():
