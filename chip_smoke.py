@@ -16,8 +16,10 @@ Phases (any failed check raises and the script exits non-zero):
      ``admm_tail`` and ``subspace_apply`` at every bucket shape paths A and
      B launch them at (path B's ViT-B/32 LoRA bucket: 48 modules x 4096
      rows, 3072 of them live, 40 dense clients and 20 of 32; path A's
-     2 x 4096 x 20 bucket) and at ragged shapes, ``mask=None`` the bits of
-     an all-ones mask; ``lora_matmul`` and ``gathered_lora_matmul`` at
+     2 x 4096 x 20 bucket), timed there, and at ragged shapes,
+     ``mask=None`` the bits of an all-ones mask, each shape's
+     ``subspace_apply`` route printed and held to ``svt_subspace.route``
+     (tensor cores in 3xTF32 up to d2 = 128, fp32 FMA above); ``lora_matmul`` and ``gathered_lora_matmul`` at
      (M, K, N, R) = (4096, 2048, 2048, 8) (prefill q and v), (8, ...)
      (decode) and (129, 513, 130, 8), float32 and bf16, on a layer's slice
      of an 8-slot pool with 4 tenants, slot -1 the bits of a zero adapter,
@@ -25,13 +27,15 @@ Phases (any failed check raises and the script exits non-zero):
      ``in_proj`` (4096, 768, 3352) and ``out_proj`` (4096, 1536, 768), each
      bf16 shape timed beside cuBLAS ``x @ W``; ``local_attention`` at (BH,
      S, D) = (256, 512, 64), S = 300 and window 128, float32 and bf16,
-     beside ``F.scaled_dot_product_attention`` (timed only).  Each checked
+     beside ``F.scaled_dot_product_attention`` (timed only), and
+     ``causal=False`` at (256, 512, 64).  Each checked
      shape prints its route (``lora_matmul.route``,
      ``local_attention.route``: bf16 on the tensor cores, float32 and the
      ragged bf16 LoRA shape on fp32 FMA) and its tensor-route launches must
      match it; ``ssd_scan`` (y and the final state) at (BH, S, P, N) =
      (192, 512, 64, 128) and S = 300, the model's decays and weak ones, and
-     at odd widths; ``soft_threshold`` at path B's bucket flattened to
+     at odd widths, its bound printed also at a third of the TF32 tensor
+     rate; ``soft_threshold`` at path B's bucket flattened to
      (196608, 40) and at (129, 130), float32 and bf16, equal bits, beside
      ``F.softshrink`` (timed only); ``subspace_apply_factored`` at path F's
      shard shape (B, vec, d2, r) = (48, 4096, 10, 8), at the last shard of 30
@@ -46,7 +50,7 @@ Phases (any failed check raises and the script exits non-zero):
   5. Main path B: ``aggregate(engine="packed")`` of a planted delta tree of
      ``configs/paper_vit_b32.py``'s LoRA (q and v, 12 layers) at 40 dense
      clients and 20 clients padded to 32, both SVT modes, against the same
-     call on the CPU.
+     call on the CPU, with the exact-eigh fallback counts of both.
   6. Main path C: multi-tenant serving of ``configs/stablelm_1_6b.py`` at
      full width (24 layers, bf16, random weights from a seed): 8 requests of
      4 tenants, prompt 512, 32 greedy tokens, through ``RequestScheduler``,
@@ -72,20 +76,26 @@ Phases (any failed check raises and the script exits non-zero):
      call on a CPU mesh; 2 shards against 4; ``mesh_overlap=True`` against
      False, bit for bit; ``run_simulation(mesh_shards=4)`` on path A's task
      against ``mesh_shards=0``.
- 10. The ``kernels`` JSON line, the wall time, then the result line.
+ 10. The card tests: ``pytest -m gpu tests/test_torch_cuda.py`` in a
+     subprocess with its own time limit; any failure, error or skip fails
+     the script, and the counts and wall time go on a ``[card tests]``
+     line.
+ 11. The ``kernels`` JSON line, the wall time, then the result line.
 
 Kernel launch counts are set to 0 just before phase 4 and read just after
 phase 5, and set to 0 again just before each of phases 6, 7, 8 and 9 and
 read just after it; every kernel must have launched, and each phase exactly
 as often as its rounds, ADMM iterations, fallbacks, shards, buckets, layers
-and decode steps say.  Beside them the tensor-route launches of the LoRA
-and attention kernels are counted: paths C and D must launch every bf16
-call on the tensor route and every float32 one (the depth-2 card-vs-CPU
+and decode steps say.  Beside them the tensor-route launches of the
+subspace, LoRA and attention kernels are counted: paths A and B must
+launch every ``subspace_apply`` call on the tensor route, and paths C and
+D every bf16 call on it and every float32 one (the depth-2 card-vs-CPU
 runs, the state handoff) off it.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -294,12 +304,17 @@ def check_kernels(device, bw, flops) -> dict:
         s_run = lambda: svt_subspace.subspace_apply(*s_args, mask=msk)
         s_ref = lambda: ref.svt_subspace_apply_ref(*s_args, mask=msk)
         errs = {}
+        route = svt_subspace.route(d2)
         for name, run, plain, n_elem in (("admm_tail", a_run, a_ref, 2),
                                          ("subspace_apply", s_run, s_ref, 3)):
+            tc_before = svt_subspace.subspace_apply.tc_launches
             got, again, want = run(), run(), plain()
             torch.cuda.synchronize()
             if not all(torch.equal(u, v) for u, v in zip(got, again)):
                 raise AssertionError(f"{name} {label}: two launches differ")
+            tc_got = svt_subspace.subspace_apply.tc_launches - tc_before
+            if name == "subspace_apply" and tc_got != (2 if route == "tensor" else 0):
+                raise AssertionError(f"subspace_apply {label}: launched off its route {route}")
             err = max(check_elem(g, w, f"{name} {label}") for g, w in zip(got[:n_elem], want[:n_elem]))
             for g, w in zip(got[n_elem:], want[n_elem:]):
                 check_sum(g, w, f"{name} {label} sums")
@@ -314,9 +329,10 @@ def check_kernels(device, bw, flops) -> dict:
                 if not all(torch.equal(u, v) for u, v in zip(got, with_ones)):
                     raise AssertionError(f"{name} {label}: mask=None differs from all-ones")
             errs[name] = err
-        line = f"[kernels] {label} B={b} vec={vec} live={live} d2={d2} valid={n_valid}"
+        line = (f"[kernels] {label} B={b} vec={vec} live={live} d2={d2} valid={n_valid} "
+                f"subspace_apply route={route}")
         print(line, " ".join(f"{k}_err={v:.3g}" for k, v in errs.items()), flush=True)
-        if label != "main":
+        if label not in ("main", "masked", "path A"):
             continue
         n = b * vec * d2
         for name, run, plain, err in (("admm_tail", a_run, a_ref, errs["admm_tail"]),
@@ -329,13 +345,14 @@ def check_kernels(device, bw, flops) -> dict:
                 n_ops = 4 * n * d2 + 16 * n  # X @ P and X'^T X', plus the tail
             t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / flops * 1e3
             ms, plain_ms, call_ms = device_ms(run), device_ms(plain), bench_ms(run)
-            rec[name] = dict(
+            out = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
-                shape=[b, vec, d2], mbytes=n_bytes / 1e6,
             )
-            print(f"[kernels] {name} main: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={rec[name]['bound_ms']:.4f} ({rec[name]['bound_by']}, "
+            if label == "main":
+                rec[name] = out
+            print(f"[kernels] {name} {label} ({b}, {vec}, {d2}): kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={out['bound_ms']:.4f} ({out['bound_by']}, "
                   f"{n_bytes / 1e6:.1f} MB) library_ms=null call_ms={call_ms:.4f}", flush=True)
     return rec
 
@@ -421,8 +438,10 @@ LORA_SHAPES = [(4096, 2048, 2048, 8, "prefill"), (8, 2048, 2048, 8, "decode"),
                (8, 768, 3352, 8, "mamba2 in_proj decode"),
                (4096, 1536, 768, 8, "mamba2 out_proj"),
                (8, 1536, 768, 8, "mamba2 out_proj decode")]
-ATTN_SHAPES = [(256, 512, 64, 0, "prefill"), (256, 300, 64, 0, "ragged"),
-               (256, 512, 64, 128, "window")]
+# (BH, S, D, window, causal, label); "bidirectional" is the encoder's call
+# (causal=False), checked and not timed.
+ATTN_SHAPES = [(256, 512, 64, 0, True, "prefill"), (256, 300, 64, 0, True, "ragged"),
+               (256, 512, 64, 128, True, "window"), (256, 512, 64, 0, False, "bidirectional")]
 TENANT_SLOTS = (1, 3, 4, 6)  # 4 tenants resident in a pool of 8 slots
 
 
@@ -555,18 +574,19 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
     from repro_torch.kernels import ref
 
     rec = {}
-    for bh, s, d, window, label in ATTN_SHAPES:
+    for bh, s, d, window, causal, label in ATTN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device="cuda").manual_seed(bh + s + window)
             q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda").to(dtype)
                        for _ in range(3))
-            run = lambda: la.local_attention(q, k, v, window=window)
-            plain = lambda: ref.local_attention_ref(q, k, v, window=window)
+            run = lambda: la.local_attention(q, k, v, window=window, causal=causal)
+            plain = lambda: ref.local_attention_ref(q, k, v, window=window, causal=causal)
             route = la.route(d, dtype)
             tc_before = la.local_attention.tc_launches
             got, again, want = run(), run(), plain()
             torch.cuda.synchronize()
-            tag = f"{label} BH={bh} S={s} D={d} window={window} {str(dtype)[6:]} route={route}"
+            tag = (f"{label} BH={bh} S={s} D={d} window={window} causal={causal} "
+                   f"{str(dtype)[6:]} route={route}")
             if not torch.equal(got, again):
                 raise AssertionError(f"local_attention {tag}: two launches differ")
             if la.local_attention.tc_launches - tc_before != (2 if route == "tensor" else 0):
@@ -575,7 +595,7 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
                    else ATTN_BF16_RTOL * float(want.double().abs().max()))
             err = check_close(got, want, tol, f"local_attention {tag}")
             print(f"[kernels] local_attention {tag}: err={err:.3g}", flush=True)
-            if dtype != torch.bfloat16 or label == "ragged":
+            if dtype != torch.bfloat16 or label in ("ragged", "bidirectional"):
                 continue
             i = torch.arange(s)
             keep = i[:, None] >= i[None, :]
@@ -649,9 +669,13 @@ def ssd_work(bh, s, p, n, groups):
     return bh * ops, n_bytes
 
 
-def check_ssd_kernel(bw, fp32_flops) -> dict:
+def check_ssd_kernel(bw, fp32_flops, tf32_flops) -> dict:
     """ssd_scan against its plain version (y and the final state), two
-    launches bit for bit; timed at the prefill shape."""
+    launches bit for bit; timed at the prefill shape.  ``bound_ms`` counts
+    the tile-64 operations at the fp32 CUDA-core rate, as before the kernel
+    moved to the tensor cores; beside it is printed the bound at a third of
+    the TF32 tensor rate (its products run in 3xTF32), or the bytes', the
+    larger."""
     import torch
     from repro_torch.kernels import ref, ssd_scan
 
@@ -679,10 +703,12 @@ def check_ssd_kernel(bw, fp32_flops) -> dict:
                                bound_ms=max(t_bytes, t_ops),
                                bound_by="bytes" if t_bytes >= t_ops else "operations",
                                library_ms=None)
+        t_tensor = max(t_bytes, n_ops / (tf32_flops / 3) * 1e3)
         print(f"[kernels] ssd_scan {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={rec['ssd_scan']['bound_ms']:.4f} ({rec['ssd_scan']['bound_by']}, "
-              f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB) library_ms=null "
-              f"(no single PyTorch call) call_ms={call_ms:.4f}", flush=True)
+              f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB) 3xTF32 bound_ms={t_tensor:.4f} "
+              f"library_ms=null (no single PyTorch call) call_ms={call_ms:.4f} "
+              f"device ms by kernel {device_ms_by_kernel(run)}", flush=True)
     return rec
 
 
@@ -804,6 +830,8 @@ def main_path_a(counts) -> None:
         want = dict.fromkeys(before, 0)
         if method == "fedrpca":
             want["admm_tail" if mode == "gram" else "subspace_apply"] = 10 * 50 * 1
+            if mode == "subspace":
+                want["subspace_apply_tc"] = 10 * 50 * 1
         if launched != want:
             raise AssertionError(f"{method}/{mode}: launches {launched} != {want}")
         if not np.isfinite(hist).all() or len(hist) != 10:
@@ -881,11 +909,13 @@ def main_path_b(counts) -> None:
             gpu_mask = None if mask is None else mask.cuda()
             call = lambda: aggregate(gpu_tree, cfg, engine="packed", mask=gpu_mask)
             before = counts()
-            out = call()
-            torch.cuda.synchronize()
+            with FallbackSpy("robust_pca_bucket") as spy:
+                out = call()
+                torch.cuda.synchronize()
             launched = {k: v - before[k] for k, v in counts().items()}
             want = dict(dict.fromkeys(before, 0), admm_tail=50 if mode == "gram" else 0,
-                        subspace_apply=50 if mode == "subspace" else 0)
+                        subspace_apply=50 if mode == "subspace" else 0,
+                        subspace_apply_tc=50 if mode == "subspace" else 0)
             if launched != want:
                 raise AssertionError(f"path B {mode}: launches {launched} != {want}")
             t0 = time.perf_counter()
@@ -893,8 +923,9 @@ def main_path_b(counts) -> None:
             torch.cuda.synchronize()
             t_call = time.perf_counter() - t0
             t0 = time.perf_counter()
-            cpu = aggregate(from_jax_tree(tree, "cpu"), cfg, engine="packed", mask=mask,
-                            device="cpu")
+            with FallbackSpy("robust_pca_bucket") as cpu_spy:
+                cpu = aggregate(from_jax_tree(tree, "cpu"), cfg, engine="packed", mask=mask,
+                                device="cpu")
             t_cpu = time.perf_counter() - t0
             err = 0.0
             for g, c in zip(tree_leaves(out), tree_leaves(cpu)):
@@ -903,8 +934,10 @@ def main_path_b(counts) -> None:
                 err = max(err, max_abs(g.cpu(), c))
             if err > AGG_RTOL * scale:
                 raise AssertionError(f"path B {mode} nc={nc}: card vs CPU {err} > {AGG_RTOL}*{scale}")
+            # Subspace mode: the exact-eigh fallbacks read the kernel's G'.
             print(f"[path B] nc={nc} valid={n_valid or nc} {mode}: call_s={t_call:.4f} "
                   f"cpu_call_s={t_cpu:.4f} card-vs-cpu max|err|={err:.3g} (max|delta|={scale:.3g}) "
+                  f"fallbacks card {spy.falls} cpu {cpu_spy.falls} of 50 iterations "
                   f"launches={launched}", flush=True)
 
 # --- Path F: mesh-sharded aggregation -------------------------------------------
@@ -916,25 +949,29 @@ F_SHARDS = 4
 
 
 class FallbackSpy:
-    """Records ``n_fallback`` of every ``robust_pca_bucket_sharded`` call the
-    engine makes inside the ``with`` block (the count the launch check needs;
-    ``aggregate`` does not return it)."""
+    """Records ``n_fallback`` of every ``core.rpca`` call of ``name`` the
+    engine makes inside the ``with`` block (``aggregate`` does not return
+    it): the sharded loop's, which the launch check needs, or the unsharded
+    one's, whose exact-eigh fallbacks read ``subspace_apply``'s Gram."""
+
+    def __init__(self, name: str = "robust_pca_bucket_sharded"):
+        self.name = name
 
     def __enter__(self):
         from repro_torch.core import rpca
 
-        self.falls, self._rpca, self._fn = [], rpca, rpca.robust_pca_bucket_sharded
+        self.falls, self._rpca, self._fn = [], rpca, getattr(rpca, self.name)
 
         def spy(*args, **kw):
             res = self._fn(*args, **kw)
             self.falls.append(res.n_fallback)
             return res
 
-        rpca.robust_pca_bucket_sharded = spy
+        setattr(rpca, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        self._rpca.robust_pca_bucket_sharded = self._fn
+        setattr(self._rpca, self.name, self._fn)
 
 
 def mesh_launches(mode, shards, chunks, iters, falls) -> dict:
@@ -1007,8 +1044,9 @@ def main_path_f(counts, card: str) -> dict:
         base = aggregate(gpu_tree, cfg, engine="packed", mask=gpu_mask)
         torch.cuda.synchronize()
         t_base = time.perf_counter() - t0
-        expect(f"{tag} unsharded", launched(before),
-               **{"admm_tail" if mode == "gram" else "subspace_apply": 50})
+        tail = (dict(admm_tail=50) if mode == "gram"
+                else dict(subspace_apply=50, subspace_apply_tc=50))
+        expect(f"{tag} unsharded", launched(before), **tail)
         with FallbackSpy() as spy:
             t0 = time.perf_counter()
             cpu = aggregate(from_jax_tree(tree, "cpu"), cfg, engine="packed", mask=mask,
@@ -1067,6 +1105,47 @@ def main_path_f(counts, card: str) -> dict:
     total = launched(start)
     print(f"[path F] {card} | launches {total} by phase {phase}", flush=True)
     return total
+
+
+# --- Phase 10: the card tests ----------------------------------------------------
+CARD_TESTS = "tests/test_torch_cuda.py"
+CARD_TESTS_TIMEOUT_S = 420
+
+
+def run_card_tests() -> dict:
+    """Runs the ``gpu`` tests of ``CARD_TESTS`` in a subprocess (pytest, its
+    own time limit) and fails on any failure, error or skip: with a card
+    present none of them may skip.  Returns the counts and the wall time."""
+    import xml.etree.ElementTree as ET
+
+    report = ROOT / "build" / "card_tests.xml"
+    report.parent.mkdir(parents=True, exist_ok=True)
+    report.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-p", "no:cacheprovider",
+           f"--junitxml={report}", CARD_TESTS]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=CARD_TESTS_TIMEOUT_S)
+    except subprocess.TimeoutExpired as exc:
+        raise AssertionError(f"card tests: over {CARD_TESTS_TIMEOUT_S} s") from exc
+    wall = time.perf_counter() - t0
+    if not report.exists():
+        raise AssertionError(f"card tests wrote no report (exit {proc.returncode}):\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    suite = ET.parse(report).getroot()
+    suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
+    n = {k: int(suite.get(k, 0)) for k in ("tests", "failures", "errors", "skipped")}
+    res = dict(passed=n["tests"] - n["failures"] - n["errors"] - n["skipped"],
+               skipped=n["skipped"], failed=n["failures"], errors=n["errors"],
+               wall_s=round(wall, 1))
+    print(f"[card tests] {CARD_TESTS} -m gpu: passed={res['passed']} skipped={res['skipped']} "
+          f"failed={res['failed']} errors={res['errors']} wall_s={res['wall_s']}", flush=True)
+    if proc.returncode != 0 or res["failed"] or res["errors"] or res["skipped"] or not res["passed"]:
+        raise AssertionError(f"card tests did not all pass (exit {proc.returncode}):\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    return res
 
 
 # --- Path C: multi-tenant serving ---------------------------------------------
@@ -1671,7 +1750,7 @@ def main() -> int:
     rec = check_kernels("cuda", bw, flops)
     rec.update(check_lora_kernels(bw, flops, tensor_flops))
     rec.update(check_attention_kernel(bw, flops, tensor_flops))
-    rec.update(check_ssd_kernel(bw, flops))
+    rec.update(check_ssd_kernel(bw, flops, tensor_flops / 2))  # TF32: half the bf16 rate
     rec.update(check_soft_threshold_kernel(bw, flops))
     rec.update(check_factored_kernel(bw, flops))
 
@@ -1683,10 +1762,11 @@ def main() -> int:
                 "local_attention": local_attention.local_attention,
                 "ssd_scan": ssd_scan.ssd_scan, "soft_threshold": soft_threshold.soft_threshold,
                 "subspace_apply_factored": svt_subspace.subspace_apply_factored}
-    # Beside each kernel's launches, the tensor-route launches of the three
+    # Beside each kernel's launches, the tensor-route launches of the four
     # kernels that have two routes ("<name>_tc"): paths C and D expect every
-    # bf16 launch there and every float32 launch off it.
-    routed = ("lora_matmul", "gathered_lora_matmul", "local_attention")
+    # bf16 launch there and every float32 launch off it, paths A and B every
+    # subspace_apply launch there (their cohorts are 20 to 40 wide).
+    routed = ("subspace_apply", "lora_matmul", "gathered_lora_matmul", "local_attention")
     counts = lambda: {**{k: w.launches for k, w in wrappers.items()},
                       **{f"{k}_tc": wrappers[k].tc_launches for k in routed}}
 
@@ -1721,6 +1801,9 @@ def main() -> int:
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on the main path")
+
+    # Phase 10: the card tests, in their own process.
+    run_card_tests()
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {

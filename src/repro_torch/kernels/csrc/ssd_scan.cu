@@ -17,218 +17,432 @@
 // result does not depend on the tile length, so the kernel's tile T = 64 is
 // smaller than the model's chunk of 256: only the rounding differs.  The
 // final h (BH, N, P) is written when asked (prefill hands it to decode).
-// Every product and sum is fp32.
 //
-// Bound: at prefill, (BH, S, P, N) = (192, 512, 64, 128), the algorithm does
-// 2 * (T(T+1)/2 * (N + P) + 2 T N P) operations per tile of every row, the
-// upper triangle skipped: 4.45 GFLOP, 0.066 ms on the CUDA cores at
-// 67 TFLOP/s, against 61 MB of operands (x and y 25 MB each, the final
-// state 6 MB; B and C read once per batch row), 0.018 ms at 3.35 TB/s.
-// Operations bind.
+// Bound: at prefill, (BH, S, P, N) = (192, 512, 64, 128), the tile-64
+// algorithm does 2 * (T(T+1)/2 * (N + P) + 2 T N P) operations per tile of
+// every row, the upper triangle skipped: 4.45 GFLOP, 0.066 ms at the fp32
+// CUDA-core rate of 67 TFLOP/s, against 61 MB of operands (x and y 25 MB
+// each, the final state 6 MB; B and C read once per batch row), 0.018 ms at
+// 3.35 TB/s.  On the tensor cores in 3xTF32 (three TF32 passes, 495 / 3 =
+// 165 TFLOP/s) the same operations take 0.027 ms, still above the bytes.
 //
-// Design.  The TPU kernel runs one grid row per (b*h) and carries h in VMEM
-// from chunk to chunk.  Here the recurrence for column p of h and y reads
-// column p of x only, so a block takes one row bh and PT = 32 columns of P:
-// a grid of (P / PT, BH) blocks, 384 at prefill, with no traffic between
-// blocks.  Each block walks its tiles in order with h in registers (16
-// values a thread) and mirrored in shared memory for the inter-chunk
-// product; C.B^T is shared by the column tiles and each block recomputes it.
-// One tile of B and C in shared memory, transposed to [n][j] with rows
-// padded to T + 4 floats, takes 2 x 34 KB; with x, the score tile and h a
-// block uses 109 KB, two blocks an SM.  The decay of the upper triangle
-// (i < j) is exp of a positive number and would overflow: those entries are
-// selected to 0, never multiplied by a mask.  Positions past S take da = 0
-// and B = C = x = 0, as the TPU kernel pads them, and are not stored.  Each
-// output is written by one thread, sums run in a fixed order and there are
-// no atomics: two launches give the same bits.  Scalar fp32 FMA; tensor
-// cores are later work.
+// Design: two kernels a call.
+//
+//   ssd_prep: one block per (tile, group) computes the raw score tile
+//   C B^T (64 x 64, K = N) once for the group, not once for each of its
+//   heads and column blocks (48 at prefill), and the inclusive sums of da
+//   (in log2 units, for ex2) for every head of the group.  Scratch: (G, tiles, 64, 64) scores, 1 MB at prefill, and
+//   (BH, tiles * 64) sums.
+//
+//   ssd_scan: the recurrence for column p of h and y reads column p of x
+//   only, so a block takes one row bh and PT = 32 columns of P: a grid of
+//   (P / PT, BH) blocks, 384 at prefill.  A block takes 226 KB of shared
+//   memory, one an SM: 2.9 waves, the last 91% full (a persistent grid of
+//   one block an SM, prefetching across its items, measured no faster).  16 warps: eight
+//   "output" warps own 16 rows of y each and half of inter's K, eight
+//   "state" warps own 16 rows of h each.  Per tile:
+//     - tile it + 1's B, C, x, scores and sums are copied into the other
+//       stage of a two-stage ring by cp.async while tile it computes;
+//     - phase 1: the output warps form inter C h from the state entering
+//       the tile, each over half of K; the state warps split x into its
+//       TF32 halves (once, for every product that reads it) and run the
+//       carry (B o w)^T x into h, which lives in their accumulator
+//       fragments from tile to tile;
+//     - phase 2: each output warp adds its partner's half-sums (passed
+//       through shared memory, first half of K first), scales by exp(cum_i)
+//       and runs intra (L o C B^T) x for two n8 tiles, decaying the scores
+//       as it reads them; the state warps mirror h into shared memory for
+//       the next tile's inter product;
+//     - every product is mma.m16n8k8 in 3xTF32 (tf32x3.cuh), each warp's A
+//       fragment split once a k-step and feeding four (or two) independent
+//       MMA chains, two k-steps a fragment before the fp32 add;
+//     - two __syncthreads a tile, and one barrier among the state warps.
+//   Shared rows are padded so that every fragment load of a warp hits 32
+//   distinct banks (A operands read at a row stride = 4 mod 8 floats, B
+//   operands and the transposed read of B at a stride = 8 mod 16).
+//
+// The decay of the upper triangle (i < j) is exp of a positive number and
+// would overflow: those entries are selected to 0, never multiplied by a
+// mask.  Positions past S take da = 0 and B = C = x = 0, as the TPU kernel
+// pads them, and are not stored.  Each output is written by one thread, the
+// tensor cores sum in a fixed order and there are no atomics: two launches
+// give the same bits.
 #include <cuda_runtime.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr int T = 64;          // positions per tile
 constexpr int NMAX = 128;      // largest state width N
 constexpr int PT = 32;         // columns of P per block
-constexpr int kThreads = 256;
-constexpr int LD = T + 4;      // row stride of the transposed B, C tiles
-constexpr int LDL = T + 1;     // row stride of the score tile
+constexpr int kThreads = 512;      // 16 warps of the scan
+constexpr int kPrepThreads = 256;  // 8 warps of the first pass
+constexpr int SA = NMAX + 4;   // row stride of C (and of B in ssd_prep): A rows
+constexpr int SB = NMAX + 8;   // row stride of B in ssd_scan: read transposed
+constexpr int SL = T + 4;      // row stride of the score tile: A rows
+constexpr int SX = PT + 8;     // row stride of x and h: B rows
 
-struct Smem {
-  float bt[NMAX][LD];  // bt[n][j] = B[t0 + j][n]
-  float ct[NMAX][LD];  // ct[n][i] = C[t0 + i][n]
-  float x[T][PT];      // this block's columns of x
-  float l[T][LDL];     // exp(cum_i - cum_j) * C_i . B_j for j <= i, else 0
-  float h[NMAX][PT];   // state entering the tile
-  float cum[T];        // inclusive sum of da within the tile
-  float w[T];          // exp(cum_last - cum_j)
+struct Stage {
+  float b[T][SB];  // B[t0 + j][n]
+  float c[T][SA];  // C[t0 + i][n]
+  float l[T][SL];  // C_i . B_j (decayed and masked as the intra product reads it)
+  float x[T][SX];  // this block's columns of x
+  float cum[T];    // inclusive sum of da log2 e within the tile
 };
 
-__global__ void __launch_bounds__(kThreads, 2)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ da,
-                const float* __restrict__ b, const float* __restrict__ c,
-                float* __restrict__ y, float* __restrict__ h_out, int S, int P, int N,
-                int heads_per_group) {
+struct Smem {
+  Stage st[2];              // x of a stage becomes its TF32 hi half in phase 1
+  float xlo[T][SX];         // and this its lo half
+  float h[NMAX][SX];        // state entering the tile
+  float red[4][2][2][4][32];  // inter half-sums passed between half-K warps, lane-major
+};
+
+struct PrepSmem {
+  float b[T][SA];
+  float c[T][SA];
+};
+
+using repro::cp_async16;
+using repro::cp_async4;
+
+// Rows [t0, t0 + T) of a (S, N) group into a shared tile of stride LD,
+// columns [0, np), zero past S and past N.  The loops run over NMAX-wide
+// rows (shifts, not divisions) and skip the columns past np.
+template <int LD, int NTHREADS>
+__device__ __forceinline__ void load_rows(float (*dst)[LD], const float* src, int t0, int len,
+                                          int N, int np, bool vec4) {
+  if (vec4) {
+    for (int e = threadIdx.x; e < T * (NMAX / 4); e += NTHREADS) {
+      const int j = e / (NMAX / 4), q = 4 * (e % (NMAX / 4));
+      if (q >= np) continue;
+      const bool ok = j < len && q < N;
+      cp_async16(&dst[j][q], src + (ok ? static_cast<size_t>(t0 + j) * N + q : 0), ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < T * NMAX; e += NTHREADS) {
+      const int j = e / NMAX, q = e % NMAX;
+      if (q >= np) continue;
+      const bool ok = j < len && q < N;
+      cp_async4(&dst[j][q], src + (ok ? static_cast<size_t>(t0 + j) * N + q : 0), ok);
+    }
+  }
+}
+
+// 2^x by the SFU (ex2.approx, about 2^-22 relative): every decay is
+// exp(a) = 2^(a log2 e), with the sums of da kept in log2 units.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Scores and sums of one (tile, group).
+__global__ void __launch_bounds__(kPrepThreads)
+ssd_prep_kernel(const float* __restrict__ da, const float* __restrict__ b,
+                const float* __restrict__ c, float* __restrict__ cb, float* __restrict__ cum,
+                int S, int N, int np, int heads_per_group, int vec4) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int p_base = blockIdx.x * PT;
-  const float* xr = x + static_cast<size_t>(bh) * S * P;
-  const float* dar = da + static_cast<size_t>(bh) * S;
-  const size_t grp = static_cast<size_t>(bh / heads_per_group);
-  const float* br = b + grp * S * N;
-  const float* cr = c + grp * S * N;
-  float* yr = y + static_cast<size_t>(bh) * S * P;
+  PrepSmem& sm = *reinterpret_cast<PrepSmem*>(smem_raw);
+  const int tile = blockIdx.x, n_tiles = gridDim.x;
+  const int grp = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int t0 = tile * T;
+  const int len = min(T, S - t0);
+  const size_t goff = static_cast<size_t>(grp) * S * N;
+  load_rows<SA, kPrepThreads>(sm.b, b + goff, t0, len, N, np, vec4);
+  load_rows<SA, kPrepThreads>(sm.c, c + goff, t0, len, N, np, vec4);
+  repro::cp_async_commit();
 
-  // State ownership: rows sn + 32 r (r < 4), columns sq0 .. sq0 + 3.
-  const int sq0 = 4 * (tid % 8);
-  const int sn = tid / 8;
-  float hreg[4][4];
+  // Inclusive sums of da log2 e, one head a warp at a time, two positions a
+  // lane.
+  const int s_pad = n_tiles * T;
+  for (int hh = warp; hh < heads_per_group; hh += kPrepThreads / 32) {
+    const size_t bh = static_cast<size_t>(grp) * heads_per_group + hh;
+    const float* dar = da + bh * S + t0;
+    const int j0 = 2 * lane;
+    const float d0 = j0 < len ? dar[j0] * kLog2e : 0.f;
+    const float d1 = j0 + 1 < len ? dar[j0 + 1] * kLog2e : 0.f;
+    float s = d0 + d1;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) hreg[r][q] = 0.f;
-  for (int e = tid; e < NMAX * PT; e += kThreads) (&sm.h[0][0])[e] = 0.f;
-
-  for (int t0 = 0; t0 < S; t0 += T) {
-    const int len = min(T, S - t0);
-    // Load the tile: B and C transposed, x's columns, and the cumulative
-    // decay (warp 0: two positions a lane, a fixed shuffle scan).
-    for (int e = tid; e < T * NMAX; e += kThreads) {
-      const int j = e / NMAX, n = e % NMAX;
-      const bool ok = j < len && n < N;
-      const size_t off = static_cast<size_t>(t0 + j) * N + n;
-      sm.bt[n][j] = ok ? br[off] : 0.f;
-      sm.ct[n][j] = ok ? cr[off] : 0.f;
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, s, off);
+      if (lane >= off) s += v;
     }
-    for (int e = tid; e < T * PT; e += kThreads) {
-      const int j = e / PT, q = e % PT;
-      const int p = p_base + q;
-      sm.x[j][q] = (j < len && p < P) ? xr[static_cast<size_t>(t0 + j) * P + p] : 0.f;
-    }
-    if (tid < 32) {
-      const int j0 = 2 * tid;
-      const float d0 = j0 < len ? dar[t0 + j0] : 0.f;
-      const float d1 = j0 + 1 < len ? dar[t0 + j0 + 1] : 0.f;
-      float s = d0 + d1;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, s, off);
-        if (tid >= off) s += v;
-      }
-      float prev = __shfl_up_sync(0xffffffffu, s, 1);
-      if (tid == 0) prev = 0.f;
-      sm.cum[j0] = prev + d0;
-      sm.cum[j0 + 1] = prev + d0 + d1;
-    }
-    __syncthreads();
-
-    const float cum_last = sm.cum[T - 1];  // positions past S add 0
-    if (tid < T) sm.w[tid] = expf(cum_last - sm.cum[tid]);
-
-    // Scores: a 4 x 4 block of (i, j) a thread, blocks above the diagonal
-    // skipped; inside a diagonal block j > i is selected to 0.
-    {
-      const int i0 = 4 * (tid % 16), j0 = 4 * (tid / 16);
-      float acc[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[a][q] = 0.f;
-      if (j0 <= i0) {
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          const float4 cv = *reinterpret_cast<const float4*>(&sm.ct[n][i0]);
-          const float4 bv = *reinterpret_cast<const float4*>(&sm.bt[n][j0]);
-          const float cs[4] = {cv.x, cv.y, cv.z, cv.w};
-          const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[a][q] = fmaf(cs[a], bs[q], acc[a][q]);
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = i0 + a, j = j0 + q;
-          sm.l[i][j] = j <= i ? expf(sm.cum[i] - sm.cum[j]) * acc[a][q] : 0.f;
-        }
-    }
-    __syncthreads();
-
-    // Outputs: rows yi + 32 a (a < 2), columns sq0 .. sq0 + 3.
-    {
-      const int yi = tid / 8;
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int i = yi + 32 * a;
-        float intra[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int j = 0; j <= i; ++j) {
-          const float lv = sm.l[i][j];
-          const float4 xv = *reinterpret_cast<const float4*>(&sm.x[j][sq0]);
-          intra[0] = fmaf(lv, xv.x, intra[0]);
-          intra[1] = fmaf(lv, xv.y, intra[1]);
-          intra[2] = fmaf(lv, xv.z, intra[2]);
-          intra[3] = fmaf(lv, xv.w, intra[3]);
-        }
-        float inter[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          const float cv = sm.ct[n][i];
-          const float4 hv = *reinterpret_cast<const float4*>(&sm.h[n][sq0]);
-          inter[0] = fmaf(cv, hv.x, inter[0]);
-          inter[1] = fmaf(cv, hv.y, inter[1]);
-          inter[2] = fmaf(cv, hv.z, inter[2]);
-          inter[3] = fmaf(cv, hv.w, inter[3]);
-        }
-        if (i < len) {
-          const float decay = expf(sm.cum[i]);
-          float* out = yr + static_cast<size_t>(t0 + i) * P + p_base + sq0;
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (p_base + sq0 + q < P) out[q] = intra[q] + decay * inter[q];
-        }
-      }
-    }
-
-    // Carry: h <- exp(cum_last) h + sum_j w_j B_j^T x_j, in registers.
-    {
-      const float chunk_decay = expf(cum_last);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) hreg[r][q] *= chunk_decay;
-      for (int j = 0; j < len; ++j) {
-        const float wj = sm.w[j];
-        const float4 xv = *reinterpret_cast<const float4*>(&sm.x[j][sq0]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float bw = sm.bt[sn + 32 * r][j] * wj;
-          hreg[r][0] = fmaf(bw, xv.x, hreg[r][0]);
-          hreg[r][1] = fmaf(bw, xv.y, hreg[r][1]);
-          hreg[r][2] = fmaf(bw, xv.z, hreg[r][2]);
-          hreg[r][3] = fmaf(bw, xv.w, hreg[r][3]);
-        }
-      }
-    }
-    __syncthreads();  // every read of this tile's shared memory is done
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sm.h[sn + 32 * r][sq0 + q] = hreg[r][q];
+    float prev = __shfl_up_sync(0xffffffffu, s, 1);
+    if (lane == 0) prev = 0.f;
+    float* out = cum + bh * s_pad + t0;
+    out[j0] = prev + d0;
+    out[j0 + 1] = prev + d0 + d1;
   }
 
-  if (h_out != nullptr) {
-    float* hr = h_out + static_cast<size_t>(bh) * N * P;
+  repro::cp_async_wait<0>();
+  __syncthreads();
+  // C B^T: warp w owns rows 16 (w % 4) .. + 16, columns 32 (w / 4) .. + 32.
+  const int i0 = 16 * (warp & 3);
+  const int jb = 32 * (warp >> 2);
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < np; k0 += 8) {
+    const float av[4] = {sm.c[i0 + gq][k0 + tq], sm.c[i0 + gq + 8][k0 + tq],
+                         sm.c[i0 + gq][k0 + tq + 4], sm.c[i0 + gq + 8][k0 + tq + 4]};
+    uint32_t ah[4], al[4];
+    repro::split_a(av, ah, al);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int n = sn + 32 * r;
+    for (int q = 0; q < 4; ++q) {
+      const int j = jb + 8 * q + gq;
+      uint32_t bh[2], bl[2];
+      repro::split_b(sm.b[j][k0 + tq], sm.b[j][k0 + tq + 4], bh, bl);
+      repro::mma_3xtf32(acc[q], ah, al, bh, bl);
+    }
+  }
+  float* out = cb + (static_cast<size_t>(grp) * n_tiles + tile) * T * T;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = jb + 8 * q + 2 * tq;
+    *reinterpret_cast<float2*>(out + (i0 + gq) * T + j) = make_float2(acc[q][0], acc[q][1]);
+    *reinterpret_cast<float2*>(out + (i0 + gq + 8) * T + j) = make_float2(acc[q][2], acc[q][3]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ b,
+                const float* __restrict__ c, const float* __restrict__ cb,
+                const float* __restrict__ cum, float* __restrict__ y,
+                float* __restrict__ h_out, int S, int P, int N, int np, int heads_per_group,
+                int n_tiles, int vec4) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.y;
+  const int p_base = blockIdx.x * PT;
+  const int grp = bh / heads_per_group;
+  const float* xr = x + static_cast<size_t>(bh) * S * P;
+  const float* br = b + static_cast<size_t>(grp) * S * N;
+  const float* cr = c + static_cast<size_t>(grp) * S * N;
+  const float* cbr = cb + static_cast<size_t>(grp) * n_tiles * T * T;
+  const float* cumr = cum + static_cast<size_t>(bh) * n_tiles * T;
+  float* yr = y + static_cast<size_t>(bh) * S * P;
+
+  auto load = [&](int it) {
+    Stage& st = sm.st[it & 1];
+    const int t0 = it * T;
+    const int len = min(T, S - t0);
+    load_rows<SB, kThreads>(st.b, br, t0, len, N, np, vec4);
+    load_rows<SA, kThreads>(st.c, cr, t0, len, N, np, vec4);
+    if (vec4) {
+      for (int e = tid; e < T * (PT / 4); e += kThreads) {
+        const int j = e / (PT / 4), q = 4 * (e % (PT / 4));
+        const bool ok = j < len && p_base + q < P;
+        cp_async16(&st.x[j][q], xr + (ok ? static_cast<size_t>(t0 + j) * P + p_base + q : 0),
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < T * PT; e += kThreads) {
+        const int j = e / PT, q = e % PT;
+        const bool ok = j < len && p_base + q < P;
+        cp_async4(&st.x[j][q], xr + (ok ? static_cast<size_t>(t0 + j) * P + p_base + q : 0),
+                  ok);
+      }
+    }
+    const float* cbt = cbr + static_cast<size_t>(it) * T * T;
+    for (int e = tid; e < T * (T / 4); e += kThreads) {
+      const int i = e / (T / 4), q = 4 * (e % (T / 4));
+      cp_async16(&st.l[i][q], cbt + i * T + q);
+    }
+    if (tid < T / 4) cp_async16(&st.cum[4 * tid], cumr + t0 + 4 * tid);
+    repro::cp_async_commit();
+  };
+
+  // Warps 0-7 ("output"): m16 rows i0 = 16 (w % 4) of y and all four n8
+  // tiles of the block's columns; inter over half of K (kh = w / 4), the
+  // halves added in phase 2 by the kh = 0 warp, which then runs intra and
+  // stores y.  Warps 8-15 ("state"): state rows n0 = 16 (w - 8) (live below
+  // np) and all four n8 tiles; they split x and run the carry.  Each warp's
+  // A fragment is split once a k-step and feeds four independent MMA chains.
+  const bool out_warp = warp < 8;
+  const int mt = warp & 3, kh = (warp >> 2) & 1;
+  const int i0 = 16 * mt;
+  const int n0 = 16 * (warp - 8);
+  const bool owns_state = !out_warp && n0 < np;
+  float hacc[4][4] = {};
+  for (int e = tid; e < NMAX * SX; e += kThreads) (&sm.h[0][0])[e] = 0.f;
+  load(0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    repro::cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; h of the previous tile is in sm.h
+    if (it + 1 < n_tiles) load(it + 1);  // its stage was last read by tile it - 1
+    Stage& st = sm.st[it & 1];
+    const int t0 = it * T;
+    const int len = min(T, S - t0);
+    const float cum_last = st.cum[T - 1];  // positions past S add 0
+
+    // Phase 1: the output warps form inter C h from the state entering the
+    // tile (sm.h), the state warps the carry into their registers (sm.h
+    // receives it only after the barrier below).  Two k-steps share a
+    // fragment before it is added in fp32 (tf32x3.cuh).
+    float yacc[4][4] = {};
+    if (out_warp) {
+      const int kb = kh * (np / 2);
+      for (int k0 = kb; k0 < kb + np / 2; k0 += 16) {
+        float t2[4][4] = {};
+#pragma unroll
+        for (int kk = k0; kk < k0 + 16; kk += 8) {
+          const float av[4] = {st.c[i0 + gq][kk + tq], st.c[i0 + gq + 8][kk + tq],
+                               st.c[i0 + gq][kk + tq + 4], st.c[i0 + gq + 8][kk + tq + 4]};
+          uint32_t ah[4], al[4];
+          repro::split_a(av, ah, al);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            uint32_t bh_[2], bl_[2];
+            repro::split_b(sm.h[kk + tq][8 * q + gq], sm.h[kk + tq + 4][8 * q + gq], bh_, bl_);
+            repro::mma_3xtf32_into(t2[q], ah, al, bh_, bl_);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) yacc[q][e] += t2[q][e];
+      }
+      // Hand the other half-K warp the n8 tiles it finishes: kh = 0 keeps
+      // tiles 0, 1 and passes 2, 3; kh = 1 the other way round.
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // constant indices keep yacc in registers
+          sm.red[mt][kh][q][e][lane] = kh == 0 ? yacc[2 + q][e] : yacc[q][e];
+    } else {
+      for (int e = tid - kThreads / 2; e < T * PT; e += kThreads / 2) {
+        const int j = e / PT, q = e % PT;
+        uint32_t hi, lo;
+        repro::split_tf32(st.x[j][q], hi, lo);
+        st.x[j][q] = __uint_as_float(hi);
+        sm.xlo[j][q] = __uint_as_float(lo);
+      }
+      asm volatile("bar.sync 1, %0;" ::"n"(kThreads / 2) : "memory");  // the state warps' x split
+      if (owns_state) {
+        const float chunk_decay = exp2_approx(cum_last);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hacc[q][e] *= chunk_decay;
+        for (int k0 = 0; k0 < T; k0 += 16) {
+          float t2[4][4] = {};
+#pragma unroll
+          for (int kk = k0; kk < k0 + 16; kk += 8) {
+            const float w0 = exp2_approx(cum_last - st.cum[kk + tq]);
+            const float w4 = exp2_approx(cum_last - st.cum[kk + tq + 4]);
+            const float av[4] = {st.b[kk + tq][n0 + gq] * w0, st.b[kk + tq][n0 + gq + 8] * w0,
+                                 st.b[kk + tq + 4][n0 + gq] * w4,
+                                 st.b[kk + tq + 4][n0 + gq + 8] * w4};
+            uint32_t ah[4], al[4];
+            repro::split_a(av, ah, al);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int col = 8 * q + gq;
+              const uint32_t bh_[2] = {__float_as_uint(st.x[kk + tq][col]),
+                                       __float_as_uint(st.x[kk + tq + 4][col])};
+              const uint32_t bl_[2] = {__float_as_uint(sm.xlo[kk + tq][col]),
+                                       __float_as_uint(sm.xlo[kk + tq + 4][col])};
+              repro::mma_3xtf32_into(t2[q], ah, al, bh_, bl_);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) hacc[q][e] += t2[q][e];
+        }
+      }
+    }
+    __syncthreads();  // x split, inter halves in sm.red, every read of sm.h done
+
+    // Phase 2: y = exp(cum_i) C h + (L o C B^T) x by the output warps, n8
+    // tiles 2 kh and 2 kh + 1 each, the scores decayed as their fragments are
+    // read (j > i selected to 0); the new state into sm.h by the state warps.
+    if (out_warp) {
+      const float c0 = st.cum[i0 + gq], c8 = st.cum[i0 + gq + 8];
+      const float d0 = exp2_approx(c0), d8 = exp2_approx(c8);
+      float ya[2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float* other = &sm.red[mt][1 - kh][q][0][lane];
+        ya[q][0] = (kh == 0 ? yacc[q][0] + other[0] : other[0] + yacc[2 + q][0]) * d0;
+        ya[q][1] = (kh == 0 ? yacc[q][1] + other[32] : other[32] + yacc[2 + q][1]) * d0;
+        ya[q][2] = (kh == 0 ? yacc[q][2] + other[64] : other[64] + yacc[2 + q][2]) * d8;
+        ya[q][3] = (kh == 0 ? yacc[q][3] + other[96] : other[96] + yacc[2 + q][3]) * d8;
+      }
+      const int r0 = i0 + gq, r8 = r0 + 8;
+      for (int k0 = 0; k0 < i0 + 16; k0 += 16) {  // column blocks past the diagonal are 0
+        float t2[2][4] = {};
+#pragma unroll
+        for (int kk = k0; kk < k0 + 16; kk += 8) {
+          const int j0 = kk + tq, j4 = j0 + 4;
+          const float e0 = st.cum[j0], e4 = st.cum[j4];
+          const float av[4] = {j0 <= r0 ? exp2_approx(c0 - e0) * st.l[r0][j0] : 0.f,
+                               j0 <= r8 ? exp2_approx(c8 - e0) * st.l[r8][j0] : 0.f,
+                               j4 <= r0 ? exp2_approx(c0 - e4) * st.l[r0][j4] : 0.f,
+                               j4 <= r8 ? exp2_approx(c8 - e4) * st.l[r8][j4] : 0.f};
+          uint32_t ah[4], al[4];
+          repro::split_a(av, ah, al);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int col = 8 * (2 * kh + q) + gq;
+            const uint32_t bh_[2] = {__float_as_uint(st.x[kk + tq][col]),
+                                     __float_as_uint(st.x[kk + tq + 4][col])};
+            const uint32_t bl_[2] = {__float_as_uint(sm.xlo[kk + tq][col]),
+                                     __float_as_uint(sm.xlo[kk + tq + 4][col])};
+            repro::mma_3xtf32_into(t2[q], ah, al, bh_, bl_);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ya[q][e] += t2[q][e];
+      }
+      // Each store instruction writes whole 32-byte sectors: 8 rows x 4 lanes
+      // x 8 bytes (float2 where P is even, which vec4 promises).
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int p = p_base + 8 * (2 * kh + q) + 2 * tq;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = i0 + gq + 8 * hf;
+          if (i < len) {
+            float* out = yr + static_cast<size_t>(t0 + i) * P + p;
+            if (vec4 && p < P) {
+              *reinterpret_cast<float2*>(out) = make_float2(ya[q][2 * hf], ya[q][2 * hf + 1]);
+            } else {
+              if (p < P) out[0] = ya[q][2 * hf];
+              if (p + 1 < P) out[1] = ya[q][2 * hf + 1];
+            }
+          }
+        }
+      }
+    } else if (owns_state) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int p = p_base + sq0 + q;
-        if (n < N && p < P) hr[static_cast<size_t>(n) * P + p] = hreg[r][q];
+        const int col = 8 * q + 2 * tq;
+        *reinterpret_cast<float2*>(&sm.h[n0 + gq][col]) = make_float2(hacc[q][0], hacc[q][1]);
+        *reinterpret_cast<float2*>(&sm.h[n0 + gq + 8][col]) = make_float2(hacc[q][2], hacc[q][3]);
+      }
+    }
+  }
+
+  if (h_out != nullptr && owns_state) {
+    float* hr = h_out + static_cast<size_t>(bh) * N * P;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = p_base + 8 * q + 2 * tq;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int n = n0 + gq + 8 * hf;
+        if (n < N) {
+          if (p < P) hr[static_cast<size_t>(n) * P + p] = hacc[q][2 * hf];
+          if (p + 1 < P) hr[static_cast<size_t>(n) * P + p + 1] = hacc[q][2 * hf + 1];
+        }
       }
     }
   }
@@ -238,23 +452,45 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ da,
 
 extern "C" {
 
-// Launches the kernel on `stream`; returns the launch's cudaError_t.  x, y
+// Scratch floats the launch needs: scores (G, tiles, 64, 64) then sums
+// (BH, tiles * 64).
+long long repro_ssd_scan_scratch(int BH, int S, int G) {
+  const long long tiles = (S + T - 1) / T;
+  return tiles * T * (static_cast<long long>(G) * T + BH);
+}
+
+// Launches both kernels on `stream`; returns the launch's cudaError_t.  x, y
 // (BH, S, P), da (BH, S), b, c (BH / heads_per_group, S, N), h_out
-// (BH, N, P) or null; all contiguous float32.
+// (BH, N, P) or null, scratch as repro_ssd_scan_scratch says; all contiguous
+// float32; S >= 1.  vec4 != 0 promises N and P multiples of 4 and 16-byte aligned x, b, c.
 int repro_ssd_scan(const void* x, const void* da, const void* b, const void* c, void* y,
-                   void* h_out, int BH, int S, int P, int N, int heads_per_group,
-                   void* stream) {
-  if (BH < 1 || BH > 65535 || S < 0 || P < 1 || N < 1 || N > NMAX || heads_per_group < 1)
+                   void* h_out, void* scratch, int BH, int S, int P, int N,
+                   int heads_per_group, int vec4, void* stream) {
+  if (BH < 1 || BH > 65535 || S < 1 || P < 1 || N < 1 || N > NMAX || heads_per_group < 1 ||
+      BH % heads_per_group)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (S + T - 1) / T;
+  const int G = BH / heads_per_group;
+  const int np = (N + 31) / 32 * 32;  // two halves of whole k-step pairs
+  float* cb = static_cast<float*>(scratch);
+  float* cum = cb + static_cast<size_t>(G) * n_tiles * T * T;
+  const int psmem = static_cast<int>(sizeof(PrepSmem));
+  cudaError_t err = cudaFuncSetAttribute(ssd_prep_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, psmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((P + PT - 1) / PT, BH);
-  ssd_scan_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(da),
-      static_cast<const float*>(b), static_cast<const float*>(c), static_cast<float*>(y),
-      static_cast<float*>(h_out), S, P, N, heads_per_group);
+  ssd_prep_kernel<<<dim3(n_tiles, G), kPrepThreads, psmem, st>>>(
+      static_cast<const float*>(da), static_cast<const float*>(b), static_cast<const float*>(c),
+      cb, cum, S, N, np, heads_per_group, vec4);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = static_cast<int>(sizeof(Smem));
+  err = cudaFuncSetAttribute(ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_scan_kernel<<<dim3((P + PT - 1) / PT, BH), kThreads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(b), static_cast<const float*>(c),
+      cb, cum, static_cast<float*>(y), static_cast<float*>(h_out), S, P, N, np,
+      heads_per_group, n_tiles, vec4);
   return static_cast<int>(cudaGetLastError());
 }
 

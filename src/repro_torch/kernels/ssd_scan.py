@@ -5,7 +5,10 @@ the selective-state recurrence h_t = exp(da_t) h_{t-1} + B_t^T x_t,
 y_t = C_t h_t over (BH, S) rows, in the chunked dual form (intra-chunk
 ``(L o C B^T) x`` plus the carried state).  The kernel
 (``csrc/ssd_scan.cu``) also writes the final state, which prefill hands to
-decode; see the source note for its tiling.
+decode.  A first pass writes each group's C B^T score tiles and the
+in-tile sums of da once; the scan runs its three products on the tensor
+cores in 3xTF32 (fp32-level accuracy, never a single TF32 pass) with h in
+the accumulator fragments; see the source note for its tiling.
 """
 from __future__ import annotations
 
@@ -20,11 +23,20 @@ _I = ctypes.c_int
 
 #: Largest state width N the kernel is built for.
 MAX_STATE = 128
+#: Positions per tile (``csrc/ssd_scan.cu``).
+TILE = 64
+
+
+def scratch_floats(bh: int, s: int, groups: int) -> int:
+    """Scratch of one call, in floats: the (G, tiles, 64, 64) score tiles
+    and the (BH, tiles * 64) in-tile sums of da."""
+    tiles = -(-s // TILE)
+    return tiles * TILE * (groups * TILE + bh)
 
 
 def _lib():
     lib = backend.load_library("ssd_scan")
-    lib.repro_ssd_scan.argtypes = [_C] * 6 + [_I] * 5 + [_C]
+    lib.repro_ssd_scan.argtypes = [_C] * 7 + [_I] * 6 + [_C]
     lib.repro_ssd_scan.restype = _I
     return lib
 
@@ -71,16 +83,22 @@ def ssd_scan(x, da, b, c, *, chunk: int = 256, return_state: bool = False):
     if n > MAX_STATE or bh > 65535 or x.numel() >= 2**31 or b.numel() >= 2**31:
         raise ValueError(f"ssd_scan: (BH, S, P, N) = {(bh, s, p, n)} exceeds the kernel")
     y = torch.empty_like(x)
-    h = torch.zeros((bh, n, p), dtype=torch.float32, device=x.device) if return_state else None
-    if p == 0 or n == 0:
-        if s:
-            y.zero_()
+    empty = p == 0 or n == 0 or s == 0  # nothing to scan: y is zero or empty, h zero
+    h = None
+    if return_state:  # the kernel writes every entry of h
+        h = (torch.zeros if empty else torch.empty)((bh, n, p), dtype=torch.float32,
+                                                     device=x.device)
+    if empty:
+        y.zero_()
         return (y, h) if return_state else y
+    scratch = torch.empty((scratch_floats(bh, s, b.shape[0]),), dtype=torch.float32,
+                          device=x.device)
+    vec4 = n % 4 == 0 and p % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, b, c))
     with torch.cuda.device(x.device):
         err = _lib().repro_ssd_scan(
             x.data_ptr(), da.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-            None if h is None else h.data_ptr(), bh, s, p, n, bh // b.shape[0],
-            backend.stream_ptr(x),
+            None if h is None else h.data_ptr(), scratch.data_ptr(), bh, s, p, n,
+            bh // b.shape[0], int(vec4), backend.stream_ptr(x),
         )
     backend.check_launch(err, "ssd_scan")
     ssd_scan.launches += 1

@@ -18,8 +18,11 @@ tall (B, vec, d2) bucket:
 The kernel (``csrc/subspace_apply.cu``) is bound by device-memory bytes —
 six bucket tensors plus P and G' — and keeps X and X' in shared memory; the
 Gram and residual partials of its row groups are summed in group order by a
-second pass (no float atomics; see the source note).  Both products are
-full fp32 FMA, never TF32.
+second pass (no float atomics; see the source note).  ``route`` says which
+of its two routes a cohort width takes: for 1 <= d2 <= 128 both products
+run on the tensor cores in 3xTF32 (three TF32 passes over a hi/lo split,
+fp32-level accuracy, never a single TF32 pass) with a cp.async ring of
+64-row tiles; wider cohorts keep the fp32 FMA route.
 
 ``subspace_apply_factored`` replaces the Pallas TPU kernel
 ``src/repro/kernels/svt_subspace.py::subspace_apply_factored``: the tail of
@@ -54,13 +57,58 @@ TARGET_BLOCKS = 4 * 132
 SCRATCH_FLOATS = 1 << 26
 #: Elements of M a block of the factored kernel walks (16 per thread).
 FACTORED_TILE_ELEMS = 4096
+#: Widest cohort of the tensor route, and the padded widths it is built for.
+TC_MAX_D2 = 128
+TC_WIDTHS = (8, 16, 32, 48, 64, 96, 128)
+#: Shared memory of one H100 SM and of one block, in bytes, and the SM count
+#: the tensor route's row groups are sized for (fixed, so a launch's
+#: partition, and its bits, do not depend on the card it runs on).
+SM_SMEM_BYTES = 233472
+BLOCK_SMEM_BYTES = 232448
+SM_COUNT = 132
 
 
 def _lib():
     lib = backend.load_library("subspace_apply")
     lib.repro_subspace_apply.argtypes = [_C] * 15 + [_I] * 7 + [_C]
     lib.repro_subspace_apply.restype = _I
+    lib.repro_subspace_apply_tc.argtypes = [_C] * 15 + [_I] * 7 + [_C]
+    lib.repro_subspace_apply_tc.restype = _I
     return lib
+
+
+def route(d2: int) -> str:
+    """The kernel route for cohort width ``d2``: ``"tensor"`` (1 <= d2 <=
+    ``TC_MAX_D2``: both products on the tensor cores in 3xTF32) or
+    ``"scalar"`` (wider: fp32 FMA).  The shape alone decides."""
+    if d2 < 1:
+        raise ValueError(f"subspace_apply: cohort width {d2} < 1")
+    return "tensor" if d2 <= TC_MAX_D2 else "scalar"
+
+
+def tc_tiling(n_modules: int, vec: int, d2: int) -> dict:
+    """Launch geometry of the tensor route: the padded width ``dn``, rows
+    per tile, shared bytes of one block, blocks an SM, rows per group and
+    the number of row groups (one block per group and module).  Groups are
+    sized so that all blocks of a launch are resident in one wave where the
+    module count allows it.  Mirrors ``csrc/subspace_apply.cu``'s
+    ``TcGeo`` and ``tc_smem_floats``."""
+    if route(d2) != "tensor":
+        raise ValueError(f"subspace_apply: d2={d2} is past the tensor route")
+    dn = next(w for w in TC_WIDTHS if w >= d2)
+    rows = 64 if dn <= 64 else 32
+    dm = -(-dn // 16) * 16
+    sw, sx = dm + 8, dn + 4
+    p_copies = 2 if dn <= 64 else 1  # P's TF32 hi and lo halves, or P
+    smem = 4 * (6 * rows * d2 + p_copies * dn * sw + rows * sx + rows * sw + dn)
+    per_sm = min(2 if dn <= 48 else 1, SM_SMEM_BYTES // (smem + 1024))
+    n_tiles = -(-vec // rows)
+    cap = max(1, SCRATCH_FLOATS // max(1, n_modules * d2 * d2))
+    n_groups = max(1, min(n_tiles, cap, SM_COUNT * per_sm // max(n_modules, 1)))
+    group_rows = -(-n_tiles // n_groups) * rows
+    n_groups = -(-vec // group_rows)
+    return dict(dn=dn, tile_rows=rows, smem=smem, blocks_per_sm=per_sm,
+                group_rows=group_rows, n_groups=n_groups)
 
 
 def _factored_lib():
@@ -126,7 +174,8 @@ def subspace_apply(
     float32.
 
     CPU tensors compute ``ref.svt_subspace_apply_ref``.  CUDA tensors must
-    be contiguous float32 on one device, and launch the kernel.
+    be contiguous float32 on one device, and launch the kernel by
+    ``route``.
     """
     _check(m, s, y, p, rho, mu, thresh, mask)
     if not backend.use_kernel(m):
@@ -147,26 +196,38 @@ def subspace_apply(
     g_out = torch.empty((b, d2, d2), dtype=torch.float32, device=m.device)
     if m.numel() == 0:
         return l_out, s_out, y_out, rsq.zero_(), g_out.zero_()
-    geo = tiling(b, vec, d2)
+    tensor = route(d2) == "tensor"
+    geo = tc_tiling(b, vec, d2) if tensor else tiling(b, vec, d2)
     mvec = torch.ones((d2,), dtype=torch.float32, device=m.device) if mask is None else mask
     r_part = torch.empty((b, geo["n_groups"]), dtype=torch.float32, device=m.device)
     g_part = torch.empty((b, geo["n_groups"], d2, d2), dtype=torch.float32, device=m.device)
-    lib = _lib()
-    with torch.cuda.device(m.device):
-        err = lib.repro_subspace_apply(
-            m.data_ptr(), s.data_ptr(), y.data_ptr(), p.data_ptr(), rho.data_ptr(),
+    ptrs = (m.data_ptr(), s.data_ptr(), y.data_ptr(), p.data_ptr(), rho.data_ptr(),
             mu.data_ptr(), thresh.data_ptr(), mvec.data_ptr(), l_out.data_ptr(),
             s_out.data_ptr(), y_out.data_ptr(), r_part.data_ptr(), g_part.data_ptr(),
-            rsq.data_ptr(), g_out.data_ptr(), b, vec, d2, geo["tile_rows"],
-            geo["pcols"], geo["group_rows"], geo["n_groups"], backend.stream_ptr(m),
-        )
+            rsq.data_ptr(), g_out.data_ptr())
+    lib = _lib()
+    with torch.cuda.device(m.device):
+        if tensor:
+            vec4 = (vec * d2) % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (m, s, y))
+            err = lib.repro_subspace_apply_tc(
+                *ptrs, b, vec, d2, geo["dn"], geo["group_rows"], geo["n_groups"], int(vec4),
+                backend.stream_ptr(m),
+            )
+        else:
+            err = lib.repro_subspace_apply(
+                *ptrs, b, vec, d2, geo["tile_rows"], geo["pcols"], geo["group_rows"],
+                geo["n_groups"], backend.stream_ptr(m),
+            )
     backend.check_launch(err, "subspace_apply")
     subspace_apply.launches += 1
+    subspace_apply.tc_launches += int(tensor)
     return l_out, s_out, y_out, rsq, g_out
 
 
-#: Kernel launches since the count was last set to 0 (plain version excluded).
+#: Kernel launches since the count was last set to 0 (plain version
+#: excluded), and those of them on the tensor route.
 subspace_apply.launches = 0
+subspace_apply.tc_launches = 0
 
 
 def factored_tiling(vec: int, d2: int, r: int) -> dict:

@@ -69,13 +69,29 @@ def test_admm_tail_kernel_matches_plain(cuda, d2, n_valid):
         assert not bool(got[0][..., n_valid:].any()) and not bool(got[1][..., n_valid:].any())
 
 
+# (B, vec, d2, n_valid): the tail shapes above on 3 x 1000 buckets; path B's
+# main shapes (40 dense; 32 with 20 live); path A's; every padded width class
+# of the tensor route; and d2 = 130 on the scalar route.
+SUBSPACE_SHAPES = [(3, 1000, d2, n_valid) for d2, n_valid in SHAPES] + [
+    (48, 4096, 40, None), (48, 4096, 32, 20), (2, 4096, 20, None), (3, 1000, 8, 5),
+    (3, 1000, 20, None), (3, 1000, 64, None), (3, 1000, 128, 100), (3, 999, 7, None)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d2,n_valid", SHAPES)
-def test_subspace_apply_kernel_matches_plain(cuda, d2, n_valid):
-    x = inputs(1, 3, 1000, d2, n_valid, cuda)
+@pytest.mark.parametrize("b,vec,d2,n_valid", SUBSPACE_SHAPES)
+def test_subspace_apply_kernel_matches_plain(cuda, b, vec, d2, n_valid):
+    """Each launch takes the route ``route(d2)`` names (``.tc_launches``);
+    both routes hold the plain version's tolerances, two launches give the
+    same bits, ``mask=None`` the bits of an all-ones mask."""
+    x = inputs(1, b, vec, d2, n_valid, cuda)
     args = (x["m"], x["s"], x["y"], x["p"], x["rho"], x["mu"], x["th"])
-    got = svt_subspace.subspace_apply(*args, mask=x["mask"])
-    again = svt_subspace.subspace_apply(*args, mask=x["mask"])
+    fn = svt_subspace.subspace_apply
+    before = (fn.launches, fn.tc_launches)
+    got = fn(*args, mask=x["mask"])
+    again = fn(*args, mask=x["mask"])
+    tensor = svt_subspace.route(d2) == "tensor"
+    assert (fn.launches - before[0], fn.tc_launches - before[1]) == (2, 2 if tensor else 0)
+    assert tensor == (d2 <= 128)
     want = ref.svt_subspace_apply_ref(*args, mask=x["mask"])
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     for g, w in zip(got[:3], want[:3]):
@@ -83,7 +99,7 @@ def test_subspace_apply_kernel_matches_plain(cuda, d2, n_valid):
     for g, w in zip(got[3:], want[3:]):
         assert_sums_close(g, w)
     if x["mask"] is None:
-        ones = svt_subspace.subspace_apply(*args, mask=torch.ones(d2, device=cuda))
+        ones = fn(*args, mask=torch.ones(d2, device=cuda))
         assert all(torch.equal(a, b) for a, b in zip(got, ones))
     else:
         assert not bool(got[1][..., n_valid:].any()) and not bool(got[2][..., n_valid:].any())
@@ -252,22 +268,23 @@ def test_lora_kernels_match_plain(cuda, dtype, m, k, n, r):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,s,d,window", [(256, 512, 64, 0), (256, 300, 64, 0),
-                                           (256, 512, 64, 128), (7, 45, 32, 0), (3, 70, 32, 9),
-                                           (64, 300, 32, 128)])
-def test_local_attention_kernel_matches_plain(cuda, dtype, bh, s, d, window):
-    """bf16 on the tensor route, float32 on the scalar one."""
+@pytest.mark.parametrize("bh,s,d,window,causal", [
+    (256, 512, 64, 0, True), (256, 300, 64, 0, True), (256, 512, 64, 128, True),
+    (7, 45, 32, 0, True), (3, 70, 32, 9, True), (64, 300, 32, 128, True),
+    (256, 512, 64, 0, False)])
+def test_local_attention_kernel_matches_plain(cuda, dtype, bh, s, d, window, causal):
+    """bf16 on the tensor route, float32 on the scalar one; causal and not."""
     from repro_torch.kernels import local_attention as la
 
     g = torch.Generator().manual_seed(s + window)
     q, k, v = (torch.randn((bh, s, d), generator=g).to(cuda, dtype) for _ in range(3))
     before = route_counts(la.local_attention)
-    got = la.local_attention(q, k, v, window=window)
-    assert torch.equal(got, la.local_attention(q, k, v, window=window))
+    got = la.local_attention(q, k, v, window=window, causal=causal)
+    assert torch.equal(got, la.local_attention(q, k, v, window=window, causal=causal))
     after = route_counts(la.local_attention)
     assert (after[0] - before[0], after[1] - before[1]) == (
         (2, 0) if dtype == torch.bfloat16 else (0, 2))
-    want = ref.local_attention_ref(q, k, v, window=window)
+    want = ref.local_attention_ref(q, k, v, window=window, causal=causal)
     # float32: online vs materialized softmax; bf16: one ulp of the largest output.
     tol = 2e-5 if dtype == torch.float32 else 2.0**-7 * float(want.float().abs().max())
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
@@ -313,19 +330,33 @@ def test_reduced_serving_card_matches_cpu(cuda):
 # ssd_scan: the kernel sums each 64-position tile where the plain version
 # steps position by position; held to 1e-4 of the largest output or state
 # entry (fp32 sums of up to S * N products, exp of cumulative decays).
-@pytest.mark.gpu
-@pytest.mark.parametrize("bsz,heads,s,p,n,decay", [
+# (batch, heads per group, S, P, N, decay): path D's prefill and smaller
+# cases; S across the tile edges; P across the 32-column blocks (40: a
+# ragged second block); N below the state's 16-row tiles (100) and at the
+# widest (128); one and 24 heads a group; odd P and N (4-byte copies).
+SSD_SHAPES = [
     (8, 24, 512, 64, 128, 1.0), (8, 24, 300, 64, 128, 1e-3), (2, 3, 70, 40, 100, 1e-3),
-    (2, 4, 33, 16, 32, 0.5), (1, 2, 0, 16, 32, 0.5)])
+    (2, 4, 33, 16, 32, 0.5), (1, 2, 0, 16, 32, 0.5),
+    (2, 3, 1, 64, 128, 0.5), (2, 3, 63, 64, 128, 0.5), (2, 3, 64, 64, 128, 0.5),
+    (2, 3, 65, 64, 128, 0.5), (2, 3, 512, 64, 128, 0.5), (2, 3, 130, 16, 128, 0.5),
+    (2, 3, 130, 40, 128, 0.5), (2, 3, 130, 64, 32, 0.5), (2, 3, 130, 64, 100, 0.5),
+    (4, 1, 200, 64, 128, 0.5), (2, 24, 200, 64, 128, 0.5), (1, 2, 70, 7, 33, 0.5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz,heads,s,p,n,decay", SSD_SHAPES)
 def test_ssd_scan_kernel_matches_plain(cuda, bsz, heads, s, p, n, decay):
+    """One launch a call (none for an empty scan), two launches bit for bit."""
     from repro_torch.kernels import ssd_scan
 
     g = torch.Generator().manual_seed(s + p + n)
     x = torch.randn((bsz * heads, s, p), generator=g).to(cuda)
     da = (-decay * torch.rand((bsz * heads, s), generator=g)).to(cuda)
     b, c = (torch.randn((bsz, s, n), generator=g).to(cuda) for _ in range(2))
+    before = ssd_scan.ssd_scan.launches
     got = ssd_scan.ssd_scan(x, da, b, c, return_state=True)
     again = ssd_scan.ssd_scan(x, da, b, c, return_state=True)
+    assert ssd_scan.ssd_scan.launches - before == (2 if s else 0)
     want = ref.ssd_scan_ref(x, da, b, c, return_state=True)
     for u, v, w in zip(got, again, want):
         assert torch.equal(u, v)

@@ -156,3 +156,56 @@ def test_subspace_tiling_fits_shared_memory(d2):
     assert (geo["n_groups"] - 1) * geo["group_rows"] < 4096 <= geo["n_groups"] * geo["group_rows"]
     if d2 <= 128:
         assert geo["pcols"] == d2
+
+
+@pytest.mark.parametrize("d2,route", [(1, "tensor"), (40, "tensor"), (128, "tensor"),
+                                      (129, "scalar"), (130, "scalar"), (1024, "scalar")])
+def test_subspace_route_edges(d2, route):
+    """The shape alone picks the route: the tensor cores up to d2 = 128."""
+    assert svt_subspace.route(d2) == route
+
+
+def test_subspace_route_refuses_an_empty_cohort():
+    with pytest.raises(ValueError, match="cohort width"):
+        svt_subspace.route(0)
+
+
+@pytest.mark.parametrize("b", [2, 48, 600])
+@pytest.mark.parametrize("d2", [1, 3, 8, 20, 32, 40, 64, 100, 128])
+def test_subspace_tc_tiling_fits_and_covers(b, d2):
+    """The tensor route's geometry: a padded width the kernel is built for,
+    shared memory within one block's and (at two blocks an SM) one SM's
+    budget, every row covered by whole groups of whole tiles, and no more
+    blocks than fit the card at once unless the modules alone exceed it."""
+    geo = svt_subspace.tc_tiling(b, 4096, d2)
+    assert geo["dn"] in svt_subspace.TC_WIDTHS and geo["dn"] >= d2
+    assert geo["dn"] - d2 < 16 or geo["dn"] > 64
+    assert geo["smem"] <= svt_subspace.BLOCK_SMEM_BYTES
+    assert geo["blocks_per_sm"] >= 1
+    assert geo["blocks_per_sm"] * (geo["smem"] + 1024) <= svt_subspace.SM_SMEM_BYTES
+    assert geo["group_rows"] % geo["tile_rows"] == 0
+    assert (geo["n_groups"] - 1) * geo["group_rows"] < 4096 <= geo["n_groups"] * geo["group_rows"]
+    resident = svt_subspace.SM_COUNT * geo["blocks_per_sm"]
+    assert b * geo["n_groups"] <= max(resident, b)
+
+
+def test_subspace_tc_tiling_main_paths():
+    """Path B's (48, 4096, 40) bucket runs 108 KB blocks, two an SM, in one
+    wave of 240 blocks; path A's (2, 4096, 20) one tile a block."""
+    geo = svt_subspace.tc_tiling(48, 4096, 40)
+    assert (geo["dn"], geo["tile_rows"], geo["blocks_per_sm"], geo["n_groups"]) == (48, 64, 2, 5)
+    assert 48 * geo["n_groups"] <= 2 * svt_subspace.SM_COUNT
+    geo = svt_subspace.tc_tiling(2, 4096, 20)
+    assert geo["group_rows"] == geo["tile_rows"] == 64 and geo["n_groups"] == 64
+
+
+@pytest.mark.parametrize("bh,s,g", [(192, 512, 8), (6, 1, 2), (6, 0, 2), (4, 65, 4)])
+def test_ssd_scan_scratch_covers_whole_tiles(bh, s, g):
+    """Scratch of the scan's first pass: (G, tiles, 64, 64) score tiles and
+    (BH, tiles * 64) sums, 1 MB of scores at path D's prefill."""
+    from repro_torch.kernels import ssd_scan
+
+    tiles = -(-s // 64)
+    assert ssd_scan.scratch_floats(bh, s, g) == g * tiles * 64 * 64 + bh * tiles * 64
+    if (bh, s, g) == (192, 512, 8):
+        assert g * tiles * 64 * 64 * 4 == 2**20
