@@ -34,8 +34,8 @@ Phases (any failed check raises and the script exits non-zero):
      ragged bf16 LoRA shape on fp32 FMA) and its tensor-route launches must
      match it; ``ssd_scan`` (y and the final state) at (BH, S, P, N) =
      (192, 512, 64, 128) and S = 300, the model's decays and weak ones, and
-     at odd widths, its bound printed also at a third of the TF32 tensor
-     rate; ``soft_threshold`` at path B's bucket flattened to
+     at odd widths, its bound at a third of the TF32 tensor rate (3xTF32),
+     the fp32-core bound printed beside it; ``soft_threshold`` at path B's bucket flattened to
      (196608, 40) and at (129, 130), float32 and bf16, equal bits, beside
      ``F.softshrink`` (timed only); ``subspace_apply_factored`` at path F's
      shard shape (B, vec, d2, r) = (48, 4096, 10, 8), at the last shard of 30
@@ -657,25 +657,28 @@ def ssd_inputs(bsz, heads, s, p, n, decay, seed):
 
 def ssd_work(bh, s, p, n, groups):
     """(operations, bytes) of the scan as the kernel's tile-64 algorithm
-    needs them for these shapes: per tile of L valid positions
-    2 * (L(L+1)/2 * (N + P) + 2 L N P), the upper triangle skipped; x, da,
+    needs them for these shapes, per tile of L valid positions, the upper
+    triangle skipped: the scores C B^T, 2 * L(L+1)/2 * N, once per group
+    (every head of a group shares them); the intra product, 2 * L(L+1)/2 * P,
+    and the inter and carry products, 2 * 2 L N P, once per head row.  x, da,
     B, C (once per group) read, y and the final state written, float32."""
-    ops, left = 0, s
-    while left > 0:
-        tile = min(64, left)
-        ops += 2 * (tile * (tile + 1) // 2 * (n + p) + 2 * tile * n * p)
-        left -= tile
+    per_group = per_row = 0
+    for start in range(0, s, 64):
+        tile = min(64, s - start)
+        tri = tile * (tile + 1) // 2
+        per_group += 2 * tri * n
+        per_row += 2 * (tri * p + 2 * tile * n * p)
     n_bytes = 4 * (2 * bh * s * p + bh * s + 2 * groups * s * n + bh * n * p)
-    return bh * ops, n_bytes
+    return groups * per_group + bh * per_row, n_bytes
 
 
 def check_ssd_kernel(bw, fp32_flops, tf32_flops) -> dict:
     """ssd_scan against its plain version (y and the final state), two
-    launches bit for bit; timed at the prefill shape.  ``bound_ms`` counts
-    the tile-64 operations at the fp32 CUDA-core rate, as before the kernel
-    moved to the tensor cores; beside it is printed the bound at a third of
-    the TF32 tensor rate (its products run in 3xTF32), or the bytes', the
-    larger."""
+    launches bit for bit; timed at the prefill shape.  Every product of the
+    kernel runs in 3xTF32 on the tensor cores, so ``bound_ms`` counts the
+    tile-64 operations at a third of the TF32 tensor rate, or the bytes at
+    the memory rate, the larger; the same operations at the fp32 CUDA-core
+    rate are printed beside it, the bound the fp32 FMA kernel was held to."""
     import torch
     from repro_torch.kernels import ref, ssd_scan
 
@@ -697,16 +700,17 @@ def check_ssd_kernel(bw, fp32_flops, tf32_flops) -> dict:
         if label != "prefill":
             continue
         n_ops, n_bytes = ssd_work(bsz * heads, s, p, n, bsz)
-        t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / fp32_flops * 1e3
+        t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / (tf32_flops / 3) * 1e3
         ms, plain_ms, call_ms = device_ms(run), device_ms(plain, reps=3), bench_ms(run)
         rec["ssd_scan"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                                bound_ms=max(t_bytes, t_ops),
                                bound_by="bytes" if t_bytes >= t_ops else "operations",
                                library_ms=None)
-        t_tensor = max(t_bytes, n_ops / (tf32_flops / 3) * 1e3)
+        t_cores = max(t_bytes, n_ops / fp32_flops * 1e3)
         print(f"[kernels] ssd_scan {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={rec['ssd_scan']['bound_ms']:.4f} ({rec['ssd_scan']['bound_by']}, "
-              f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB) 3xTF32 bound_ms={t_tensor:.4f} "
+              f"{n_ops / 1e9:.3f} GFLOP at {tf32_flops / 3e12:.0f} TFLOP/s, {n_bytes / 1e6:.1f} MB) "
+              f"fp32-core bound_ms={t_cores:.4f} "
               f"library_ms=null (no single PyTorch call) call_ms={call_ms:.4f} "
               f"device ms by kernel {device_ms_by_kernel(run)}", flush=True)
     return rec

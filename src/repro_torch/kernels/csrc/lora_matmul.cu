@@ -78,14 +78,15 @@
 // adapter's memory.  The TMA tensor maps are encoded on the host for every
 // call through cuTensorMapEncodeTiled, taken with cudaGetDriverEntryPoint,
 // so the library links no libcuda; the GEMM's shared-memory opt-in is set
-// once per device.
+// once per device (smem_opt_in.cuh, as for every kernel here).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstdint>
 #include <type_traits>
+
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -677,8 +678,6 @@ bool encode_2d(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-constexpr int kMaxDevices = 64;
-
 template <typename P, int CWG>
 int launch_gemm(const void* x, const void* w, const P* b, const int* row_slot, const float* xa,
                 bf16* y, float* partial, int M, int N, int K, int R, int xa_stride,
@@ -687,19 +686,9 @@ int launch_gemm(const void* x, const void* w, const P* b, const int* row_slot, c
   CUtensorMap tm_x, tm_w;
   if (!encode_2d(&tm_x, x, K, M, BK, C::BM) || !encode_2d(&tm_w, w, N, K, kChunk, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  // The opt-in to more than 48 KB of dynamic shared memory holds for the
-  // device's context: set it on a device's first launch only.
-  static std::atomic<bool> opted_in[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static repro::SmemOptIn opt_in;
+  cudaError_t err = opt_in.need(lora_gemm_tc<P, CWG>, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!opted_in[dev].load(std::memory_order_relaxed)) {
-    err = cudaFuncSetAttribute(lora_gemm_tc<P, CWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in[dev].store(true, std::memory_order_relaxed);
-  }
   const int k_steps = (K + BK - 1) / BK;
   const int k_chunk = ((k_steps + splits - 1) / splits) * BK;
   dim3 grid((N + BN - 1) / BN, (M + C::BM - 1) / C::BM, splits);

@@ -69,6 +69,7 @@
 // give the same bits.
 #include <cuda_runtime.h>
 
+#include "smem_opt_in.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -476,8 +477,8 @@ int repro_ssd_scan(const void* x, const void* da, const void* b, const void* c, 
   float* cb = static_cast<float*>(scratch);
   float* cum = cb + static_cast<size_t>(G) * n_tiles * T * T;
   const int psmem = static_cast<int>(sizeof(PrepSmem));
-  cudaError_t err = cudaFuncSetAttribute(ssd_prep_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, psmem);
+  static repro::SmemOptIn prep_opt_in, scan_opt_in;
+  cudaError_t err = prep_opt_in.need(ssd_prep_kernel, psmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_prep_kernel<<<dim3(n_tiles, G), kPrepThreads, psmem, st>>>(
       static_cast<const float*>(da), static_cast<const float*>(b), static_cast<const float*>(c),
@@ -485,7 +486,7 @@ int repro_ssd_scan(const void* x, const void* da, const void* b, const void* c, 
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int smem = static_cast<int>(sizeof(Smem));
-  err = cudaFuncSetAttribute(ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = scan_opt_in.need(ssd_scan_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_scan_kernel<<<dim3((P + PT - 1) / PT, BH), kThreads, smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(b), static_cast<const float*>(c),

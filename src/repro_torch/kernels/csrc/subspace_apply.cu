@@ -61,6 +61,7 @@
 // order: the same inputs give the same bits on every launch.
 #include <cuda_runtime.h>
 
+#include "smem_opt_in.cuh"
 #include "tail_common.cuh"
 #include "tf32x3.cuh"
 
@@ -568,8 +569,8 @@ int launch_tc(const float* m, const float* s, const float* y, const float* p,
               int n_modules, int vec, int d2, int group_rows, int n_groups, int vec4,
               cudaStream_t st) {
   const int smem = static_cast<int>(4 * tc_smem_floats<DN>(d2));
-  cudaError_t err = cudaFuncSetAttribute(subspace_apply_tc_kernel<DN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static repro::SmemOptIn opt_in;
+  cudaError_t err = opt_in.need(subspace_apply_tc_kernel<DN>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   subspace_apply_tc_kernel<DN><<<dim3(n_groups, n_modules), kThreads, smem, st>>>(
       m, s, y, p, rho, mu, thresh, mask, l_out, s_out, y_out, r_part, g_part, vec, d2,
@@ -598,8 +599,8 @@ int repro_subspace_apply(const float* m, const float* s, const float* y,
                          int group_rows, int n_groups, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = static_cast<int>(repro_subspace_apply_smem(d2, tile_rows, pcols));
-  cudaError_t err = cudaFuncSetAttribute(
-      subspace_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static repro::SmemOptIn opt_in;
+  cudaError_t err = opt_in.need(subspace_apply_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(n_groups, n_modules);
   subspace_apply_kernel<<<grid, kThreads, smem, st>>>(

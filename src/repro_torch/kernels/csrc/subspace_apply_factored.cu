@@ -33,6 +33,7 @@
 // the launch (the B-chunked schedule of mesh_overlap gives the same bits).
 #include <cuda_runtime.h>
 
+#include "smem_opt_in.cuh"
 #include "tail_common.cuh"
 
 namespace {
@@ -125,8 +126,8 @@ int repro_subspace_apply_factored(const float* m, const float* y, const float* f
                                   int n_groups, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = static_cast<int>(repro_subspace_apply_factored_smem(d2, r, tile_rows));
-  cudaError_t err = cudaFuncSetAttribute(
-      factored_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static repro::SmemOptIn opt_in;
+  cudaError_t err = opt_in.need(factored_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(n_groups, n_modules);
   factored_kernel<<<grid, kThreads, smem, st>>>(m, y, f, vr, rho, mu, thresh, mask, l_out,
