@@ -42,8 +42,13 @@ Phases (any failed check raises and the script exits non-zero):
      clients padded to 32 (two zero-mask columns) and at (3, 1000, 7, 3).
   4. Main path A: ``run_simulation`` on a planted task at the width of one
      ViT-B/32 attention projection (768 x 768, LoRA rank 4), 20 clients,
-     10 rounds of fedavg / fedrpca gram / fedrpca subspace; then 3 rounds of
-     fedrpca on the card and on the CPU from the same weights and batches.
+     10 rounds of fedavg / task_arithmetic / ties / fedexp / dare / fedrpca
+     gram / fedrpca subspace; then 3 rounds of fedrpca (both modes) on the
+     card and on the CPU from the same weights and batches, as are ties and
+     dare (dare's keep masks come from the same CPU generator); 3 rounds of
+     fedexp held round by round, the CPU running each round from the card's
+     previous state (FedExP's extrapolation compounds a difference from
+     round to round), with the CPU's own chain printed beside it.
      Before it, a regime probe: zero-shot accuracy, saturated-feature share
      and 10-round fedavg accuracy at the backbone qualities 0.4 (the
      reference benchmarks'), 0.1 and 0.0 (path A's).
@@ -76,15 +81,31 @@ Phases (any failed check raises and the script exits non-zero):
      call on a CPU mesh; 2 shards against 4; ``mesh_overlap=True`` against
      False, bit for bit; ``run_simulation(mesh_shards=4)`` on path A's task
      against ``mesh_shards=0``.
- 10. The card tests: ``pytest -m gpu tests/test_torch_cuda.py`` in a
+ 10. Main path G: cross-round aggregation sessions on the card, each
+     against the same session on the CPU round by round (updates within
+     1e-4 x max|delta|, equal fallbacks, hits and tiers): G1 ``AggSession``
+     with subspace SVT and ``carry_mode="subspace"`` on path B's tree over 4
+     drifting rounds (round r = 0.8 M_0 + 0.2 M_r), 50 iterations, at 40
+     dense clients and 20 of 32, warm rounds all hits; G2
+     ``carry_mode="full"`` in gram mode with the tolerance loop (3e-4),
+     held module by module, and each round also from the card's state
+     (``check_modules``); G3 G1's 40 and 30 (ragged) sessions on
+     ``make_host_mesh(4)``, also against the unsharded card session, the
+     30-client one within ``G_RITZ_RTOL`` from its first all-Ritz warm round
+     on, beside three witnesses (the plain version on the card, the CPU's
+     unsharded session, and a TF32 control that must fail that bound); G4
+     re-tiering every 2 rounds; G5 ``run_simulation`` with the carry on path
+     A's task, 3 rounds card vs CPU, then 10 rounds beside path A's
+     stateless fedrpca.
+ 11. The card tests: ``pytest -m gpu tests/test_torch_cuda.py`` in a
      subprocess with its own time limit; any failure, error or skip fails
      the script, and the counts and wall time go on a ``[card tests]``
      line.
- 11. The ``kernels`` JSON line, the wall time, then the result line.
+ 12. The ``kernels`` JSON line, the wall time, then the result line.
 
 Kernel launch counts are set to 0 just before phase 4 and read just after
-phase 5, and set to 0 again just before each of phases 6, 7, 8 and 9 and
-read just after it; every kernel must have launched, and each phase exactly
+phase 5, and set to 0 again just before each of phases 6, 7, 8, 9 and 10
+and read just after it; every kernel must have launched, and each phase exactly
 as often as its rounds, ADMM iterations, fallbacks, shards, buckets, layers
 and decode steps say.  Beside them the tensor-route launches of the
 subspace, LoRA and attention kernels are counted: paths A and B must
@@ -796,7 +817,8 @@ def regime_probe() -> None:
               flush=True)
 
 
-def run_fed(task, method, svt_mode, rounds, device, log=None, mesh_shards=0):
+def run_fed(task, method, svt_mode, rounds, device, log=None, mesh_shards=0, lora0=None,
+            batch_indices=None, seed=0, **agg):
     from repro_torch.core import AggregatorConfig
     from repro_torch.fed import FedRunConfig, LocalSpec, run_simulation, synth
     from repro_torch.optim import make_optimizer
@@ -806,18 +828,74 @@ def run_fed(task, method, svt_mode, rounds, device, log=None, mesh_shards=0):
         optimizer=make_optimizer("adam", 1e-2), local_steps=8, batch_size=32, lr=1e-2,
     )
     cfg = FedRunConfig(
-        aggregator=AggregatorConfig(method=method, rpca_iters=50, svt_mode=svt_mode),
-        local=local, rounds=rounds, seed=0, mesh_shards=mesh_shards,
+        aggregator=AggregatorConfig(method=method, rpca_iters=50, svt_mode=svt_mode, **agg),
+        local=local, rounds=rounds, seed=seed, mesh_shards=mesh_shards,
     )
     evalf = lambda l: synth.accuracy(task.base, l, task.test_x, task.test_y, task.lora_scale)
-    lora0 = synth.init_lora(task, seed=0)
+    lora0 = synth.init_lora(task, seed=0) if lora0 is None else lora0
     return run_simulation(task.base, lora0, task.client_x, task.client_y, cfg, evalf,
-                          log_fn=log, device=device)
+                          log_fn=log, batch_indices=batch_indices, device=device)
 
 
-def main_path_a(counts) -> None:
+# Path A's 10-round methods: the baselines of benchmarks/table1_main.py that
+# the port has, and fedrpca in both SVT modes.  Only fedrpca launches kernels.
+A_METHODS = (("fedavg", "gram"), ("task_arithmetic", "gram"), ("ties", "gram"),
+             ("fedexp", "gram"), ("dare", "gram"), ("fedrpca", "gram"), ("fedrpca", "subspace"))
+
+
+def card_vs_cpu_rounds(task, cpu_task, method, mode, what, **agg):
+    """3 rounds on the card and on the CPU from the same weights and
+    batches: LoRA rtol 1e-3 / atol 1e-5, accuracy within 2 test examples."""
     import numpy as np
     import torch
+
+    gl, gh = run_fed(task, method, mode, 3, "cuda", **agg)
+    cl, ch = run_fed(cpu_task, method, mode, 3, "cpu", **agg)
+    for k in gl:
+        torch.testing.assert_close(gl[k].cpu(), cl[k], rtol=1e-3, atol=1e-5)
+    if np.max(np.abs(gh - ch)) > 2.0 / 1024 + 1e-9:
+        raise AssertionError(f"{what}: card vs CPU accuracy {gh} vs {ch}")
+    err = max(max_abs(gl[k].cpu(), cl[k]) for k in gl)
+    print(f"[{what}] card vs CPU {method}/{mode} 3 rounds: lora max|err|={err:.3g} "
+          f"acc card={gh.tolist()} cpu={ch.tolist()}", flush=True)
+
+
+def card_vs_cpu_by_round(task, cpu_task, method, rounds=3):
+    """``rounds`` rounds on the card, each also run on the CPU from the
+    card's previous global LoRA with the same batches (round r: run seed r):
+    LoRA rtol 1e-3 / atol 1e-5 a round.  FedExP is held so, one round at a
+    time, because it extrapolates every update by its eta and a card-vs-CPU
+    difference compounds from round to round; the CPU's own chain is run
+    too, and its drift from the card is printed."""
+    import torch
+    from repro_torch.fed import synth
+
+    gen = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, task.client_x.shape[1], (rounds, task.client_x.shape[0], 8, 32),
+                        generator=gen)
+    card = cpu = synth.init_lora(cpu_task, seed=0)
+    errs, drift = [], []
+    for r in range(rounds):
+        def one(t, dev, lora):
+            return run_fed(t, method, "gram", 1, dev, lora0=lora, seed=r,
+                           batch_indices=lambda _: idx[r])[0]
+
+        nxt = one(task, "cuda", card)
+        same_start = one(cpu_task, "cpu", {k: v.cpu() for k, v in card.items()})
+        cpu = one(cpu_task, "cpu", cpu)
+        for k in nxt:
+            torch.testing.assert_close(nxt[k].cpu(), same_start[k], rtol=1e-3, atol=1e-5)
+        errs.append(max(max_abs(nxt[k].cpu(), same_start[k]) for k in nxt))
+        drift.append(max(max_abs(nxt[k].cpu(), cpu[k]) for k in nxt))
+        card = nxt
+    print(f"[path A] card vs CPU {method} {rounds} rounds, each from the card's state: lora "
+          f"max|err| {[float(f'{e:.3g}') for e in errs]}; the CPU's own chain drifts "
+          f"{[float(f'{e:.3g}') for e in drift]}", flush=True)
+
+
+def main_path_a(counts) -> dict:
+    """Returns each method's final accuracy after 10 rounds."""
+    import numpy as np
     from repro_torch.fed import synth
 
     task = make_task("cuda")
@@ -825,7 +903,7 @@ def main_path_a(counts) -> None:
                                      task.test_y, task.lora_scale))
     print(f"[path A] zero-shot accuracy {zero_shot:.4f}", flush=True)
     finals = {}
-    for method, mode in (("fedavg", "gram"), ("fedrpca", "gram"), ("fedrpca", "subspace")):
+    for method, mode in A_METHODS:
         times = []
         before = counts()
         _, hist = run_fed(task, method, mode, 10, "cuda",
@@ -846,21 +924,16 @@ def main_path_a(counts) -> None:
               f"launches={launched}", flush=True)
     if finals["fedavg/gram"] <= zero_shot:
         raise AssertionError(f"fedavg did not learn: {finals['fedavg/gram']} <= {zero_shot}")
-    print(f"[path A] final fedrpca - fedavg: gram "
-          f"{finals['fedrpca/gram'] - finals['fedavg/gram']:+.4f}, subspace "
-          f"{finals['fedrpca/subspace'] - finals['fedavg/gram']:+.4f}", flush=True)
+    print("[path A] final accuracy minus fedavg's: " + ", ".join(
+        f"{k} {v - finals['fedavg/gram']:+.4f}" for k, v in finals.items()), flush=True)
 
     cpu_task = make_task("cpu")
     for mode in ("gram", "subspace"):
-        gl, gh = run_fed(task, "fedrpca", mode, 3, "cuda")
-        cl, ch = run_fed(cpu_task, "fedrpca", mode, 3, "cpu")
-        for k in gl:
-            torch.testing.assert_close(gl[k].cpu(), cl[k], rtol=1e-3, atol=1e-5)
-        if np.max(np.abs(gh - ch)) > 2.0 / 1024 + 1e-9:
-            raise AssertionError(f"card vs CPU accuracy {gh} vs {ch}")
-        err = max(max_abs(gl[k].cpu(), cl[k]) for k in gl)
-        print(f"[path A] card vs CPU fedrpca/{mode} 3 rounds: lora max|err|={err:.3g} "
-              f"acc card={gh.tolist()} cpu={ch.tolist()}", flush=True)
+        card_vs_cpu_rounds(task, cpu_task, "fedrpca", mode, "path A")
+    for method in ("ties", "dare"):
+        card_vs_cpu_rounds(task, cpu_task, method, "gram", "path A")
+    card_vs_cpu_by_round(task, cpu_task, "fedexp")
+    return finals
 
 
 def planted_vit_deltas(seed: int, nc: int, n_valid: int | None):
@@ -953,23 +1026,37 @@ F_SHARDS = 4
 
 
 class FallbackSpy:
-    """Records ``n_fallback`` of every ``core.rpca`` call of ``name`` the
-    engine makes inside the ``with`` block (``aggregate`` does not return
-    it): the sharded loop's, which the launch check needs, or the unsharded
-    one's, whose exact-eigh fallbacks read ``subspace_apply``'s Gram."""
+    """Records ``n_fallback`` and the loop's iteration count (the largest
+    ``n_iter``) of every ``core.rpca`` call of ``name`` the engine makes
+    inside the ``with`` block (``aggregate`` does not return them): the
+    sharded loop's, which the launch check needs, or the unsharded one's,
+    whose exact-eigh fallbacks read ``subspace_apply``'s Gram.  A carrying
+    call returns ``(result, carry)``; the result is read.  ``keep=True``
+    also keeps each call's arguments and module iteration counts on the
+    host, in ``calls``."""
 
-    def __init__(self, name: str = "robust_pca_bucket_sharded"):
-        self.name = name
+    def __init__(self, name: str = "robust_pca_bucket_sharded", keep: bool = False):
+        self.name, self.keep = name, keep
 
     def __enter__(self):
         from repro_torch.core import rpca
 
-        self.falls, self._rpca, self._fn = [], rpca, getattr(rpca, self.name)
+        self.falls, self.iters, self.calls = [], [], []
+        self._rpca, self._fn = rpca, getattr(rpca, self.name)
 
         def spy(*args, **kw):
-            res = self._fn(*args, **kw)
+            out = self._fn(*args, **kw)
+            res = out if isinstance(out, rpca.RPCAResult) else out[0]
             self.falls.append(res.n_fallback)
-            return res
+            self.iters.append(int(res.n_iter.max()))
+            if self.keep:
+                host = lambda t: t.cpu() if hasattr(t, "cpu") else t
+                self.calls.append(dict(
+                    args=[host(a) for a in args],
+                    kw={k: v._replace(**{f: host(x) for f, x in v._asdict().items()})
+                        if isinstance(v, rpca.BucketCarry) else host(v) for k, v in kw.items()},
+                    n_iter=res.n_iter.cpu()))
+            return out
 
         setattr(rpca, self.name, spy)
         return self
@@ -1108,6 +1195,362 @@ def main_path_f(counts, card: str) -> dict:
           f"{[round(t, 4) for t in times['unsharded']]}; fallbacks {spy.falls}", flush=True)
     total = launched(start)
     print(f"[path F] {card} | launches {total} by phase {phase}", flush=True)
+    return total
+
+
+# --- Path G: cross-round aggregation sessions -------------------------------------
+G_ROUNDS = 4
+G_ITERS = 50
+
+
+def drift_rounds(nc: int, n_valid: int | None) -> list:
+    """Path B's planted tree over ``G_ROUNDS`` rounds: round 0 is M_0
+    (``planted_vit_deltas`` seed 5), round r is 0.8 M_0 + 0.2 M_r (seed
+    5 + r), the drift of the probe that chose this slice."""
+    base = planted_vit_deltas(5, nc, n_valid)
+    out = [base]
+    for r in range(1, G_ROUNDS):
+        m_r = planted_vit_deltas(5 + r, nc, n_valid)
+        out.append({t: {p: 0.8 * base[t][p] + 0.2 * m_r[t][p] for p in base[t]} for t in base})
+    return out
+
+
+def run_session(trees, cfg, mask, device, counts=None, mesh=None, spy="robust_pca_bucket",
+                keep=False):
+    """One ``AggSession`` over ``trees`` on ``device``: per round the update,
+    call seconds (host clock, ending in a synchronize on the card), the
+    fallbacks and hit rate of the diagnostics, the RPCA calls' fallbacks and
+    loop iterations (with ``keep``, also their arguments and results), and
+    on the card the launches."""
+    import torch
+    from repro_torch.convert import from_jax_tree
+    from repro_torch.core import AggSession
+
+    sess = AggSession(cfg, mesh=mesh, device=device)
+    on_card = torch.device(device).type == "cuda"
+    m = None if mask is None else mask.to(device)
+    rounds = []
+    for tree in trees:
+        t_tree = from_jax_tree(tree, device)
+        if on_card:
+            torch.cuda.synchronize()
+        before = counts() if counts else None
+        with FallbackSpy(spy, keep) as rec:
+            t0 = time.perf_counter()
+            out, diag = sess.step(t_tree, mask=m)
+            if on_card:
+                torch.cuda.synchronize()
+            t_call = time.perf_counter() - t0
+        rounds.append(dict(
+            out=out, s=t_call, falls=int(diag.scalars["fallback_count"]),
+            hit=float(diag.scalars["carry_hit_rate"]), calls=rec.falls, iters=rec.iters,
+            records=rec.calls,
+            launched=None if before is None else {k: v - before[k] for k, v in counts().items()},
+            tiers={k: (t.low_idx, t.low_cap) for k, t in sess.plan.tiers.items()},
+        ))
+    return rounds
+
+
+# Card vs CPU bound of a session's updates, over max|delta|, from the first
+# warm round of G3's 30-client session that takes no exact-eigh step on.
+# That round tracks the basis by Ritz steps alone for all 50 iterations, and
+# there fp32 round-off of any order grows about a thousandfold: in round 1 on
+# an H100 80GB HBM3 at 700 W, against the CPU mesh, the CPU's own unsharded
+# session reads 2.9e-4 of max|delta|, the plain version on the card 8.27e-4,
+# the kernels 8.98e-4 and the TF32 control (the plain version in single-pass
+# TF32) 1.89e-3.  The limit is the geometric mean of the kernels' reading and
+# the control's; the control must fail it.
+G_RITZ_RTOL = 1.3e-3
+
+
+def same_decisions(what, got, want) -> None:
+    """Round by round: equal fallbacks, hits and tiers."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (g["falls"], g["hit"], g["tiers"]) != (w["falls"], w["hit"], w["tiers"]):
+            raise AssertionError(f"{what} round {i}: fallbacks, hits, tiers "
+                                 f"{g['falls'], g['hit'], g['tiers']} vs "
+                                 f"{w['falls'], w['hit'], w['tiers']}")
+
+
+def round_errs(got, want, scale) -> list:
+    """Each round's largest update error over max|delta|; a leaf of another
+    shape or a non-finite one raises."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = 0.0
+        for a, b in zip(tree_leaves(g["out"]), tree_leaves(w["out"])):
+            if a.shape != b.shape or not bool(a.isfinite().all()):
+                raise AssertionError(f"round {i}: bad update leaf {tuple(a.shape)}")
+            err = max(err, max_abs(a.cpu(), b.cpu()))
+        errs.append(err / scale)
+    return errs
+
+
+def round_bounds(n: int, ritz_from: int | None) -> list:
+    """AGG_RTOL a round, G_RITZ_RTOL from round ``ritz_from`` on."""
+    return [G_RITZ_RTOL if ritz_from is not None and i >= ritz_from else AGG_RTOL
+            for i in range(n)]
+
+
+def check_rounds(what, got, want, scale, ritz_from=None):
+    """Equal decisions, and each round's update within its bound of
+    max|delta| (``round_bounds``).  Returns the errors over max|delta|."""
+    same_decisions(what, got, want)
+    errs = round_errs(got, want, scale)
+    for i, (e, bound) in enumerate(zip(errs, round_bounds(len(errs), ritz_from))):
+        if e > bound:
+            raise AssertionError(f"{what} round {i}: {e} x max|delta| > {bound}")
+    return [float(f"{e:.3g}") for e in errs]
+
+
+def check_modules(what, got, want, scale, cfg):
+    """The tolerance loop of G2, update row by update row, within AGG_RTOL
+    of max|delta|.  Along the two sessions, the rows of the modules that
+    stop at the same iteration on the card and the CPU.  And each round,
+    every row of the card's update against the one the CPU's rerun of the
+    call from the card's own inputs, its carry included, gives: a module
+    whose residual crosses ``rpca_tol`` one iteration apart there is held
+    against the CPU's run of the same call for the card's count without the
+    tolerance, which gives a module the bits the loop gives it when it stops
+    at that count.  Returns per round the largest error of each over
+    max|delta| and the modules that stopped apart in the sessions,
+    ``{module: (card, cpu)}``."""
+    import torch
+    from repro_torch.core import rpca
+    from repro_torch.core.aggregators import sparse_energy_ratio
+    from repro_torch.core.engine import pack
+    from repro_torch.utils.pytree import tree_map
+
+    def rows(out):
+        """The update tree's module rows, in the bucket's order."""
+        (bucket,) = pack(tree_map(lambda x: x[None].cpu(), out))[0].values()
+        return bucket.data[:, :, 0]
+
+    def update_rows(m, l, s):
+        """The rows ``engine._fedrpca_bucket`` forms from L and S on G2's
+        dense bucket: adaptive beta, no guard, no weights."""
+        energy = sparse_energy_ratio(m, s)
+        beta = torch.clamp(1.0 / torch.clamp_min(energy, 1e-12), cfg.beta_min, cfg.beta_max)
+        return torch.mean(l, dim=-1) + beta[:, None] * torch.mean(s, dim=-1)
+
+    def rerun(rec, n_iter=None):
+        """The recorded call on the CPU, or without the tolerance for
+        ``n_iter`` iterations, and whether its carry was taken."""
+        kw = dict(rec["kw"], return_carry=True)
+        if n_iter is not None:
+            kw.update(n_iter=n_iter, tol=None)
+        res, carry = rpca.robust_pca_bucket(*rec["args"][:2], **kw)
+        return res, float(carry.hit)
+
+    same_decisions(what, got, want)
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        (gc,), (wc,) = g["records"], w["records"]
+        same = gc["n_iter"] == wc["n_iter"]
+        e_session = max_abs(rows(g["out"])[same], rows(w["out"])[same])
+        ref, hit = rerun(gc)
+        if hit != g["hit"]:
+            raise AssertionError(f"{what} round {i}: the CPU's gate decides otherwise")
+        l_ref, s_ref = ref.low_rank.clone(), ref.sparse.clone()
+        for n in set(gc["n_iter"][gc["n_iter"] != ref.n_iter].tolist()):
+            at = gc["n_iter"] == n
+            fixed, _ = rerun(gc, n)
+            l_ref[at], s_ref[at] = fixed.low_rank[at], fixed.sparse[at]
+        e_round = max_abs(rows(g["out"]), update_rows(gc["args"][0], l_ref, s_ref))
+        if max(e_session, e_round) > AGG_RTOL * scale:
+            raise AssertionError(f"{what} round {i}: session {e_session / scale}, from the "
+                                 f"card's state {e_round / scale} x max|delta| > {AGG_RTOL}")
+        out.append((float(f"{e_session / scale:.3g}"), float(f"{e_round / scale:.3g}"),
+                    {k: (int(gc["n_iter"][k]), int(wc["n_iter"][k]))
+                     for k in torch.nonzero(~same).flatten().tolist()}))
+    return out
+
+
+class PlainOnCard:
+    """Inside the block the RPCA loops compute their plain PyTorch version
+    on the card in place of the kernels (``backend.use_kernel`` answers
+    False), with single-pass TF32 matmuls when ``tf32``: the witnesses of
+    G3's 30-client session."""
+
+    def __init__(self, tf32: bool = False):
+        self.tf32 = tf32
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import backend
+
+        self._backend, self._use = backend, backend.use_kernel
+        self._tf32 = torch.backends.cuda.matmul.allow_tf32
+        backend.use_kernel = lambda t: False
+        torch.backends.cuda.matmul.allow_tf32 = self.tf32
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        self._backend.use_kernel = self._use
+        torch.backends.cuda.matmul.allow_tf32 = self._tf32
+
+
+def main_path_g(counts, card: str, finals_a: dict) -> dict:
+    """Cross-round sessions on the card, each against the same session on
+    the CPU: G1 ``AggSession`` (subspace SVT, ``carry_mode="subspace"``) on
+    path B's tree over drifting rounds at 40 dense clients and 20 of 32;
+    G2 ``carry_mode="full"`` in gram mode with the tolerance loop; G3 G1's
+    40 and 30 (ragged) sessions on ``make_host_mesh(4)``, also against the
+    unsharded card session, with the 30-client session's witnesses; G4
+    re-tiering every 2 rounds; G5
+    ``run_simulation`` with the carry on path A's task.  Every launch count
+    follows from the rounds, iterations and fallbacks.  Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import AggregatorConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.pytree import tree_leaves
+
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path G")
+    sub_cfg = AggregatorConfig(method="fedrpca", rpca_iters=G_ITERS, svt_mode="subspace",
+                               carry_mode="subspace")
+
+    def report(tag, card_rounds, cpu_rounds, errs, extra=""):
+        print(f"[path G] {card} | {tag}: call_s "
+              f"{[round(r['s'], 4) for r in card_rounds]} (cpu "
+              f"{[round(r['s'], 4) for r in cpu_rounds]}); fallbacks {[r['falls'] for r in card_rounds]} "
+              f"of {G_ITERS} (cpu {[r['falls'] for r in cpu_rounds]}); hit "
+              f"{[r['hit'] for r in card_rounds]}; card vs CPU max|err| / max|delta| by round "
+              f"{errs}{extra}", flush=True)
+
+    inputs = {}
+    for nc, n_valid in ((40, None), (32, 20), (30, None)):
+        trees = drift_rounds(nc, n_valid)
+        mask = None if n_valid is None else (torch.arange(nc) < n_valid).float()
+        inputs[nc] = (trees, mask, max(abs(x).max() for t in trees for x in tree_leaves(t)))
+
+    # G1: the unsharded subspace session.
+    card40 = None
+    for nc in (40, 32):
+        trees, mask, scale = inputs[nc]
+        tag = f"G1 subspace nc={nc} valid={20 if nc == 32 else nc}"
+        got = run_session(trees, sub_cfg, mask, "cuda", counts)
+        want = run_session(trees, sub_cfg, mask, "cpu")
+        errs = check_rounds(tag, got, want, scale)
+        for i, r in enumerate(got):
+            expect(f"{tag} round {i}", r["launched"], subspace_apply=G_ITERS,
+                   subspace_apply_tc=G_ITERS)
+            if i and r["hit"] != 1.0:
+                raise AssertionError(f"{tag} round {i}: warm round missed ({r['hit']})")
+        report(tag, got, want, errs, f" (bound {AGG_RTOL:g})")
+        if nc == 40:
+            card40 = got
+
+    # G2: carry_mode="full" in gram mode, tolerance loop, held module by module.
+    trees, mask, scale = inputs[40]
+    full_cfg = AggregatorConfig(method="fedrpca", rpca_iters=G_ITERS, svt_mode="gram",
+                                carry_mode="full", rpca_fixed_iters=False, rpca_tol=3e-4)
+    got = run_session(trees, full_cfg, mask, "cuda", counts, keep=True)
+    want = run_session(trees, full_cfg, mask, "cpu", keep=True)
+    if full_cfg.guard_energy_k or full_cfg.weighting != "uniform" or not full_cfg.adaptive_beta:
+        raise AssertionError("G2's check forms the update of a plain fedrpca bucket")
+    per_round = check_modules("G2 full gram", got, want, scale, full_cfg)
+    for i, g in enumerate(got):
+        expect(f"G2 round {i}", g["launched"], admm_tail=sum(g["iters"]))
+    report("G2 full gram nc=40 tol=3e-4", got, want, [e for e, _, _ in per_round],
+           f" (the modules stopping at the same iteration; bound {AGG_RTOL:g}); each round "
+           f"against the CPU's rerun from the card's state "
+           f"{[e for _, e, _ in per_round]} (bound {AGG_RTOL:g}); modules stopping apart in the "
+           f"sessions {{module: (card, cpu) iterations}} {[a for _, _, a in per_round]}; "
+           f"whole-update error {[float(f'{e:.3g}') for e in round_errs(got, want, scale)]}; "
+           f"ADMM iterations {[r['iters'][0] for r in got]} (cpu {[r['iters'][0] for r in want]})")
+
+    # G3: the sharded sessions, against the unsharded card session and a CPU mesh.
+    mesh, cpu_mesh = make_host_mesh(F_SHARDS), make_host_mesh(F_SHARDS, device="cpu")
+    sharded = "robust_pca_bucket_sharded"
+    for nc in (40, 30):
+        trees, mask, scale = inputs[nc]
+        tag = f"G3 subspace nc={nc} on {F_SHARDS} shards"
+        got = run_session(trees, sub_cfg, mask, "cuda", counts, mesh=mesh, spy=sharded)
+        unsharded = card40 if nc == 40 else run_session(trees, sub_cfg, mask, "cuda")
+        want = run_session(trees, sub_cfg, mask, "cpu", mesh=cpu_mesh, spy=sharded)
+        # The 30-client session: G_RITZ_RTOL from its first warm round that
+        # takes no exact step on; every other session AGG_RTOL throughout.
+        ritz_from = None
+        if nc == 30:
+            ritz_from = next((i for i, w in enumerate(want) if i and w["falls"] == 0), None)
+        bounds = round_bounds(len(want), ritz_from)
+        errs = check_rounds(tag, got, want, scale, ritz_from)
+        errs_u = check_rounds(f"{tag} vs unsharded", got, unsharded, scale, ritz_from)
+        for i, r in enumerate(got):
+            expect(f"{tag} round {i}", r["launched"],
+                   **mesh_launches("subspace", F_SHARDS, 1, G_ITERS, r["calls"][0]))
+        report(tag, got, want, errs,
+               f" (bounds {bounds}); vs unsharded card {errs_u}, unsharded call_s "
+               f"{[round(r['s'], 4) for r in unsharded]}")
+        if nc != 30:
+            continue
+        # Witnesses of the Ritz rounds: the plain version on the card, the
+        # CPU's own unsharded session, and the TF32 control, which must fail.
+        before = counts()
+        with PlainOnCard():
+            plain = run_session(trees, sub_cfg, mask, "cuda", mesh=mesh, spy=sharded)
+        with PlainOnCard(tf32=True):
+            tf32 = run_session(trees, sub_cfg, mask, "cuda", mesh=mesh, spy=sharded)
+        expect(f"{tag} witnesses on the card", launched(before))
+        cpu_u = run_session(trees, sub_cfg, mask, "cpu")
+        w_errs = {name: (round_errs(r, want, scale), [x["falls"] for x in r])
+                  for name, r in (("plain version on the card", plain),
+                                  ("CPU unsharded", cpu_u), ("TF32 control", tf32))}
+        print(f"[path G] {card} | {tag} witnesses, max|err| / max|delta| against the CPU "
+              f"mesh by round (fallbacks): "
+              f"{ {k: ([float(f'{e:.3g}') for e in v], f) for k, (v, f) in w_errs.items()} }; "
+              f"kernels {errs}", flush=True)
+        # The control must fail the bounds from the Ritz round on.
+        first = ritz_from or 0
+        tf32_errs, tf32_falls = w_errs["TF32 control"]
+        over = [e > b for e, b in zip(tf32_errs, bounds)][first:]
+        if tf32_falls == [r["falls"] for r in want] and not any(over):
+            raise AssertionError(f"{tag}: the TF32 control passes the bounds {bounds[first:]}")
+
+    # G4: re-tiering every 2 rounds.
+    trees, mask, scale = inputs[40]
+    tier_cfg = sub_cfg.replace(retier_every=2)
+    got = run_session(trees, tier_cfg, mask, "cuda", counts)
+    want = run_session(trees, tier_cfg, mask, "cpu")
+    errs = check_rounds("G4 retier_every=2", got, want, scale)
+    for i, r in enumerate(got):
+        expect(f"G4 round {i}", r["launched"], subspace_apply=G_ITERS * len(r["calls"]),
+               subspace_apply_tc=G_ITERS * len(r["calls"]))
+    report("G4 retier_every=2 nc=40", got, want, errs,
+           f" (bound {AGG_RTOL:g}); tiers (low modules, low cap) by round "
+           f"{[{k[1]: (len(v[0]), v[1]) for k, v in r['tiers'].items()} for r in got]}")
+
+    # G5: carrying rounds of run_simulation on path A's task.
+    task, cpu_task = make_task("cuda"), make_task("cpu")
+    before = counts()
+    card_vs_cpu_rounds(task, cpu_task, "fedrpca", "subspace", "path G5",
+                       carry_mode="subspace")
+    # run_fed's rpca_iters is 50 (path A's).
+    expect("G5 3 rounds card", launched(before), subspace_apply=3 * 50,
+           subspace_apply_tc=3 * 50)
+    logs = []
+    before = counts()
+    _, hist = run_fed(task, "fedrpca", "subspace", 10, "cuda", carry_mode="subspace",
+                      log=lambda r, d: logs.append(d))
+    expect("G5 10 rounds", launched(before), subspace_apply=10 * 50,
+           subspace_apply_tc=10 * 50)
+    if not np.isfinite(hist).all() or len(hist) != 10:
+        raise AssertionError(f"G5: bad history {hist}")
+    print(f"[path G] {card} | G5 run_simulation carry_mode=subspace 10 rounds: acc "
+          f"{np.round(hist, 4).tolist()} (stateless fedrpca/subspace final "
+          f"{finals_a['fedrpca/subspace']:.4f}); carry_hit_rate "
+          f"{[d['carry_hit_rate'] for d in logs]}; fallback_count "
+          f"{[int(d['fallback_count']) for d in logs]}; agg s "
+          f"{[round(d['t_agg_s'], 4) for d in logs]}", flush=True)
+    total = launched(start)
+    print(f"[path G] {card} | launches {total} by phase {phase}", flush=True)
     return total
 
 
@@ -1780,28 +2223,29 @@ def main() -> int:
         for k in routed:
             wrappers[k].tc_launches = 0
 
-    zero_counts()
-    t0 = time.perf_counter()
-    main_path_a(counts)
-    main_path_b(counts)
-    launches_ab = counts()
-    print(f"[main path A+B] {time.perf_counter() - t0:.1f} s, launches {launches_ab}", flush=True)
-    zero_counts()
-    t0 = time.perf_counter()
-    launches_c = main_path_c(counts, smi)
-    print(f"[main path C] {time.perf_counter() - t0:.1f} s, launches {launches_c}", flush=True)
-    zero_counts()
-    t0 = time.perf_counter()
-    launches_d = main_path_d(counts, smi)
-    print(f"[main path D] {time.perf_counter() - t0:.1f} s, launches {launches_d}", flush=True)
-    zero_counts()
-    launches_e = main_path_e(counts)
-    zero_counts()
-    t0 = time.perf_counter()
-    launches_f = main_path_f(counts, smi)
-    print(f"[main path F] {time.perf_counter() - t0:.1f} s, launches {launches_f}", flush=True)
-    launches = {k: launches_ab[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
-                for k in wrappers}
+    def run_path(name, fn, *args):
+        """Counts set to 0 just before the path and read just after it."""
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        total = counts()
+        print(f"[main path {name}] {time.perf_counter() - t0:.1f} s, launches {total}", flush=True)
+        return out, total
+
+    paths = {}
+    finals_a = {}
+
+    def path_ab():  # A and B share one count window
+        finals_a.update(main_path_a(counts))
+        main_path_b(counts)
+
+    _, paths["A+B"] = run_path("A+B", path_ab)
+    _, paths["C"] = run_path("C", main_path_c, counts, smi)
+    _, paths["D"] = run_path("D", main_path_d, counts, smi)
+    _, paths["E"] = run_path("E", main_path_e, counts)
+    _, paths["F"] = run_path("F", main_path_f, counts, smi)
+    _, paths["G"] = run_path("G", main_path_g, counts, smi, finals_a)
+    launches = {k: sum(p[k] for p in paths.values()) for k in wrappers}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on the main path")

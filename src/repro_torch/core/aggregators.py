@@ -5,6 +5,9 @@ Port of ``repro/core/aggregators.py``, over stacked client-delta trees
 
   * ``fedavg``          — Eq. 4: (weighted) mean.
   * ``task_arithmetic`` — Eq. 5: scaled mean.
+  * ``fedexp``          — FedExP's extrapolated mean.
+  * ``ties``            — TIES-Merging (trim, elect sign, disjoint mean).
+  * ``dare``            — DARE drop-and-rescale, then the mean.
   * ``fedrpca``         — Algorithm 1: per-module Robust-PCA split M = L + S,
                           update = mean(L) + beta * mean(S), adaptive
                           beta = 1 / E (App. B.3).
@@ -13,7 +16,10 @@ Two engines back ``aggregate``: the per-leaf functions here
 (``engine="reference"``, the plain parity oracle — never a kernel) and the
 batched engine in ``repro_torch.core.engine`` (``engine="packed"``, one call
 per shape bucket, whose RPCA tail runs the CUDA kernels on the card).
-``ties``, ``dare`` and ``fedexp`` are not ported yet (ROADMAP.md queue 1, item 3).
+
+DARE's keep masks come from a CPU ``torch.Generator`` seeded from (key, leaf
+index[, client slot]), so the card and the CPU draw the same bits; ``key``
+is an int or a sequence of nonnegative ints.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import dataclasses
 import functools
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import rpca as rpca_lib
@@ -34,11 +41,13 @@ Tree = Any
 #: "data_size_rpca" (also column-scales the RPCA input by the weights).
 WEIGHTINGS = ("uniform", "data_size", "data_size_rpca")
 
-#: Cross-round aggregation carry modes; only "none" is ported yet.
+#: Cross-round aggregation carry modes: "none" is stateless; "subspace"
+#: carries each bucket's subspace-SVT session (basis and iterates) and needs
+#: ``svt_mode="subspace"``; "full" carries the ADMM iterates in either mode.
+#: The carry threads through the packed engine's sessions
+#: (``engine.AggSession`` / ``aggregate_planned``); the reference engine
+#: ignores it.
 CARRY_MODES = ("none", "subspace", "full")
-
-#: Methods of the reference package that are still to be ported.
-_NOT_PORTED = ("dare", "fedexp", "ties")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +60,7 @@ class AggregatorConfig:
     runs the fused CUDA tail kernels, a CPU bucket the plain tail.
     """
 
-    method: str = "fedrpca"  # fedavg | task_arithmetic | fedrpca
+    method: str = "fedrpca"  # fedavg | task_arithmetic | ties | fedexp | dare | fedrpca
     weighting: str = "uniform"  # uniform | data_size | data_size_rpca
     beta: float = 2.0  # scaling factor (task_arithmetic, fixed-beta fedrpca)
     adaptive_beta: bool = True  # fedrpca: beta = 1 / E^(t)
@@ -136,6 +145,131 @@ def task_arithmetic(stacked: Tree, beta: float = 2.0, mask=None, weights=None) -
     if w is None:
         return tree_map(lambda x: beta * torch.mean(x, dim=0), stacked)
     return tree_map(lambda x: (beta * _wmean_leaf(x, w)).to(x.dtype), stacked)
+
+
+_FEDEXP_EPS = 1e-3
+
+
+def _fedexp_eta(sum_sq, mean_sq, n_eff, eps: float = _FEDEXP_EPS):
+    """FedExP's global step ``max(1, sum_sq / (2 n_eff (mean_sq + eps)))``,
+    shared by the per-leaf and the packed engine."""
+    return torch.clamp_min(sum_sq / (2.0 * n_eff * (mean_sq + eps)), 1.0)
+
+
+def fedexp(stacked: Tree, eps: float = _FEDEXP_EPS, mask=None, weights=None) -> Tree:
+    """FedExP: the mean scaled by the global step
+    ``max(1, sum_i ||d_i||^2 / (2 M (||mean(d)||^2 + eps)))``, with the sum
+    over active clients and M = n_eff under a mask."""
+    mean = fedavg(stacked, mask=mask, weights=weights)
+    leaves = tree_leaves(stacked)
+    dev = leaves[0].device
+    bmask = None if mask is None else _as_f32(mask, dev)
+
+    def sq_stacked(x):
+        x = x.to(torch.float32)
+        if bmask is not None:
+            x = x * bmask.reshape((-1,) + (1,) * (x.ndim - 1))
+        return torch.sum(torch.square(x))
+
+    total = lambda parts: functools.reduce(lambda a, b: a + b, parts)
+    n_eff = _mask_n_eff(mask, leaves[0].shape[0], dev)
+    mean_sq = total([torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(mean)])
+    sum_sq = total([sq_stacked(x) for x in leaves])
+    eta = _fedexp_eta(sum_sq, mean_sq, n_eff, eps)
+    return tree_map(lambda x: (eta * x).to(x.dtype), mean)
+
+
+def _keyed_generator(key, *path: int) -> torch.Generator:
+    """A CPU generator seeded from ``key`` (an int or ints) and the path of
+    ints below it."""
+    entropy = [int(v) for v in np.asarray(key, dtype=np.int64).reshape(-1)]
+    seed = np.random.SeedSequence([*entropy, *path]).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(seed))
+
+
+def _dare_keep(key, leaf_index: int, leaf_shape, drop_rate: float, mask=None) -> torch.Tensor:
+    """Bernoulli(1 - drop_rate) keep mask of one stacked leaf, a CPU bool
+    tensor.  Without a mask one draw covers the leaf, seeded from (key,
+    leaf index); with one, client slot j draws its own pattern from (key,
+    leaf index, j), so slot j keeps the same pattern whether the cohort is
+    padded or dense."""
+    keep_p = 1.0 - drop_rate
+    if mask is None:
+        gen = _keyed_generator(key, leaf_index)
+        return torch.rand(tuple(leaf_shape), generator=gen) < keep_p
+    return torch.stack([
+        torch.rand(tuple(leaf_shape[1:]), generator=_keyed_generator(key, leaf_index, j))
+        < keep_p
+        for j in range(leaf_shape[0])
+    ])
+
+
+def _dare_leaves(stacked: Tree, drop_rate: float, key, mask=None) -> list:
+    """Every leaf of ``stacked`` dropped and rescaled by 1 / (1 - p)."""
+    if key is None:
+        raise ValueError("dare requires an explicit PRNG key (got key=None)")
+    out = []
+    for i, leaf in enumerate(tree_leaves(stacked)):
+        keep = _dare_keep(key, i, tuple(leaf.shape), drop_rate, mask).to(leaf.device)
+        out.append(torch.where(keep, leaf, torch.zeros_like(leaf)) / (1.0 - drop_rate))
+    return out
+
+
+def dare(stacked: Tree, drop_rate: float = 0.9, key=None, mask=None, weights=None) -> Tree:
+    """DARE: drop ``drop_rate`` of each client delta's entries at random,
+    rescale the rest by 1 / (1 - p), then average.  ``key`` is required: a
+    fixed stream would drop the same entries every round."""
+    w = _client_weights(mask, weights, _device_of(stacked))
+    out = []
+    for leaf, rescaled in zip(tree_leaves(stacked), _dare_leaves(stacked, drop_rate, key, mask)):
+        if w is None:
+            out.append(torch.mean(rescaled, dim=0).to(leaf.dtype))
+        else:
+            out.append(_wmean_leaf(rescaled, w).to(leaf.dtype))
+    return tree_unflatten(stacked, out)
+
+
+# ---------------------------------------------------------------------------
+# TIES-Merging
+# ---------------------------------------------------------------------------
+
+
+def _ties_elect(trimmed: torch.Tensor, client_dim: int, w=None) -> torch.Tensor:
+    """Sign election and disjoint mean over ``client_dim`` of the trimmed
+    values; ``w`` (normalized, broadcast along ``client_dim``) weighs both."""
+    if w is None:
+        elected = torch.sign(torch.sum(trimmed, dim=client_dim, keepdim=True))
+        elected = torch.where(elected == 0.0, torch.ones_like(elected), elected)
+        agree = (torch.sign(trimmed) == elected) & (trimmed != 0.0)
+        num = torch.sum(torch.where(agree, trimmed, 0.0), dim=client_dim)
+        den = torch.clamp_min(torch.sum(agree.to(torch.float32), dim=client_dim), 1.0)
+    else:
+        elected = torch.sign(torch.sum(w * trimmed, dim=client_dim, keepdim=True))
+        elected = torch.where(elected == 0.0, torch.ones_like(elected), elected)
+        agree = (torch.sign(trimmed) == elected) & (trimmed != 0.0)
+        num = torch.sum(torch.where(agree, w * trimmed, 0.0), dim=client_dim)
+        # A weighted count is zero only where num is zero too: 0 / eps = 0.
+        den = torch.clamp_min(torch.sum(w * agree.to(torch.float32), dim=client_dim), 1e-12)
+    return num / den
+
+
+def _ties_leaf(leaf: torch.Tensor, keep: float, scale: float, w=None) -> torch.Tensor:
+    """TIES on one stacked leaf: (clients, ...) -> (...).  Each client keeps
+    its top ``max(int(keep * d), 1)`` entries by magnitude."""
+    n_clients = leaf.shape[0]
+    flat = leaf.reshape(n_clients, -1).to(torch.float32)
+    k = max(int(keep * flat.shape[1]), 1)
+    absx = torch.abs(flat)
+    kth = torch.topk(absx, k, dim=1).values[:, -1:]  # per-client k-th largest
+    trimmed = torch.where(absx >= kth, flat, 0.0)
+    merged = scale * _ties_elect(trimmed, 0, None if w is None else w[:, None])
+    return merged.reshape(leaf.shape[1:]).to(leaf.dtype)
+
+
+def ties_merging(stacked: Tree, keep: float = 0.1, scale: float = 1.0, mask=None,
+                 weights=None) -> Tree:
+    w = _client_weights(mask, weights, _device_of(stacked))
+    return tree_map(lambda x: _ties_leaf(x, keep, scale, w), stacked)
 
 
 # ---------------------------------------------------------------------------
@@ -369,9 +503,20 @@ def client_flag_vector(diag):
 # ---------------------------------------------------------------------------
 
 _SIMPLE = {
-    "fedavg": lambda stacked, cfg, mask, weights: fedavg(stacked, mask=mask, weights=weights),
-    "task_arithmetic": lambda stacked, cfg, mask, weights: task_arithmetic(
+    "fedavg": lambda stacked, cfg, key, mask, weights: fedavg(
+        stacked, mask=mask, weights=weights
+    ),
+    "task_arithmetic": lambda stacked, cfg, key, mask, weights: task_arithmetic(
         stacked, cfg.beta, mask=mask, weights=weights
+    ),
+    "ties": lambda stacked, cfg, key, mask, weights: ties_merging(
+        stacked, cfg.ties_keep, cfg.ties_scale, mask=mask, weights=weights
+    ),
+    "fedexp": lambda stacked, cfg, key, mask, weights: fedexp(
+        stacked, mask=mask, weights=weights
+    ),
+    "dare": lambda stacked, cfg, key, mask, weights: dare(
+        stacked, cfg.dare_drop, key, mask=mask, weights=weights
     ),
 }
 
@@ -403,8 +548,8 @@ def aggregate(
     kernels on the card); ``engine="reference"`` the per-leaf plain path.
     ``mask`` is a per-client validity vector (padded cohort slots 0);
     ``weights`` raw nonnegative per-client weights, mask-zeroed and
-    normalized here.  ``key`` seeds stochastic methods, none of which is
-    ported yet.
+    normalized here.  ``key`` (an int or a sequence of ints) seeds dare,
+    which requires it; both engines draw the same keep masks from it.
 
     ``mesh`` (a ``launch.mesh.ClientMesh``) shards the packed client axis of
     the packed engine; the work then runs on the mesh's devices, the
@@ -422,10 +567,8 @@ def aggregate(
         raise ValueError(
             f"unknown svt_mode: {cfg.svt_mode!r} (expected one of {rpca_lib.SVT_MODES})"
         )
-    if cfg.method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method {cfg.method!r} is not ported yet (ROADMAP.md queue 1, item 3)"
-        )
+    if cfg.method == "dare" and key is None:
+        raise ValueError("dare requires an explicit PRNG key (got key=None)")
     dev = backend.resolve_device(device)
     if rpca_lib.mesh_client_shards(mesh) > 1:
         if engine == "reference":
@@ -443,13 +586,13 @@ def aggregate(
         from repro_torch.core import engine as engine_lib
 
         return engine_lib.aggregate_packed(
-            stacked, cfg, shrink_fn=shrink_fn, mask=mask, weights=weights,
+            stacked, cfg, shrink_fn=shrink_fn, key=key, mask=mask, weights=weights,
             with_diagnostics=with_diagnostics, mesh=mesh,
         )
     if engine != "reference":
         raise ValueError(f"unknown engine: {engine!r} (expected one of {ENGINES})")
     if cfg.method in _SIMPLE:
-        out = _SIMPLE[cfg.method](stacked, cfg, mask, weights)
+        out = _SIMPLE[cfg.method](stacked, cfg, key, mask, weights)
         return (out, {}) if with_diagnostics else out
     if cfg.method == "fedrpca":
         return fedrpca(

@@ -23,7 +23,9 @@ small products stay ``torch.linalg`` / ``torch.matmul``.
 The JAX loops are ``fori_loop`` / ``while_loop`` / ``lax.cond``; here they are
 Python loops and ``if``s, so the subspace routing and the tolerance loop read
 a scalar from the device once per ADMM iteration.  Cross-round carries
-(``carry=`` / ``return_carry=``) raise until ROADMAP.md queue 1, item 1.
+(``carry=`` / ``return_carry=``, a ``BucketCarry``) warm-start a call from the
+previous round's fixed point; their gate is computed on the device and read
+on the host once a call.
 """
 from __future__ import annotations
 
@@ -39,12 +41,6 @@ _EPS = 1e-12
 
 #: Valid ``svt_mode`` values.
 SVT_MODES = ("gram", "subspace")
-
-_CARRY_TODO = (
-    "cross-round RPCA carries (carry= / return_carry=) are not ported yet "
-    "(ROADMAP.md queue 1, item 1)"
-)
-
 
 def soft_threshold(x: torch.Tensor, t) -> torch.Tensor:
     """Elementwise shrinkage ``sign(x) * max(|x| - t, 0)``."""
@@ -336,18 +332,87 @@ class RPCAResult(NamedTuple):
     n_fallback: int = 0
 
 
-def _refuse_carry(carry, return_carry):
-    if carry is not None or return_carry:
-        raise NotImplementedError(_CARRY_TODO)
+class BucketCarry(NamedTuple):
+    """Cross-round warm-start state of one bucket's RPCA.
+
+    The exit iterates ``l``, ``s`` and the dual ``y`` (float32, bucket
+    layout (B, padded_vec, d2)), the subspace basis ``v`` (B, d2, r) with
+    its live ranks ``n_live``, and the gate's scalars: a warm start is taken
+    only when ``valid`` is set, the cohort fingerprint ``n_eff`` matches and
+    every module's initial relative residual ``||M - l - s|| / ||M||`` is at
+    most ``carry_gate`` (a cold start scores exactly 1.0).  ``fall_count``
+    and ``hit`` describe the call that produced the carry: its exact-eigh
+    steps and whether it warm-started."""
+
+    l: torch.Tensor
+    s: torch.Tensor
+    y: torch.Tensor
+    v: torch.Tensor
+    n_live: torch.Tensor
+    n_eff: torch.Tensor  # () float32 cohort fingerprint at save time
+    valid: torch.Tensor  # () bool: the carry holds real state
+    fall_count: torch.Tensor  # () int32 exact-eigh steps of the producing call
+    hit: torch.Tensor  # () float32: 1.0 iff the producing call warm-started
+
+
+def init_bucket_carry(
+    n_modules: int, padded_vec: int, d2: int, svt_rank: int,
+    true_cols: int | None = None, device="cuda",
+) -> BucketCarry:
+    """Empty (invalid) carry with the shapes of one bucket on ``device``
+    (``"cuda"`` unless the caller asks for the CPU).  ``true_cols`` must be
+    the value the consuming call passes, or the basis widths disagree."""
+    dev = backend.resolve_device(device)
+    r = subspace_rank(d2, svt_rank, true_cols)
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+    return BucketCarry(
+        l=z(n_modules, padded_vec, d2), s=z(n_modules, padded_vec, d2),
+        y=z(n_modules, padded_vec, d2), v=z(n_modules, d2, r),
+        n_live=torch.zeros((n_modules,), dtype=torch.int32, device=dev),
+        n_eff=z(), valid=torch.zeros((), dtype=torch.bool, device=dev),
+        fall_count=torch.zeros((), dtype=torch.int32, device=dev), hit=z(),
+    )
+
+
+def _check_carry(carry, shape, basis_shape=None) -> None:
+    if tuple(carry.l.shape) != tuple(shape):
+        raise ValueError(f"carry shape {tuple(carry.l.shape)} does not match bucket {tuple(shape)}")
+    if basis_shape is not None and tuple(carry.v.shape) != tuple(basis_shape):
+        raise ValueError(
+            f"carry basis shape {tuple(carry.v.shape)} != {tuple(basis_shape)}; "
+            "was the carry built with a different svt_rank?"
+        )
+
+
+def _warm_gate(carry, init_sq, m_norm, n_eff, carry_gate) -> bool:
+    """The warm-start gate over the whole bucket, computed on ``m_norm``'s
+    device and read on the host once: valid, the same n_eff fingerprint, and
+    every module's initial relative residual (from its squared norm
+    ``init_sq``) within ``carry_gate``."""
+    dev = m_norm.device
+    init_err = torch.sqrt(init_sq) / m_norm
+    warm = (carry.valid.to(dev) & (carry.n_eff.to(dev) == n_eff)
+            & torch.all(init_err <= carry_gate))
+    return bool(warm)
+
+
+def _new_carry(l, s, y, v, n_live, n_eff, falls: int, warm: bool) -> BucketCarry:
+    dev = l.device
+    return BucketCarry(
+        l=l, s=s, y=y, v=v.contiguous(), n_live=n_live.to(torch.int32),
+        n_eff=torch.as_tensor(n_eff, dtype=torch.float32, device=dev).reshape(()),
+        valid=torch.ones((), dtype=torch.bool, device=dev),
+        fall_count=torch.tensor(falls, dtype=torch.int32, device=dev),
+        hit=torch.tensor(float(warm), dtype=torch.float32, device=dev),
+    )
 
 
 def _routes_to_bucket(m, svt_fn, svt_mode, carry, return_carry) -> bool:
     """Validate a per-matrix call; True when it runs the B=1 bucket loop
-    (subspace mode), False for the per-matrix gram loop."""
+    (subspace mode, or any carry), False for the per-matrix gram loop."""
     if m.ndim != 2:
         raise ValueError(f"robust_pca expects a 2-D matrix, got shape {tuple(m.shape)}")
-    _refuse_carry(carry, return_carry)
-    if svt_mode == "gram":
+    if svt_mode == "gram" and carry is None and not return_carry:
         return False
     if svt_fn is not svt_gram:
         raise ValueError(
@@ -374,15 +439,19 @@ def _matrix_constants(m, mu, lam):
 
 
 def _matrix_bucket(m, *, n_iter, tol, mu, lam, shrink_fn, svt_mode, svt_rank,
-                   svt_sweeps, svt_fallback_tol):
-    """Subspace-mode per-matrix RPCA: the B=1 bucket loop on the plain tail."""
+                   svt_sweeps, svt_fallback_tol, carry, return_carry, carry_gate):
+    """Per-matrix RPCA through the B=1 bucket loop on the plain tail; a
+    B=1 ``BucketCarry`` threads through it in either SVT mode."""
     res = _bucket_admm(
         m[None], None, n_iter=n_iter, tol=tol, mu=mu, lam=lam, shrink_fn=shrink_fn,
         use_kernel=False, client_mask=None, svt_mode=svt_mode, svt_rank=svt_rank,
         svt_sweeps=svt_sweeps, svt_fallback_tol=svt_fallback_tol, true_cols=None,
+        carry=carry, return_carry=return_carry, carry_gate=carry_gate,
     )
-    return RPCAResult(res.low_rank[0], res.sparse[0], res.n_iter[0], res.residual[0],
-                      res.n_fallback)
+    res, new_carry = res if return_carry else (res, None)
+    out = RPCAResult(res.low_rank[0], res.sparse[0], res.n_iter[0], res.residual[0],
+                     res.n_fallback)
+    return (out, new_carry) if return_carry else out
 
 
 def robust_pca(
@@ -404,13 +473,15 @@ def robust_pca(
 ) -> RPCAResult:
     """Decompose a 2-D ``m`` into low-rank + sparse, iterating until the
     relative residual passes ``tol`` or ``max_iter`` runs out.  Subspace
-    mode routes through the B=1 bucket loop (plain tail, as the reference
-    does with ``fused_tail=False``)."""
+    mode and any carry route through the B=1 bucket loop (plain tail, as the
+    reference does with ``fused_tail=False``); ``return_carry=True`` returns
+    ``(result, BucketCarry)``."""
     if _routes_to_bucket(m, svt_fn, svt_mode, carry, return_carry):
         return _matrix_bucket(
             m, n_iter=max_iter, tol=tol, mu=mu, lam=lam, shrink_fn=shrink_fn,
             svt_mode=svt_mode, svt_rank=svt_rank, svt_sweeps=svt_sweeps,
-            svt_fallback_tol=svt_fallback_tol,
+            svt_fallback_tol=svt_fallback_tol, carry=carry, return_carry=return_carry,
+            carry_gate=carry_gate,
         )
     orig_dtype = m.dtype
     m = m.to(torch.float32)
@@ -446,12 +517,14 @@ def robust_pca_fixed_iters(
     return_carry: bool = False,
     carry_gate: float = 1.0,
 ) -> RPCAResult:
-    """Fixed-iteration RPCA of a 2-D ``m`` (deterministic cost)."""
+    """Fixed-iteration RPCA of a 2-D ``m`` (deterministic cost); carries
+    as in ``robust_pca``."""
     if _routes_to_bucket(m, svt_fn, svt_mode, carry, return_carry):
         return _matrix_bucket(
             m, n_iter=n_iter, tol=None, mu=mu, lam=lam, shrink_fn=shrink_fn,
             svt_mode=svt_mode, svt_rank=svt_rank, svt_sweeps=svt_sweeps,
-            svt_fallback_tol=svt_fallback_tol,
+            svt_fallback_tol=svt_fallback_tol, carry=carry, return_carry=return_carry,
+            carry_gate=carry_gate,
         )
     orig_dtype = m.dtype
     m = m.to(torch.float32)
@@ -525,24 +598,31 @@ def robust_pca_bucket(
 
     ``svt_mode="subspace"`` runs the warm-started subspace SVT; ``true_cols``
     caps its width by the live cohort count when the bucket is padded.
+
+    ``carry`` (a ``BucketCarry``) warm-starts L, S, Y and, in subspace mode,
+    the basis, so iteration 0 takes the Ritz attempt; the carried iterates
+    are re-masked by ``client_mask`` on load.  The gate (valid, equal
+    n_eff, every initial relative residual within ``carry_gate``) is read on
+    the host once a call; a rejected carry runs the carry-less program, bit
+    for bit.  ``return_carry=True`` returns ``(result, BucketCarry)``.
     """
     if m.ndim != 3:
         raise ValueError(f"robust_pca_bucket expects (B, d1, d2), got {tuple(m.shape)}")
     if svt_mode not in SVT_MODES:
         raise ValueError(f"unknown svt_mode: {svt_mode!r} (expected one of {SVT_MODES})")
-    _refuse_carry(carry, return_carry)
     return _bucket_admm(
         m, true_dims, n_iter=n_iter, tol=tol, mu=mu, lam=lam, shrink_fn=shrink_fn,
-        use_kernel=m.is_cuda, client_mask=client_mask, svt_mode=svt_mode,
+        use_kernel=backend.use_kernel(m), client_mask=client_mask, svt_mode=svt_mode,
         svt_rank=svt_rank, svt_sweeps=svt_sweeps, svt_fallback_tol=svt_fallback_tol,
-        true_cols=true_cols,
+        true_cols=true_cols, carry=carry, return_carry=return_carry, carry_gate=carry_gate,
     )
 
 
 def _bucket_admm(
     m, true_dims, *, n_iter, tol, mu, lam, shrink_fn, use_kernel, client_mask,
     svt_mode, svt_rank, svt_sweeps, svt_fallback_tol, true_cols,
-) -> RPCAResult:
+    carry=None, return_carry=False, carry_gate=1.0,
+):
     orig_dtype = m.dtype
     dev = m.device
     m = m.to(torch.float32).contiguous()
@@ -575,6 +655,19 @@ def _bucket_admm(
     m_norm = torch.clamp_min(torch.sqrt(torch.sum(m * m, dim=(1, 2))), _EPS)
     rho3, mu3, th3 = rho[:, None, None], mu_v[:, None, None], thresh[:, None, None]
     use_subspace = svt_mode == "subspace"
+    r = subspace_rank(d2, svt_rank, true_cols)
+
+    warm = False
+    if carry is not None:
+        _check_carry(carry, m.shape, (b, d2, r) if use_subspace else None)
+        cl, cs, cy = (t.to(device=dev, dtype=torch.float32) for t in (carry.l, carry.s, carry.y))
+        if cmask is not None:
+            # A carry saved under another active set may hold nonzeros in
+            # columns masked now: re-mask on load so padded slots stay inert.
+            cl, cs, cy = cl * cmask, cs * cmask, cy * cmask
+        init_res = m - cl - cs
+        warm = _warm_gate(carry, torch.sum(init_res * init_res, dim=(1, 2)), m_norm,
+                          torch.as_tensor(n_eff, dtype=torch.float32, device=dev), carry_gate)
 
     if use_kernel:
         if shrink_fn is not soft_threshold:
@@ -609,8 +702,10 @@ def _bucket_admm(
     if use_subspace:
 
         def step(l, s, y, sub, it):
+            # A warm start is never cold: the carried basis tracks the
+            # carried iterates, so iteration 0 already takes the Ritz attempt.
             p, sub, fell = svt_subspace_step(
-                rho, sub, cold=it == 0, sweeps=svt_sweeps,
+                rho, sub, cold=it == 0 and not warm, sweeps=svt_sweeps,
                 fallback_tol=svt_fallback_tol, shrink_fn=shrink_fn,
             )
             if use_kernel:
@@ -625,13 +720,23 @@ def _bucket_admm(
                 g2 = x2.mT @ x2
             return l, s2, y2, rnorm / m_norm, sub._replace(g=g2), fell
 
-        r = subspace_rank(d2, svt_rank, true_cols)
-        sub = SubspaceState(
-            v=torch.eye(d2, r, dtype=torch.float32, device=dev).expand(b, d2, r),
-            g=m.mT @ m,
-            n_live=torch.full((b,), r, dtype=torch.int32, device=dev),
-            rel=torch.full((b,), math.inf, dtype=torch.float32, device=dev),
-        )
+        if warm:
+            # The Gram of the initial iterate X0 = M - S0 + rho Y0, and the
+            # carried basis and live ranks with half the fallback tolerance.
+            x0 = m - cs + rho3 * cy
+            sub = SubspaceState(
+                v=carry.v.to(device=dev, dtype=torch.float32).contiguous(),
+                g=x0.mT @ x0,
+                n_live=carry.n_live.to(device=dev, dtype=torch.int32),
+                rel=torch.full((b,), 0.5 * svt_fallback_tol, dtype=torch.float32, device=dev),
+            )
+        else:
+            sub = SubspaceState(
+                v=torch.eye(d2, r, dtype=torch.float32, device=dev).expand(b, d2, r),
+                g=m.mT @ m,
+                n_live=torch.full((b,), r, dtype=torch.int32, device=dev),
+                rel=torch.full((b,), math.inf, dtype=torch.float32, device=dev),
+            )
     else:
 
         def step(l, s, y, sub, it):
@@ -641,8 +746,11 @@ def _bucket_admm(
 
         sub = None
 
-    zeros = torch.zeros_like(m)
-    l, s, y = zeros, zeros, zeros
+    if warm:
+        l, s, y = cl, cs, cy
+    else:
+        zeros = torch.zeros_like(m)
+        l, s, y = zeros, zeros, zeros
     err = torch.full((b,), math.inf, dtype=torch.float32, device=dev)
     falls = 0
     if tol is None:
@@ -673,7 +781,18 @@ def _bucket_admm(
 
     if cmask is not None:
         l = l * cmask
-    return RPCAResult(l.to(orig_dtype), s.to(orig_dtype), n_done, err, falls)
+    result = RPCAResult(l.to(orig_dtype), s.to(orig_dtype), n_done, err, falls)
+    if not return_carry:
+        return result
+    if use_subspace:
+        v_out, nl_out = sub.v, sub.n_live
+    elif carry is not None:
+        # Gram mode tracks no basis: the incoming one passes through.
+        v_out, nl_out = carry.v.to(dev), carry.n_live.to(dev)
+    else:
+        v_out = torch.zeros((b, d2, r), dtype=torch.float32, device=dev)
+        nl_out = torch.zeros((b,), dtype=torch.int32, device=dev)
+    return result, _new_carry(l, s, y, v_out, nl_out, n_eff, falls, warm)
 
 
 # ---------------------------------------------------------------------------
@@ -749,6 +868,10 @@ def robust_pca_bucket_sharded(
     every sum, and sliced back on exit.  ``n_fallback`` counts the exact
     iterations of subspace mode, the cold one included.
 
+    A ``carry`` is split by client columns (L, S, Y) and basis rows (v),
+    padded with the ragged columns, gated on psum'd sums read once on the
+    first shard's device, and reassembled on exit, as in the unsharded loop.
+
     ``mesh_overlap=True`` cuts every psum and every tail-kernel call into
     B chunks, as the reference's overlap schedule does.  No value changes:
     psums are elementwise and a kernel's per-module results do not depend
@@ -768,19 +891,20 @@ def robust_pca_bucket_sharded(
         raise ValueError(f"robust_pca_bucket expects (B, d1, d2), got {tuple(m.shape)}")
     if svt_mode not in SVT_MODES:
         raise ValueError(f"unknown svt_mode: {svt_mode!r} (expected one of {SVT_MODES})")
-    _refuse_carry(carry, return_carry)
     return _sharded_admm(
         m, true_dims, mesh=mesh, n_iter=n_iter, tol=tol, mu=mu, lam=lam,
         shrink_fn=shrink_fn, client_mask=client_mask, svt_mode=svt_mode,
         svt_rank=svt_rank, svt_sweeps=svt_sweeps, svt_fallback_tol=svt_fallback_tol,
-        mesh_overlap=mesh_overlap, true_cols=true_cols,
+        mesh_overlap=mesh_overlap, true_cols=true_cols, carry=carry,
+        return_carry=return_carry, carry_gate=carry_gate,
     )
 
 
 def _sharded_admm(
     m, true_dims, *, mesh, n_iter, tol, mu, lam, shrink_fn, client_mask, svt_mode,
     svt_rank, svt_sweeps, svt_fallback_tol, mesh_overlap, true_cols,
-) -> RPCAResult:
+    carry=None, return_carry=False, carry_gate=1.0,
+):
     devs = mesh.devices
     d0 = devs[0]
     n_sh = len(devs)
@@ -790,6 +914,8 @@ def _sharded_admm(
     b, d1p, d2 = m.shape
     # The rank cap keeps the true d2; padding columns only fill the shards.
     r = subspace_rank(d2, svt_rank, true_cols)
+    if carry is not None:
+        _check_carry(carry, m.shape, (b, d2, r))
     if true_dims is None:
         true_dims = torch.full((b,), d1p, dtype=torch.int32)
     dims_f = true_dims.to(device=d0, dtype=torch.float32)
@@ -799,6 +925,13 @@ def _sharded_admm(
     if d2p != d2:
         m = torch.nn.functional.pad(m, (0, d2p - d2))
         cmask = torch.nn.functional.pad(cmask, (0, d2p - d2))
+        if carry is not None:
+            padc = lambda t: torch.nn.functional.pad(t.to(m.device, torch.float32), (0, d2p - d2))
+            carry = carry._replace(
+                l=padc(carry.l), s=padc(carry.s), y=padc(carry.y),
+                v=torch.nn.functional.pad(carry.v.to(m.device, torch.float32),
+                                          (0, 0, 0, d2p - d2)),
+            )
     d2_loc = d2p // n_sh
     cols = [slice(k * d2_loc, (k + 1) * d2_loc) for k in range(n_sh)]
     cm = [cmask[c].to(dev).contiguous() for c, dev in zip(cols, devs)]
@@ -825,6 +958,14 @@ def _sharded_admm(
     rho_k, mu_k, th_k = rep(rho), rep(mu_v), rep(thresh)
     rho3 = [x[:, None, None] for x in rho_k]
     use_subspace = svt_mode == "subspace"
+
+    warm = False
+    if carry is not None:
+        part = lambda t, k: t[:, :, cols[k]].to(device=devs[k], dtype=torch.float32) * cm[k]
+        cl, cs, cy = ([part(t, k) for k in range(n_sh)] for t in (carry.l, carry.s, carry.y))
+        init_sq = psum([torch.sum((x - a - c) ** 2, dim=(1, 2))
+                        for x, a, c in zip(mk, cl, cs)])[0]
+        warm = _warm_gate(carry, init_sq, m_norm, n_eff, carry_gate)
 
     # B chunks of the overlap schedule: one chunk unless mesh_overlap.
     bsl = [(0, b)]
@@ -967,7 +1108,7 @@ def _sharded_admm(
             s2, y2, rnorm = tail_exact(l, y)
             return l, s2, y2, rnorm / m_norm, sub, False
         v, n_live, rel = sub
-        svt, v2, live2, rel2, fell = svt_step(x, v, n_live, rel, cold=it == 0)
+        svt, v2, live2, rel2, fell = svt_step(x, v, n_live, rel, cold=it == 0 and not warm)
         if svt[0] == "exact":
             l = svt[1]
             s2, y2, rnorm = tail_exact(l, y)
@@ -976,14 +1117,24 @@ def _sharded_admm(
         return l, s2, y2, rnorm / m_norm, (v2, live2, rel2), fell
 
     sub = None
-    if use_subspace:
+    if use_subspace and warm:
+        sub = (
+            [carry.v[:, c, :].to(device=dev, dtype=torch.float32).contiguous()
+             for c, dev in zip(cols, devs)],
+            carry.n_live.to(device=d0, dtype=torch.int32),
+            torch.full((b,), 0.5 * svt_fallback_tol, dtype=torch.float32, device=d0),
+        )
+    elif use_subspace:
         eye = torch.eye(d2p, r, dtype=torch.float32)
         sub = (
             [eye[c].to(dev).expand(b, d2_loc, r) for c, dev in zip(cols, devs)],
             torch.full((b,), r, dtype=torch.int32, device=d0),
             torch.full((b,), math.inf, dtype=torch.float32, device=d0),
         )
-    l, s, y = ([torch.zeros_like(x) for x in mk] for _ in range(3))
+    if warm:
+        l, s, y = cl, cs, cy
+    else:
+        l, s, y = ([torch.zeros_like(x) for x in mk] for _ in range(3))
     err = torch.full((b,), math.inf, dtype=torch.float32, device=d0)
     falls = 0
     if tol is None:
@@ -1012,10 +1163,26 @@ def _sharded_admm(
             n_done = torch.where(active, torch.full_like(n_done, i), n_done)
             falls += int(fell)
 
-    def gather(parts):
-        return mesh.all_gather(parts, dim=2)[:, :, :d2].to(device=out_dev, dtype=orig_dtype)
+    def gather(parts, dim=2):
+        """The shards' parts joined along ``dim``, the ragged padding sliced
+        off, on ``m``'s device in float32."""
+        full = mesh.all_gather(parts, dim=dim)
+        return full.narrow(dim, 0, d2).to(out_dev)
 
-    return RPCAResult(
-        gather([lk * ck for lk, ck in zip(l, cm)]), gather(s), n_done.to(out_dev),
+    l = [lk * ck for lk, ck in zip(l, cm)]
+    l_full = gather(l)
+    result = RPCAResult(
+        l_full.to(orig_dtype), gather(s).to(orig_dtype), n_done.to(out_dev),
         err.to(out_dev), falls,
     )
+    if not return_carry:
+        return result
+    if use_subspace:
+        v_out, nl_out = gather(sub[0], dim=1), sub[1]
+    elif carry is not None:
+        v_out, nl_out = carry.v[:, :d2], carry.n_live
+    else:
+        v_out = torch.zeros((b, d2, r), dtype=torch.float32)
+        nl_out = torch.zeros((b,), dtype=torch.int32)
+    return result, _new_carry(l_full, gather(s), gather(y), v_out.to(out_dev),
+                              nl_out.to(out_dev), n_eff.to(out_dev), falls, warm)

@@ -10,10 +10,13 @@ Minibatch indices come from an index stream: by default a CPU
 same batches on every device), or the ``batch_indices`` callable a caller
 injects.  ``mesh_shards > 1`` shards every aggregation's client axis over
 ``launch.mesh.make_host_mesh(mesh_shards)`` on the run's device (the
-reference engine warns and runs unsharded).  Each of these raises until its
+reference engine warns and runs unsharded).  ``carry_mode != "none"`` (packed
+engine, fedrpca) makes the rounds one aggregation session: the plan is built
+once from ``lora_template`` and the carry rides on ``RoundState.agg_carry``.
+DARE's key for round t is ``(cfg.seed, t)``.  Each of these raises until its
 later ROADMAP.md item: ``clients_per_round`` below the client count,
-``pipeline=True``, ``faults``, a ``guard`` config, a non-dense ``uplink``,
-``client_ranks`` and ``carry_mode != "none"``.
+``pipeline=True``, ``faults``, a ``guard`` config, a non-dense ``uplink`` and
+``client_ranks``.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import engine as engine_lib
 from repro_torch.core.aggregators import (
     CARRY_MODES,
     WEIGHTINGS,
@@ -104,7 +108,6 @@ def _check_config(cfg: FedRunConfig, n_clients: int) -> None:
         )
     todo = [
         (sample_size < n_clients, "partial participation (clients_per_round)", "queue 1, item 2"),
-        (cfg.aggregator.carry_mode != "none", "cross-round carries (carry_mode)", "queue 1, item 1"),
         (cfg.pipeline, "the async round pipeline", "queue 1, item 5"),
         (cfg.faults is not None, "fault injection", "queue 1, item 5"),
         (cfg.guard not in (None, False), "the update quarantine (guard)", "queue 1, item 5"),
@@ -124,7 +127,7 @@ def _default_indices(state: RoundState, n_clients: int, n_local: int, spec: Loca
 
 def make_round_fn(
     base: Tree, data_x, data_y, cfg: FedRunConfig, client_weights=None,
-    batch_indices: Optional[Callable[[int], Any]] = None,
+    batch_indices: Optional[Callable[[int], Any]] = None, lora_template: Tree | None = None,
 ) -> Callable:
     """Returns fn: (RoundState, n_active=None) -> (RoundState, diagnostics).
 
@@ -141,6 +144,13 @@ def make_round_fn(
     under ``weighting="data_size"`` / ``"data_size_rpca"``.  With
     ``cfg.mesh_shards > 1`` every aggregation runs on a mesh of that many
     client shards on ``data_x``'s device.
+
+    ``carry_mode != "none"`` with the packed engine and fedrpca needs
+    ``lora_template`` (one client's LoRA tree, e.g. the ``lora_init`` of
+    ``init_round_state``) to plan the session once; the per-bucket carry
+    then rides on ``RoundState.agg_carry`` and the diagnostics gain
+    ``fallback_count``, ``live_rank_mean`` and ``carry_hit_rate``.  The
+    reference engine ignores ``carry_mode``.
     """
     n_clients, n_local = data_x.shape[0], data_x.shape[1]
     _check_config(cfg, n_clients)
@@ -169,6 +179,22 @@ def make_round_fn(
             )
         w_all = torch.as_tensor(np.asarray(client_weights), dtype=torch.float32, device=dev)
 
+    # Cross-round carry: packed-engine fedrpca only (the reference engine is
+    # the stateless parity oracle).
+    plan = None
+    if (agg_cfg.carry_mode != "none" and cfg.engine == "packed"
+            and agg_cfg.method == "fedrpca"):
+        if lora_template is None:
+            raise ValueError(
+                f"carry_mode={agg_cfg.carry_mode!r} needs the LoRA structure to plan the "
+                "session: pass lora_template= (e.g. the lora_init given to init_round_state)"
+            )
+        example = tree_map(
+            lambda x: torch.zeros((n_clients, *x.shape), dtype=x.dtype, device=dev),
+            lora_template,
+        )
+        plan = engine_lib.plan_aggregation(example, agg_cfg, mesh=mesh)
+
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     def round_fn(state: RoundState, n_active=None):
@@ -186,7 +212,13 @@ def make_round_fn(
         deltas = results.delta
         sync()
         t1 = time.perf_counter()
-        if agg_cfg.method == "fedrpca":
+        agg_carry = state.agg_carry
+        if plan is not None:
+            update, agg_carry, ediag = engine_lib.aggregate_planned(
+                plan, deltas, agg_carry or None, weights=w_all, with_diagnostics=True,
+            )
+            rpca_diags = rpca_diag_summary(ediag)
+        elif agg_cfg.method == "fedrpca":
             update, ediag = aggregate(
                 deltas, agg_cfg, engine=cfg.engine, weights=w_all, with_diagnostics=True,
                 mesh=mesh, device=dev,
@@ -194,7 +226,7 @@ def make_round_fn(
             rpca_diags = rpca_diag_summary(ediag)
         else:
             update = aggregate(deltas, agg_cfg, engine=cfg.engine, weights=w_all, mesh=mesh,
-                               device=dev)
+                               device=dev, key=(cfg.seed, state.round_idx))
             rpca_diags = {}
         lora_global = tree_map(lambda g, u: g + u, state.lora_global, update)
         finite = torch.stack([torch.isfinite(u).all() for u in tree_leaves(update)]).all()
@@ -216,10 +248,12 @@ def make_round_fn(
             lora_global=lora_global,
             prev_local=results.lora,
             round_idx=state.round_idx + 1,
+            agg_carry=agg_carry,
         )
         return new_state, diags
 
     round_fn.cohort_pad = n_clients
+    round_fn.agg_plan = plan
     return round_fn
 
 
@@ -247,7 +281,9 @@ def run_simulation(
     every ``eval_every`` rounds and after the last; ``log_fn(r, diags)``
     gets the accuracy and the round's diagnostics, timers included.
     ``batch_indices`` injects the minibatch index stream (see
-    ``make_round_fn``).
+    ``make_round_fn``).  With ``carry_mode != "none"`` the rounds form one
+    aggregation session planned from ``lora_init``, and the carry's
+    diagnostics reach ``log_fn``.
     """
     dev = backend.resolve_device(device)
     data_x = torch.as_tensor(data_x).to(dev)
@@ -262,6 +298,7 @@ def run_simulation(
         )
     round_fn = make_round_fn(
         base, data_x, data_y, cfg, client_weights=client_weights, batch_indices=batch_indices,
+        lora_template=lora_init,
     )
     state = init_round_state(lora_init, n_clients, cfg.seed)
     history = []

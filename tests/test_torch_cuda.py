@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch version,
-two launches bit for bit, ``mask=None`` bit for bit an all-ones mask, and a
-bucket RPCA on the card against the same call on the CPU.
+two launches bit for bit, ``mask=None`` bit for bit an all-ones mask, a
+bucket RPCA on the card against the same call on the CPU, carried (warm)
+rounds and sessions on the card against the CPU, and the merging methods.
 
 Every test is marked ``gpu`` and skips without a card.  This file imports
 no JAX, so it runs on a machine that has only PyTorch:
@@ -199,6 +200,108 @@ def test_sharded_aggregate_on_the_card_matches_unsharded(cuda):
     assert svt_subspace.subspace_apply_factored.launches > before
     scale = float(tree["w"].abs().max())
     torch.testing.assert_close(got["w"], base["w"], atol=1e-4 * scale, rtol=0)
+
+
+# --- Cross-round carries and the merging methods on the card ------------------
+def carried_rounds(seed, nc=16, n_valid=12, rounds=3):
+    """Correlated (1, 64, nc) buckets, a rank-2 core drifting by round,
+    columns from ``n_valid`` on zero."""
+    rng = np.random.default_rng(seed)
+    u, w = rng.normal(size=(64, 2)), rng.normal(size=(2, nc))
+    sp = np.where(rng.random((64, nc)) < 0.05, 5.0 * rng.normal(size=(64, nc)), 0.0)
+    out = []
+    for t in range(rounds):
+        m = (u @ (w + 0.02 * t * rng.normal(size=w.shape)) + sp)[None].astype(np.float32)
+        m[..., n_valid:] = 0.0
+        out.append(torch.from_numpy(m))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("svt_mode,tol", [("subspace", None), ("gram", 1e-4)])
+def test_warm_bucket_card_matches_cpu(cuda, svt_mode, tol):
+    """Carried rounds on the card (kernel tails, iteration 0 of a warm
+    subspace call a Ritz attempt through ``subspace_apply``) against the
+    same rounds on the CPU: L and S within 1e-4 of max|M|, the same
+    iterations, fallbacks and hits round by round."""
+    mask = torch.tensor([1.0] * 12 + [0.0] * 4)
+    kw = dict(n_iter=20 if tol is None else 60, tol=tol, svt_mode=svt_mode, true_cols=12,
+              return_carry=True)
+    gc = rpca.init_bucket_carry(1, 64, 16, 8, 12, device=cuda)
+    cc = rpca.init_bucket_carry(1, 64, 16, 8, 12, device="cpu")
+    for i, m in enumerate(carried_rounds(3)):
+        before = (rpca_admm.admm_tail.launches, svt_subspace.subspace_apply.launches,
+                  svt_subspace.subspace_apply.tc_launches)
+        g, gc = rpca.robust_pca_bucket(m.to(cuda), client_mask=mask.to(cuda), carry=gc, **kw)
+        c, cc = rpca.robust_pca_bucket(m, client_mask=mask, carry=cc, **kw)
+        after = (rpca_admm.admm_tail.launches, svt_subspace.subspace_apply.launches,
+                 svt_subspace.subspace_apply.tc_launches)
+        iters = int(g.n_iter.max())
+        want = (iters, 0, 0) if svt_mode == "gram" else (0, iters, iters)
+        assert tuple(a - b for a, b in zip(after, before)) == want
+        scale = float(m.abs().max())
+        for x, y in ((g.low_rank, c.low_rank), (g.sparse, c.sparse)):
+            torch.testing.assert_close(x.cpu(), y, atol=1e-4 * scale, rtol=0)
+        assert torch.equal(g.n_iter.cpu(), c.n_iter)
+        assert int(gc.fall_count) == int(cc.fall_count) == g.n_fallback
+        assert float(gc.hit) == float(cc.hit) == (0.0 if i == 0 else 1.0)
+        assert gc.v.device.type == "cuda" and gc.l.device.type == "cuda"
+        assert not g.low_rank[..., 12:].any() and not gc.y[..., 12:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("svt_mode", ["gram", "subspace"])
+def test_invalid_carry_on_the_card_is_bitwise_cold(cuda, svt_mode):
+    m = carried_rounds(4, rounds=1)[0].to(cuda)
+    kw = dict(n_iter=20, svt_mode=svt_mode)
+    with_c, new = rpca.robust_pca_bucket(m, carry=rpca.init_bucket_carry(1, 64, 16, 8, device=cuda),
+                                         return_carry=True, **kw)
+    without = rpca.robust_pca_bucket(m, **kw)
+    assert torch.equal(with_c.low_rank, without.low_rank)
+    assert torch.equal(with_c.sparse, without.sparse)
+    assert float(new.hit) == 0.0
+
+
+@pytest.mark.gpu
+def test_sharded_session_on_the_card_matches_cpu(cuda):
+    """A warm session on a 2-shard mesh of the card against the unsharded
+    card session and a CPU mesh session: equal fallbacks round by round."""
+    from repro_torch.core import AggregatorConfig, AggSession
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = AggregatorConfig(method="fedrpca", rpca_iters=20, svt_mode="subspace",
+                           carry_mode="subspace")
+    runs = {"mesh": AggSession(cfg, mesh=make_host_mesh(2)), "card": AggSession(cfg),
+            "cpu": AggSession(cfg, mesh=make_host_mesh(2, "cpu"), device="cpu")}
+    for m in carried_rounds(5, nc=10, n_valid=10):
+        tree = {"w": m[0].T.reshape(10, 8, 8).contiguous()}
+        outs = {k: s.step(tree) for k, s in runs.items()}
+        falls = {k: int(d.scalars["fallback_count"]) for k, (_, d) in outs.items()}
+        assert len(set(falls.values())) == 1, falls
+        scale = float(tree["w"].abs().max())
+        for k in ("card", "cpu"):
+            torch.testing.assert_close(outs["mesh"][0]["w"].cpu(), outs[k][0]["w"].cpu(),
+                                       atol=1e-4 * scale, rtol=0)
+    assert float(outs["mesh"][1].scalars["carry_hit_rate"]) == 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["ties", "fedexp", "dare"])
+def test_merging_methods_card_match_cpu(cuda, method):
+    """The card and the CPU draw dare's keep masks from the same CPU
+    generator, so every method agrees within fp32 reduction order."""
+    from repro_torch.core import AggregatorConfig, aggregate
+
+    gen = torch.Generator().manual_seed(6)
+    tree = {"A": torch.randn((6, 2, 8, 3), generator=gen), "w": torch.randn((6, 40), generator=gen)}
+    mask = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0, 1.0])
+    cfg = AggregatorConfig(method=method, dare_drop=0.5)
+    for engine in ("packed", "reference"):
+        got = aggregate(tree, cfg, engine=engine, key=9, mask=mask)
+        want = aggregate(tree, cfg, engine=engine, key=9, mask=mask, device="cpu")
+        for k in tree:
+            assert got[k].device.type == "cuda"
+            torch.testing.assert_close(got[k].cpu(), want[k], atol=1e-6 * 4, rtol=0)
 
 
 # --- Serving kernels -----------------------------------------------------------

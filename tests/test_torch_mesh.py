@@ -260,14 +260,6 @@ def test_shard_counts_agree(svt_mode):
         assert got.n_fallback == one.n_fallback
 
 
-@pytest.mark.parametrize("what", ["carry", "return_carry"])
-def test_sharded_carries_raise_until_ported(what):
-    m = torch.from_numpy(planted_bucket(0))
-    kw = {"carry": object()} if what == "carry" else {"return_carry": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rpca.robust_pca_bucket_sharded(m, mesh=cpu_mesh(2), svt_mode="subspace", **kw)
-
-
 def test_mesh_helpers():
     mesh = cpu_mesh(3)
     assert isinstance(mesh, ClientMesh) and mesh.devices == (torch.device("cpu"),) * 3

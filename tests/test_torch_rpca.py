@@ -96,14 +96,6 @@ def test_custom_shrink_on_a_cpu_bucket_matches_jax(svt_mode):
     assert np.all(got.sparse.numpy()[..., 6:] == 0)
 
 
-@pytest.mark.parametrize("what", ["carry", "return_carry"])
-def test_carries_raise_until_ported(what):
-    m = torch.from_numpy(planted(2, 1, 16, 4))
-    kw = {"carry": object()} if what == "carry" else {"return_carry": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rpca.robust_pca_bucket(m, **kw)
-
-
 @pytest.mark.parametrize("svt_mode", ["gram", "subspace"])
 @pytest.mark.parametrize("driver", ["fixed", "tol"])
 def test_per_matrix_drivers_match_jax(svt_mode, driver):
