@@ -15,8 +15,10 @@ Phases (any failed check raises and the script exits non-zero):
      beside them (``call_ms``):
      ``admm_tail`` and ``subspace_apply`` at every bucket shape paths A and
      B launch them at (path B's ViT-B/32 LoRA bucket: 48 modules x 4096
-     rows, 3072 of them live, 40 dense clients and 20 of 32; path A's
-     2 x 4096 x 20 bucket), timed there, and at ragged shapes,
+     rows, 3072 of them live, 40 dense clients, 20 of 32, and 32 slots
+     with holes, slots 3, 7 and 20-31 off, as dropout, stragglers and the
+     quarantine leave them; path A's 2 x 4096 x 20 bucket), timed there,
+     and at ragged shapes (d2 = 130 dense and with holes),
      ``mask=None`` the bits of an all-ones mask, each shape's
      ``subspace_apply`` route printed and held to ``svt_subspace.route``
      (tensor cores in 3xTF32 up to d2 = 128, fp32 FMA above); ``lora_matmul`` and ``gathered_lora_matmul`` at
@@ -97,15 +99,29 @@ Phases (any failed check raises and the script exits non-zero):
      re-tiering every 2 rounds; G5 ``run_simulation`` with the carry on path
      A's task, 3 rounds card vs CPU, then 10 rounds beside path A's
      stateless fedrpca.
- 11. The card tests: ``pytest -m gpu tests/test_torch_cuda.py`` in a
+ 11. Main path H, the rest of the federated round, on path A's task at
+     full width, each part also 3 rounds on the card against the CPU on the
+     same inputs: H1 the client objectives of Table 1 and Fig. 5 (fedprox
+     mu 0.01, scaffold and moon mu 0.1 under fedavg; fedrpca+fedprox and
+     fedrpca+scaffold), 10 rounds each beside path A's fedavg; H2 partial
+     participation, 20 of 40 clients in 32 slots, each sampler in both SVT
+     modes on cohorts drawn ahead and given to both devices, and an
+     ``n_active=12`` round; H3 the pipeline: ``pipeline=True, staleness=0``
+     the bits of ``pipeline=False``, staleness 2 landing in order, with
+     each round's ``t_local_s``, ``t_agg_s`` and ``t_overlap_s``; H4 faults
+     at staleness 2 with the guard on (``nan:0.1,dropout:0.2`` and, with
+     deadline cohorts, ``straggler:0.5``): ``screen_clean`` 1 every round,
+     every injected fault caught, a finite global, and a forced non-finite
+     aggregation taking the cold retry and then the masked-FedAvg fallback.
+ 12. The card tests: ``pytest -m gpu tests/test_torch_cuda.py`` in a
      subprocess with its own time limit; any failure, error or skip fails
      the script, and the counts and wall time go on a ``[card tests]``
      line.
- 12. The ``kernels`` JSON line, the wall time, then the result line.
+ 13. The ``kernels`` JSON line, the wall time, then the result line.
 
 Kernel launch counts are set to 0 just before phase 4 and read just after
-phase 5, and set to 0 again just before each of phases 6, 7, 8, 9 and 10
-and read just after it; every kernel must have launched, and each phase exactly
+phase 5, and set to 0 again just before each of phases 6, 7, 8, 9, 10 and
+11 and read just after it; every kernel must have launched, and each phase exactly
 as often as its rounds, ADMM iterations, fallbacks, shards, buckets, layers
 and decode steps say.  Beside them the tensor-route launches of the
 subspace, LoRA and attention kernels are counted: paths A and B must
@@ -136,6 +152,16 @@ SUM_RTOL = 1e-5
 # Card vs CPU after a whole run: eigh (cuSOLVER vs LAPACK) and matmul
 # round-off compounded over 50 ADMM iterations, relative to max |delta|.
 AGG_RTOL = 1e-4
+# A 32-slot cohort with holes: slots 3, 7 and 20-31 off (dropout, stragglers,
+# the quarantine and the trace sampler make such masks).
+H_HOLES = (3, 7, *range(20, 32))
+# Per-client round state (deltas, local models, SCAFFOLD's client variates)
+# card vs CPU, relative to each leaf's norm: an element whose Adam second
+# moment sits near eps moves with its gradient's last bits
+# (tools/round_sensitivity.py: a 1e-7 perturbation of the backbone moves such
+# elements of FedAvg's local models 7.9e-6 past rtol 1e-3 / atol 1e-5, and
+# whole leaves 6.1e-6 of their norm).
+STATE_FRO_RTOL = 1e-4
 
 
 def card_peaks(name: str) -> tuple[float, float]:
@@ -274,9 +300,23 @@ def check_elem(got, want, what: str) -> float:
     return err
 
 
+def client_mask(d2, n_valid):
+    """None (dense), the first ``n_valid`` columns live, or, for a tuple,
+    every column live but those it names (a mask with holes)."""
+    import torch
+
+    if n_valid is None:
+        return None
+    if isinstance(n_valid, tuple):
+        mask = torch.ones(d2)
+        mask[list(n_valid)] = 0.0
+        return mask
+    return (torch.arange(d2) < n_valid).float()
+
+
 def bucket_inputs(gen, b, vec, live_rows, d2, n_valid, device):
     """Bucket tensors as the ADMM loop sees them: rows past ``live_rows``
-    zero, columns past ``n_valid`` of M zero."""
+    zero, the masked columns of M zero (``client_mask``)."""
     import torch
 
     def t(scale=1.0):
@@ -285,9 +325,8 @@ def bucket_inputs(gen, b, vec, live_rows, d2, n_valid, device):
         return x
 
     m, l, s, y = t(), t(), t(0.5), t(0.1)
-    mask = None
-    if n_valid is not None:
-        mask = (torch.arange(d2) < n_valid).float()
+    mask = client_mask(d2, n_valid)
+    if mask is not None:
         m = m * mask
     p = torch.randn((b, d2, d2), generator=gen) / d2**0.5
     rho = torch.rand((b,), generator=gen) + 0.5
@@ -308,11 +347,13 @@ def check_kernels(device, bw, flops) -> dict:
         # (B, vec, live rows, d2, n_valid, label)
         (48, 4096, 3072, 40, None, "main"),
         (48, 4096, 3072, 32, 20, "masked"),
+        (48, 4096, 3072, 32, H_HOLES, "holes"),
         (2, 4096, 3072, 20, None, "path A"),
         (5, 1000, 1000, 1, None, "ragged"),
         (5, 1000, 999, 3, None, "ragged"),
         (3, 1000, 777, 128, 100, "ragged"),
         (3, 1000, 1000, 130, None, "ragged"),
+        (3, 1000, 1000, 130, (0, 5, 64, *range(100, 130)), "ragged"),
     ]
     rec = {}
     for b, vec, live, d2, n_valid, label in shapes:
@@ -340,8 +381,9 @@ def check_kernels(device, bw, flops) -> dict:
             for g, w in zip(got[n_elem:], want[n_elem:]):
                 check_sum(g, w, f"{name} {label} sums")
             if msk is not None:
+                off = msk == 0
                 for g in got[n_elem - 2:n_elem]:  # S', Y': masked columns exactly zero
-                    if bool((g[..., n_valid:] != 0).any()):
+                    if bool((g[..., off] != 0).any()):
                         raise AssertionError(f"{name} {label}: masked column not zero")
             else:
                 ones = torch.ones(d2, device=device)
@@ -350,10 +392,11 @@ def check_kernels(device, bw, flops) -> dict:
                 if not all(torch.equal(u, v) for u, v in zip(got, with_ones)):
                     raise AssertionError(f"{name} {label}: mask=None differs from all-ones")
             errs[name] = err
-        line = (f"[kernels] {label} B={b} vec={vec} live={live} d2={d2} valid={n_valid} "
+        valid = n_valid if not isinstance(n_valid, tuple) else f"{d2 - len(n_valid)}(holes)"
+        line = (f"[kernels] {label} B={b} vec={vec} live={live} d2={d2} valid={valid} "
                 f"subspace_apply route={route}")
         print(line, " ".join(f"{k}_err={v:.3g}" for k, v in errs.items()), flush=True)
-        if label not in ("main", "masked", "path A"):
+        if label not in ("main", "masked", "holes", "path A"):
             continue
         n = b * vec * d2
         for name, run, plain, err in (("admm_tail", a_run, a_ref, errs["admm_tail"]),
@@ -781,7 +824,7 @@ def check_soft_threshold_kernel(bw, fp32_flops) -> dict:
     return rec
 
 
-def make_task(device, pretrain_quality=0.0):
+def make_task(device, pretrain_quality=0.0, n_clients=20):
     from repro_torch.fed import synth
 
     # The paper regime of benchmarks/common.py::make_task (alpha 0.3, noise
@@ -792,7 +835,7 @@ def make_task(device, pretrain_quality=0.0):
     # and no method learns (``regime_probe`` prints the evidence every run);
     # path A uses a random backbone, quality 0.
     return synth.make_synth_task(
-        n_clients=20, n_classes=20, d_in=768, d_feat=768, n_per_client=64, n_test=1024,
+        n_clients=n_clients, n_classes=20, d_in=768, d_feat=768, n_per_client=64, n_test=1024,
         alpha=0.3, lora_rank=4, lora_alpha=8.0, pretrain_quality=pretrain_quality, noise=0.3,
         domain_shift_scale=4.0, seed=1, device=device,
     )
@@ -817,24 +860,169 @@ def regime_probe() -> None:
               flush=True)
 
 
-def run_fed(task, method, svt_mode, rounds, device, log=None, mesh_shards=0, lora0=None,
-            batch_indices=None, seed=0, **agg):
+def fed_config(task, method, svt_mode, rounds, seed=0, mesh_shards=0, local_kw=None,
+               cfg_kw=None, **agg):
+    """Path A's run configuration: Adam 1e-2, 8 local steps of 32 examples,
+    50 ADMM iterations; ``local_kw`` (client objectives), ``cfg_kw`` (run
+    options) and ``agg`` (aggregator fields) pass through."""
     from repro_torch.core import AggregatorConfig
-    from repro_torch.fed import FedRunConfig, LocalSpec, run_simulation, synth
+    from repro_torch.fed import FedRunConfig, LocalSpec, synth
     from repro_torch.optim import make_optimizer
 
     local = LocalSpec(
         loss_fn=lambda base, lora, batch: synth.loss_fn(base, lora, batch, task.lora_scale),
+        feature_fn=lambda base, lora, x: synth.features(base, lora, x, task.lora_scale),
         optimizer=make_optimizer("adam", 1e-2), local_steps=8, batch_size=32, lr=1e-2,
+        **(local_kw or {}),
     )
-    cfg = FedRunConfig(
+    return FedRunConfig(
         aggregator=AggregatorConfig(method=method, rpca_iters=50, svt_mode=svt_mode, **agg),
-        local=local, rounds=rounds, seed=seed, mesh_shards=mesh_shards,
+        local=local, rounds=rounds, seed=seed, mesh_shards=mesh_shards, **(cfg_kw or {}),
     )
+
+
+def run_fed(task, method, svt_mode, rounds, device, log=None, mesh_shards=0, lora0=None,
+            batch_indices=None, seed=0, local_kw=None, cfg_kw=None, sim_kw=None, **agg):
+    """``run_simulation`` of ``fed_config`` on a planted task; ``sim_kw``
+    (``run_simulation`` arguments) passes through."""
+    from repro_torch.fed import run_simulation, synth
+
+    cfg = fed_config(task, method, svt_mode, rounds, seed, mesh_shards, local_kw, cfg_kw, **agg)
     evalf = lambda l: synth.accuracy(task.base, l, task.test_x, task.test_y, task.lora_scale)
     lora0 = synth.init_lora(task, seed=0) if lora0 is None else lora0
     return run_simulation(task.base, lora0, task.client_x, task.client_y, cfg, evalf,
-                          log_fn=log, batch_indices=batch_indices, device=device)
+                          log_fn=log, batch_indices=batch_indices, device=device,
+                          **(sim_kw or {}))
+
+
+def to_cpu(tree):
+    from repro_torch.utils.pytree import tree_map
+
+    return None if tree is None else tree_map(lambda x: x.cpu(), tree)
+
+
+def rel_fro(got, want) -> float:
+    """Largest leaf error relative to the leaf's norm."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    return max((float((g.cpu().double() - w.double()).norm() / w.double().norm().clamp_min(1e-30))
+                for g, w in zip(tree_leaves(got), tree_leaves(want))), default=0.0)
+
+
+class PhaseCheck:
+    """The card's split round (``fed.server.RoundPhases``), each phase also
+    run on the CPU from the card's inputs and held to it, so a run checks
+    every round whatever its schedule (synchronous or pipelined):
+
+    * the local phase, from the card's whole round state (global LoRA,
+      SCAFFOLD variates, previous local models, the generator's state): the
+      server variate rtol 1e-3 / atol 1e-5, the per-client fields (deltas,
+      local models, client variates) within ``STATE_FRO_RTOL`` of each
+      leaf's norm, fault slots and masks equal;
+    * the aggregation, on the card's bundle: the update within ``AGG_RTOL``
+      of the largest finite |delta| (as paths B, F and G hold it), and the
+      quarantine's and faults' counts equal.
+
+    Phases are held one at a time because Adam turns an fp32 difference into
+    one that grows from round to round and fedrpca scales a client's sparse
+    entries by beta, so whole runs on two devices part ways
+    (``tools/round_sensitivity.py``: a 1e-7 perturbation of the backbone
+    moves FedAvg's LoRA 3.1e-6 in 3 rounds, FedProx's 2.0e-5, FedRPCA with
+    FedProx's 1.7e-4).  Every other attribute is the card's."""
+
+    COUNTS = ("fault_injected", "fault_caught", "guard_quarantined", "guard_nonfinite",
+              "guard_norm_outliers", "screen_clean", "update_finite")
+
+    def __init__(self, card, host, what):
+        self.card, self.host, self.what = card, host, what
+        self.local_errs, self.agg_errs = [], []
+        for name in ("cohort_pad", "plan", "prep_state", "apply", "fallback", "cold_carry"):
+            setattr(self, name, getattr(card, name))
+
+    def local(self, state, n_active=None):
+        import torch
+        from repro_torch.utils.pytree import tree_leaves
+
+        gen = torch.Generator()
+        gen.set_state(state.rng.get_state())
+        fields = ("lora_global", "scaffold_c", "scaffold_ci", "prev_local")
+        host_state = state._replace(rng=gen, **{f: to_cpu(getattr(state, f)) for f in fields})
+        r = state.round_idx
+        state, bundle = self.card.local(state, n_active)
+        host_state, want = self.host.local(host_state, n_active)
+        for g, c in zip(tree_leaves(state.scaffold_c), tree_leaves(host_state.scaffold_c)):
+            torch.testing.assert_close(g.cpu(), c, rtol=1e-3, atol=1e-5,
+                                       msg=lambda m: f"{self.what} round {r} scaffold_c: {m}")
+        # Corrupted deltas (the fault slots, held equal below) count as zeros.
+        finite = lambda t: [x.nan_to_num(0.0, 0.0, 0.0) for x in tree_leaves(t)]
+        err = max(rel_fro(finite(bundle.deltas), finite(want.deltas)),
+                  rel_fro(state.prev_local, host_state.prev_local),
+                  rel_fro(state.scaffold_ci, host_state.scaffold_ci))
+        same = all((a is None and b is None) or torch.equal(a.cpu(), b)
+                   for a, b in ((bundle.mask, want.mask), (bundle.fault_slots, want.fault_slots)))
+        if err > STATE_FRO_RTOL or not same:
+            raise AssertionError(f"{self.what} round {r}: local phase card vs CPU {err:.3g} of "
+                                 f"the norm (bound {STATE_FRO_RTOL}), masks equal: {same}")
+        self.local_errs.append(err)
+        return state, bundle
+
+    def agg(self, carry, bundle, scale):
+        import torch
+        from repro_torch.utils.pytree import tree_leaves
+
+        out = self.card.agg(carry, bundle, scale)
+        moved = bundle._replace(deltas=to_cpu(bundle.deltas), mask=to_cpu(bundle.mask),
+                                weights=to_cpu(bundle.weights), loss_mean=to_cpu(bundle.loss_mean),
+                                fault_slots=to_cpu(bundle.fault_slots))
+        want = self.host.agg(to_cpu(carry) if carry else carry, moved, scale)
+        big = max(float(d.nan_to_num(0.0, 0.0, 0.0).abs().max())
+                  for d in tree_leaves(bundle.deltas))
+        err = max(max_abs(g.cpu(), w) for g, w in zip(tree_leaves(out[0]),
+                                                      tree_leaves(want[0])))
+        counts = {k: (float(out[2][k]), float(want[2][k])) for k in self.COUNTS if k in out[2]}
+        if not err <= AGG_RTOL * big or any(a != b for a, b in counts.values()):
+            raise AssertionError(f"{self.what} round {bundle.agg_key[1]}: update card vs CPU "
+                                 f"{err} (bound {AGG_RTOL} * {big}); counts {counts}")
+        self.agg_errs.append(err / big)
+        return out
+
+
+def card_vs_cpu_states(task, cpu_task, method, what, rounds=3, mode="gram", local_kw=None,
+                       cfg_kw=None, round_kw=None, n_active=None, chains=False):
+    """``rounds`` rounds of ``fed_config`` on the card through ``PhaseCheck``
+    (each phase also on the CPU), on the run's schedule (``cfg_kw``'s
+    ``pipeline`` / ``staleness``); ``round_kw`` goes to
+    ``make_round_phases``.  With ``chains`` the whole runs on both devices
+    are compared too, and their difference is printed, not held."""
+    from repro_torch.fed import init_round_state, make_round_phases, run_rounds, synth
+
+    cfg = fed_config(task, method, mode, rounds, local_kw=local_kw, cfg_kw=cfg_kw)
+    lora0 = synth.init_lora(task, seed=0)
+    check = PhaseCheck(
+        make_round_phases(task.base, task.client_x, task.client_y, cfg, lora_template=lora0,
+                          **(round_kw or {})),
+        make_round_phases(cpu_task.base, cpu_task.client_x, cpu_task.client_y, cfg,
+                          lora_template=to_cpu(lora0), **(round_kw or {})),
+        what)
+    rows = []
+    run_rounds(check, init_round_state(lora0, task.client_x.shape[0], cfg.seed), rounds,
+               staleness=cfg.staleness if cfg.pipeline else 0, n_active=n_active,
+               on_round=lambda r, st, d: rows.append(r))
+    if rows != list(range(rounds)):
+        raise AssertionError(f"{what}: rounds landed as {rows}")
+    extra = ""
+    if chains:
+        sim_kw = dict(round_kw or {}, **({"n_active": n_active} if n_active else {}))
+        gl, _ = run_fed(task, method, mode, rounds, "cuda", local_kw=local_kw, cfg_kw=cfg_kw,
+                        sim_kw=sim_kw)
+        cl, _ = run_fed(cpu_task, method, mode, rounds, "cpu", local_kw=local_kw, cfg_kw=cfg_kw,
+                        sim_kw=sim_kw)
+        extra = f"; the {rounds}-round runs differ by {max(max_abs(gl[k].cpu(), cl[k]) for k in gl):.3g}"
+    print(f"[{what}] card vs CPU {method}/{mode} {rounds} rounds, each phase from the card's "
+          f"inputs: local phase {[float(f'{e:.3g}') for e in check.local_errs]} of the norm "
+          f"(bound {STATE_FRO_RTOL:g}), update {[float(f'{e:.3g}') for e in check.agg_errs]} "
+          f"of max|delta| (bound {AGG_RTOL:g}){extra}", flush=True)
+    return check.agg_errs
 
 
 # Path A's 10-round methods: the baselines of benchmarks/table1_main.py that
@@ -843,20 +1031,21 @@ A_METHODS = (("fedavg", "gram"), ("task_arithmetic", "gram"), ("ties", "gram"),
              ("fedexp", "gram"), ("dare", "gram"), ("fedrpca", "gram"), ("fedrpca", "subspace"))
 
 
-def card_vs_cpu_rounds(task, cpu_task, method, mode, what, **agg):
-    """3 rounds on the card and on the CPU from the same weights and
-    batches: LoRA rtol 1e-3 / atol 1e-5, accuracy within 2 test examples."""
+def card_vs_cpu_rounds(task, cpu_task, method, mode, what, rounds=3, **kw):
+    """``rounds`` rounds (3) on the card and on the CPU from the same
+    weights, batches and cohorts: LoRA rtol 1e-3 / atol 1e-5, accuracy
+    within 2 test examples.  ``kw`` goes to ``run_fed``."""
     import numpy as np
     import torch
 
-    gl, gh = run_fed(task, method, mode, 3, "cuda", **agg)
-    cl, ch = run_fed(cpu_task, method, mode, 3, "cpu", **agg)
+    gl, gh = run_fed(task, method, mode, rounds, "cuda", **kw)
+    cl, ch = run_fed(cpu_task, method, mode, rounds, "cpu", **kw)
     for k in gl:
         torch.testing.assert_close(gl[k].cpu(), cl[k], rtol=1e-3, atol=1e-5)
     if np.max(np.abs(gh - ch)) > 2.0 / 1024 + 1e-9:
         raise AssertionError(f"{what}: card vs CPU accuracy {gh} vs {ch}")
     err = max(max_abs(gl[k].cpu(), cl[k]) for k in gl)
-    print(f"[{what}] card vs CPU {method}/{mode} 3 rounds: lora max|err|={err:.3g} "
+    print(f"[{what}] card vs CPU {method}/{mode} {rounds} rounds: lora max|err|={err:.3g} "
           f"acc card={gh.tolist()} cpu={ch.tolist()}", flush=True)
 
 
@@ -1554,6 +1743,226 @@ def main_path_g(counts, card: str, finals_a: dict) -> dict:
     return total
 
 
+# --- Path H: client objectives, partial participation, the pipeline, faults ---
+# H1: the client methods of Table 1 and Fig. 5, as benchmarks/common.py runs
+# them: (label, aggregator, client objective).
+H1_METHODS = (("fedprox", "fedavg", dict(fedprox_mu=0.01)),
+              ("scaffold", "fedavg", dict(scaffold=True)),
+              ("moon", "fedavg", dict(moon_mu=0.1)),
+              ("fedrpca+fedprox", "fedrpca", dict(fedprox_mu=0.01)),
+              ("fedrpca+scaffold", "fedrpca", dict(scaffold=True)))
+# H2: 40 clients, 20 a round, so the canonical cohort has 32 slots.
+H2_CLIENTS, H2_PER_ROUND, H2_PAD = 40, 20, 32
+H_ROUNDS = 10
+H_FAULTS = ("nan:0.1,dropout:0.2", "straggler:0.5")
+
+
+def h_cohorts(kind, rounds, seed=0):
+    """The port's own sampler, drawn ahead on a CPU generator, so the card
+    and the CPU run on the same cohorts.  Returns ``(cohorts, weights,
+    availability)``: ``availability`` cycles 36 and then 14 of 40 clients
+    (a round whose trace leaves 6 of the 20 active slots empty)."""
+    import numpy as np
+    import torch
+    from repro_torch.fed import make_sampler
+
+    weights = np.linspace(1.0, 3.0, H2_CLIENTS)
+    avail = np.ones((2, H2_CLIENTS), np.float32)
+    avail[0, ::10] = 0.0
+    avail[1, 14:] = 0.0
+    sample = make_sampler(kind, H2_CLIENTS, H2_PAD, availability=avail, weights=weights)
+    gen = torch.Generator().manual_seed(seed)
+    draws = [sample(gen, r) for r in range(rounds)]
+    return (lambda r: draws[r]), weights, avail
+
+
+def check_finite(what, lora, hist=None):
+    import numpy as np
+    import torch
+
+    if not all(bool(torch.isfinite(v).all()) for v in lora.values()):
+        raise AssertionError(f"{what}: non-finite global LoRA")
+    if hist is not None and not np.isfinite(hist).all():
+        raise AssertionError(f"{what}: bad history {hist}")
+
+
+def main_path_h(counts, card: str, finals_a: dict) -> dict:
+    """H1 the client objectives, H2 partial participation with each sampler,
+    H3 the pipeline, H4 faults and the quarantine, on path A's planted task
+    at full width; each part also against the same run on the CPU.  Returns
+    the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.fed import faults as faults_lib
+    from repro_torch.fed import init_round_state, make_round_phases, run_rounds, synth
+    from repro_torch.utils.pytree import tree_map
+
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path H")
+    task, cpu_task = make_task("cuda"), make_task("cpu")
+    fedavg = finals_a["fedavg/gram"]
+    # Bytes of one client's dense float32 delta: A (d_in, r) and B (r, d_feat).
+    per_client = 4.0 * task.lora_rank * sum(task.base["W0"].shape)
+
+    # H1: each objective 10 rounds on the card, then 3 rounds card vs CPU.
+    for label, method, local_kw in H1_METHODS:
+        times, before = [], counts()
+        lora, hist = run_fed(task, method, "gram", H_ROUNDS, "cuda", local_kw=local_kw,
+                             log=lambda r, d: times.append(d["t_round_s"]))
+        expect(f"H1 {label}", launched(before),
+               admm_tail=H_ROUNDS * 50 if method == "fedrpca" else 0)
+        check_finite(f"H1 {label}", lora, hist)
+        print(f"[path H] {card} | H1 {label}: acc {np.round(hist, 4).tolist()} (final "
+              f"{hist[-1] - fedavg:+.4f} vs fedavg's {fedavg:.4f}); round_s median "
+              f"{statistics.median(times):.4f}", flush=True)
+        card_vs_cpu_states(task, cpu_task, method, f"path H1 {label}", local_kw=local_kw,
+                           chains=True)
+
+    # H2: partial participation, every sampler, both SVT modes, on the same
+    # injected cohorts on the card and the CPU.
+    task40, cpu40 = make_task("cuda", n_clients=H2_CLIENTS), make_task("cpu", n_clients=H2_CLIENTS)
+    for kind in ("uniform", "size_weighted", "trace"):
+        cohorts, weights, avail = h_cohorts(kind, 3)
+        sim_kw = dict(cohorts=cohorts, client_weights=weights, availability=avail)
+        cfg_kw = dict(clients_per_round=H2_PER_ROUND, sampler=kind)
+        for mode in ("gram", "subspace"):
+            times, before = [], counts()
+            kw = dict(cfg_kw=cfg_kw, sim_kw=sim_kw)
+            lora, hist = run_fed(task40, "fedrpca", mode, 3, "cuda",
+                                 log=lambda r, d: times.append((d["t_round_s"], d["bytes_up"])),
+                                 **kw)
+            kernel = "admm_tail" if mode == "gram" else "subspace_apply"
+            extra = {"subspace_apply_tc": 150} if mode == "subspace" else {}
+            expect(f"H2 {kind}/{mode}", launched(before), **{kernel: 150}, **extra)
+            check_finite(f"H2 {kind}/{mode}", lora, hist)
+            print(f"[path H] {card} | H2 {kind}/{mode} {H2_PER_ROUND} of {H2_CLIENTS} in "
+                  f"{H2_PAD} slots: round_s {[round(t, 4) for t, _ in times]} live clients "
+                  f"{[int(b / per_client) for _, b in times]} launches {kernel} 3 x 50",
+                  flush=True)
+            card_vs_cpu_states(task40, cpu40, "fedrpca", f"path H2 {kind}", mode=mode,
+                               cfg_kw=cfg_kw, round_kw=sim_kw)
+    # SCAFFOLD's masked variates and server variate, round by round.
+    cohorts, _, _ = h_cohorts("uniform", 3, seed=2)
+    card_vs_cpu_states(task40, cpu40, "fedrpca", "path H2 uniform+scaffold",
+                       local_kw=dict(scaffold=True), cfg_kw=dict(clients_per_round=H2_PER_ROUND),
+                       round_kw=dict(cohorts=cohorts), n_active=16)
+    cohorts, _, _ = h_cohorts("uniform", 2, seed=1)
+    rows, before = [], counts()
+    kw = dict(cfg_kw=dict(clients_per_round=H2_PER_ROUND),
+              sim_kw=dict(cohorts=cohorts, n_active=12))
+    run_fed(task40, "fedrpca", "gram", 2, "cuda", log=lambda r, d: rows.append(d), **kw)
+    expect("H2 n_active=12", launched(before), admm_tail=100)
+    print(f"[path H] {card} | H2 n_active=12 of {H2_PAD} slots: round_s "
+          f"{[round(d['t_round_s'], 4) for d in rows]} live clients "
+          f"{[int(d['bytes_up'] / per_client) for d in rows]}", flush=True)
+    card_vs_cpu_states(task40, cpu40, "fedrpca", "path H2 n_active=12", rounds=2,
+                       cfg_kw=kw["cfg_kw"], round_kw=dict(cohorts=cohorts), n_active=12)
+
+    # H3: the pipeline.  Staleness 0 gives the synchronous bits; staleness 2
+    # lands in order, with the phase timers of each round.
+    sync, hs = run_fed(task, "fedrpca", "subspace", 5, "cuda")
+    pipe0, h0 = run_fed(task, "fedrpca", "subspace", 5, "cuda",
+                        cfg_kw=dict(pipeline=True, staleness=0))
+    if not (all(torch.equal(sync[k], pipe0[k]) for k in sync) and np.array_equal(hs, h0)):
+        raise AssertionError("H3: staleness=0 differs from the synchronous rounds")
+    for mode in ("gram", "subspace"):
+        for staleness in (0, 2):
+            rows = []
+            lora, hist = run_fed(task, "fedrpca", mode, 6, "cuda",
+                                 cfg_kw=dict(pipeline=True, staleness=staleness),
+                                 log=lambda r, d: rows.append((r, d)))
+            if [r for r, _ in rows] != list(range(6)):
+                raise AssertionError(f"H3: rounds landed as {[r for r, _ in rows]}")
+            check_finite(f"H3 {mode}", lora, hist)
+            fmt = lambda k: [round(d[k], 4) for _, d in rows]
+            print(f"[path H] {card} | H3 fedrpca/{mode} staleness={staleness}: acc "
+                  f"{np.round(hist, 4).tolist()} t_local_s {fmt('t_local_s')} t_agg_s "
+                  f"{fmt('t_agg_s')} t_overlap_s {fmt('t_overlap_s')} t_round_s "
+                  f"{fmt('t_round_s')} (median {statistics.median(fmt('t_round_s')):.4f})",
+                  flush=True)
+    card_vs_cpu_states(task, cpu_task, "fedrpca", "path H3 staleness=2",
+                       cfg_kw=dict(pipeline=True, staleness=2), rounds=4)
+    print(f"[path H] {card} | H3 staleness=0 equals the synchronous rounds bit for bit "
+          f"(5 rounds, fedrpca/subspace)", flush=True)
+
+    # H4: faults at staleness 2, the guard on by default.
+    for spec in H_FAULTS:
+        fcfg = faults_lib.parse(spec, seed=1)
+        partial = fcfg.straggler > 0
+        t, cpu_t = (task40, cpu40) if partial else (task, cpu_task)
+        cfg_kw = dict(pipeline=True, staleness=2, faults=fcfg,
+                      **(dict(clients_per_round=H2_PER_ROUND) if partial else {}))
+        rows = []
+        lora, hist = run_fed(t, "fedrpca", "gram", 6, "cuda", cfg_kw=cfg_kw,
+                             log=lambda r, d: rows.append(d))
+        check_finite(f"H4 {spec}", lora, hist)
+        clean = [d["screen_clean"] for d in rows]
+        injected = [d["fault_injected"] for d in rows]
+        caught = [d.get("fault_caught", 0.0) for d in rows]
+        if clean != [1.0] * 6:
+            raise AssertionError(f"H4 {spec}: screen_clean {clean}")
+        if injected != caught:
+            raise AssertionError(f"H4 {spec}: caught {caught} of injected {injected}")
+        if fcfg.corrupt > 0 and sum(injected) == 0:
+            raise AssertionError(f"H4 {spec}: no fault injected")
+        print(f"[path H] {card} | H4 {spec} staleness=2: acc {np.round(hist, 4).tolist()} "
+              f"screen_clean {clean} injected {injected} caught {caught} quarantined "
+              f"{[d['guard_quarantined'] for d in rows]} live "
+              f"{[int(d['bytes_up'] / per_client) for d in rows]}", flush=True)
+        card_vs_cpu_states(t, cpu_t, "fedrpca", f"path H4 {spec}", cfg_kw=cfg_kw, rounds=4)
+
+    # H4: a forced non-finite aggregation takes the cold retry, then the
+    # masked-FedAvg fallback, and the run ends finite.
+    from repro_torch.core import AggregatorConfig
+    from repro_torch.fed import FedRunConfig, LocalSpec
+    from repro_torch.optim import make_optimizer
+
+    lora0 = synth.init_lora(task, seed=0)
+    cfg = FedRunConfig(
+        aggregator=AggregatorConfig(method="fedrpca", rpca_iters=50, svt_mode="subspace",
+                                    carry_mode="subspace"),
+        local=LocalSpec(loss_fn=lambda b, l, x: synth.loss_fn(b, l, x, task.lora_scale),
+                        optimizer=make_optimizer("adam", 1e-2), local_steps=8, batch_size=32,
+                        lr=1e-2),
+        rounds=3)
+    phases = make_round_phases(task.base, task.client_x, task.client_y, cfg, lora_template=lora0)
+    real_agg, tries = phases.agg, []
+
+    def poisoned(carry, bundle, scale):
+        upd, c2, d = real_agg(carry, bundle, scale)
+        tries.append(bundle.agg_key[1])
+        if bundle.agg_key[1] == 1:
+            upd = tree_map(lambda u: u * float("nan"), upd)
+            d = {**d, "update_finite": torch.tensor(0.0)}
+        return upd, c2, d
+
+    phases.agg = poisoned
+    rows = {}
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught_w:
+        warnings.simplefilter("always")
+        state = run_rounds(phases, init_round_state(lora0, task.client_x.shape[0], 0), 3,
+                           staleness=2, on_round=lambda r, s, d: rows.__setitem__(r, d))
+    said = [str(w.message) for w in caught_w if str(w.message).startswith("round ")]
+    # Round 1 runs on the worker, then cold on landing (round 2's dispatch may
+    # come between).
+    if sorted(tries) != [0, 1, 1, 2] or rows[1].get("degraded") != 1.0 or \
+            rows[1].get("supervisor_retry") != 1.0 or len(said) != 2:
+        raise AssertionError(f"H4 ladder: tries {tries}, round 1 {rows[1]}, warnings {said}")
+    check_finite("H4 ladder", state.lora_global)
+    print(f"[path H] {card} | H4 forced non-finite round 1: agg tries by round {tries}, "
+          f"cold retry then masked FedAvg (degraded={rows[1]['degraded']}); warnings {said}",
+          flush=True)
+
+    total = launched(start)
+    for k in ("admm_tail", "subspace_apply", "subspace_apply_tc"):
+        if not total[k]:
+            raise AssertionError(f"path H never launched {k}")
+    print(f"[path H] {card} | launches {total} by phase {phase}", flush=True)
+    return total
+
+
 # --- Phase 10: the card tests ----------------------------------------------------
 CARD_TESTS = "tests/test_torch_cuda.py"
 CARD_TESTS_TIMEOUT_S = 420
@@ -2245,6 +2654,7 @@ def main() -> int:
     _, paths["E"] = run_path("E", main_path_e, counts)
     _, paths["F"] = run_path("F", main_path_f, counts, smi)
     _, paths["G"] = run_path("G", main_path_g, counts, smi, finals_a)
+    _, paths["H"] = run_path("H", main_path_h, counts, smi, finals_a)
     launches = {k: sum(p[k] for p in paths.values()) for k in wrappers}
     for name, n in launches.items():
         if n == 0:

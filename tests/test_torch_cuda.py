@@ -29,13 +29,25 @@ def cuda():
     return torch.device("cuda")
 
 
+def client_mask(d2, n_valid):
+    """None (dense), a prefix of ``n_valid`` live columns, or, for a tuple,
+    every column live but those it names (a mask with holes, as dropout,
+    stragglers, the quarantine and the trace sampler make)."""
+    if n_valid is None:
+        return None
+    if isinstance(n_valid, tuple):
+        mask = torch.ones(d2)
+        mask[list(n_valid)] = 0.0
+        return mask
+    return (torch.arange(d2) < n_valid).float()
+
+
 def inputs(seed, b, vec, d2, n_valid, device):
     gen = torch.Generator().manual_seed(seed)
     t = lambda *s: torch.randn(s, generator=gen)
     m, l, s, y = t(b, vec, d2), t(b, vec, d2), t(b, vec, d2), 0.3 * t(b, vec, d2)
-    mask = None
-    if n_valid is not None:
-        mask = (torch.arange(d2) < n_valid).float()
+    mask = client_mask(d2, n_valid)
+    if mask is not None:
         m = m * mask
     p = t(b, d2, d2) / d2**0.5
     rho = torch.rand(b, generator=gen) + 0.5
@@ -48,7 +60,9 @@ def assert_sums_close(got, want, rtol=1e-5):
     assert err <= rtol * float(want.double().abs().max()), err
 
 
-SHAPES = [(40, None), (32, 20), (1, None), (3, None), (130, None)]
+# Slots 3, 7 and 20-31 of a 32-slot cohort off: holes, then a padded tail.
+HOLES = (3, 7, *range(20, 32))
+SHAPES = [(40, None), (32, 20), (1, None), (3, None), (130, None), (32, HOLES)]
 
 
 @pytest.mark.gpu
@@ -67,15 +81,18 @@ def test_admm_tail_kernel_matches_plain(cuda, d2, n_valid):
         ones = rpca_admm.admm_tail(*args, mask=torch.ones(d2, device=cuda))
         assert all(torch.equal(a, b) for a, b in zip(got, ones))
     else:
-        assert not bool(got[0][..., n_valid:].any()) and not bool(got[1][..., n_valid:].any())
+        off = x["mask"] == 0
+        assert not bool(got[0][..., off].any()) and not bool(got[1][..., off].any())
 
 
 # (B, vec, d2, n_valid): the tail shapes above on 3 x 1000 buckets; path B's
-# main shapes (40 dense; 32 with 20 live); path A's; every padded width class
-# of the tensor route; and d2 = 130 on the scalar route.
+# main shapes (40 dense; 32 with 20 live, and with holes); path A's; every
+# padded width class of the tensor route; and d2 = 130 on the scalar route,
+# dense and with holes.
 SUBSPACE_SHAPES = [(3, 1000, d2, n_valid) for d2, n_valid in SHAPES] + [
     (48, 4096, 40, None), (48, 4096, 32, 20), (2, 4096, 20, None), (3, 1000, 8, 5),
-    (3, 1000, 20, None), (3, 1000, 64, None), (3, 1000, 128, 100), (3, 999, 7, None)]
+    (3, 1000, 20, None), (3, 1000, 64, None), (3, 1000, 128, 100), (3, 999, 7, None),
+    (48, 4096, 32, HOLES), (3, 1000, 130, (0, 5, 64, *range(100, 130)))]
 
 
 @pytest.mark.gpu
@@ -103,7 +120,8 @@ def test_subspace_apply_kernel_matches_plain(cuda, b, vec, d2, n_valid):
         ones = fn(*args, mask=torch.ones(d2, device=cuda))
         assert all(torch.equal(a, b) for a, b in zip(got, ones))
     else:
-        assert not bool(got[1][..., n_valid:].any()) and not bool(got[2][..., n_valid:].any())
+        off = x["mask"] == 0
+        assert not bool(got[1][..., off].any()) and not bool(got[2][..., off].any())
 
 
 @pytest.mark.gpu
@@ -176,7 +194,8 @@ def test_subspace_apply_factored_kernel_matches_plain(cuda, b, vec, d2, r, n_val
         ones = svt_subspace.subspace_apply_factored(*args, mask=torch.ones(d2, device=cuda))
         assert all(torch.equal(a, c) for a, c in zip(got, ones))
     else:
-        assert not bool(got[1][..., n_valid:].any()) and not bool(got[2][..., n_valid:].any())
+        off = x["mask"] == 0
+        assert not bool(got[1][..., off].any()) and not bool(got[2][..., off].any())
 
 
 @pytest.mark.gpu
@@ -302,6 +321,40 @@ def test_merging_methods_card_match_cpu(cuda, method):
         for k in tree:
             assert got[k].device.type == "cuda"
             torch.testing.assert_close(got[k].cpu(), want[k], atol=1e-6 * 4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("svt_mode", ["gram", "subspace"])
+def test_aggregate_on_a_side_stream_matches_the_main_stream(cuda, svt_mode):
+    """The round pipeline runs each aggregation on a worker thread with its
+    own stream current: a masked fedrpca ``aggregate`` issued so gives the
+    bits of the same call on the main stream."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core import AggregatorConfig, aggregate
+
+    gen = torch.Generator().manual_seed(8)
+    tree = {"A": torch.randn((32, 3, 64, 4), generator=gen).to(cuda),
+            "B": torch.randn((32, 3, 4, 64), generator=gen).to(cuda)}
+    mask = client_mask(32, HOLES).to(cuda)
+    cfg = AggregatorConfig(method="fedrpca", rpca_iters=12, svt_mode=svt_mode)
+    main = aggregate(tree, cfg, mask=mask)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=cuda)
+    fn = rpca_admm.admm_tail if svt_mode == "gram" else svt_subspace.subspace_apply
+    before = fn.launches
+
+    def work():
+        with torch.cuda.stream(side):
+            out = aggregate(tree, cfg, mask=mask)
+        side.synchronize()
+        return out
+
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        got = ex.submit(work).result()
+    assert fn.launches - before == 12
+    for k in tree:
+        assert torch.equal(got[k], main[k])
 
 
 # --- Serving kernels -----------------------------------------------------------
