@@ -42,6 +42,10 @@ Phases (any failed check raises and the script exits non-zero):
      ``F.softshrink`` (timed only); ``subspace_apply_factored`` at path F's
      shard shape (B, vec, d2, r) = (48, 4096, 10, 8), at the last shard of 30
      clients padded to 32 (two zero-mask columns) and at (3, 1000, 7, 3).
+     Then each kernel's autograd ``Function`` at path I's shapes
+     (``TRAIN_FN_CASES``): its forward launches the kernel once with the
+     no-grad bits, its plain backward's gradients hold to the plain
+     version's autograd, and forward and backward device ms are printed.
   4. Main path A: ``run_simulation`` on a planted task at the width of one
      ViT-B/32 attention projection (768 x 768, LoRA rank 4), 20 clients,
      10 rounds of fedavg / task_arithmetic / ties / fedexp / dare / fedrpca
@@ -113,15 +117,30 @@ Phases (any failed check raises and the script exits non-zero):
      deadline cohorts, ``straggler:0.5``): ``screen_clean`` 1 every round,
      every injected fault caught, a finite global, and a forced non-finite
      aggregation taking the cold retry and then the masked-FedAvg fallback.
+ 11b. Main path I, federated LoRA fine-tuning of an LM through
+     ``launch.train.main``: I1 StableLM-2-1.6B at full width and depth
+     (bf16, LoRA r 8 on q and v), 8 clients x 2 x 256 tokens, 2 Adam steps,
+     3 rounds of FedRPCA with subspace SVT and carry, the fused tail and the
+     sketch uplink; I2 Mamba-2-130M the same with client ranks 8, 4, 2 and
+     the pipeline at staleness 1; each prints its round times, uplink hit
+     rate, bytes, eval loss before and after and peak memory, and fails
+     unless the state is finite and the eval loss falls.  I3 one local phase
+     card vs CPU from the card's LoRA (StableLM at 2 layers, Mamba-2 at full
+     depth, float32; held with SGD, Adam printed beside a CPU witness), a
+     profiled local phase of I1's shape (device-busy share, top kernels),
+     and one warm session round on I1's tree and carry with
+     the uplink ``sketch:64:1.0``, card vs CPU, the sketch taken on both.
  12. The card tests: ``pytest -m gpu tests/test_torch_cuda.py`` in a
      subprocess with its own time limit; any failure, error or skip fails
      the script, and the counts and wall time go on a ``[card tests]``
      line.
- 13. The ``kernels`` JSON line, the wall time, then the result line.
+ 13. A ``[train fn]`` line (each Function's forward and backward ms with
+     path I's launches), the ``kernels`` JSON line, the wall time, then the
+     result line.
 
 Kernel launch counts are set to 0 just before phase 4 and read just after
-phase 5, and set to 0 again just before each of phases 6, 7, 8, 9, 10 and
-11 and read just after it; every kernel must have launched, and each phase exactly
+phase 5, and set to 0 again just before each of phases 6, 7, 8, 9, 10, 11
+and 11b and read just after it; every kernel must have launched, and each phase exactly
 as often as its rounds, ADMM iterations, fallbacks, shards, buckets, layers
 and decode steps say.  Beside them the tensor-route launches of the
 subspace, LoRA and attention kernels are counted: paths A and B must
@@ -2568,6 +2587,338 @@ def main_path_e(counts) -> dict:
     return total
 
 
+# --- Training: the kernels' autograd Functions (phase 3) -------------------------
+# Each Function at path I's shapes: its forward is the kernel (one launch, the
+# bits of the no-grad call), its backward plain PyTorch.  Gradients against
+# the plain version's autograd on the card: LoRA dx within two bf16 ulps of
+# its largest entry (g W^T is rounded to bf16 first, where the plain version
+# takes it in fp32), dA and dB within 1e-4 of their largest entry (fp32 sums
+# over 4096 rows in other orders); attention within one bf16 ulp of the
+# largest gradient (the backward recomputes the same plain operations); the
+# SSD's chunked recompute against the sequential scan's autograd within 1e-4
+# of the largest gradient entry.
+# (name, kind, shape, dtype, label): I1's q / v projections over 8 clients x
+# 2 x 256 tokens and its evaluation (8 x 256 tokens through one adapter),
+# I2's in_proj and out_proj, I1's attention (16 x 32 heads) and I2's scan
+# (16 x 24 heads, one B / C group per sequence).
+TRAIN_FN_CASES = [
+    ("gathered_lora_matmul", "lora", (4096, 2048, 2048, 8, 8), "bf16", "I1 q/v"),
+    ("gathered_lora_matmul", "lora", (4096, 768, 3352, 8, 8), "bf16", "I2 in_proj"),
+    ("gathered_lora_matmul", "lora", (4096, 1536, 768, 8, 8), "bf16", "I2 out_proj"),
+    ("lora_matmul", "lora", (2048, 2048, 2048, 8, 0), "bf16", "I1 evaluate"),
+    ("local_attention", "attn", (16, 256, 32, 64), "bf16", "I1 attention"),
+    ("ssd_scan", "ssd", (16, 24, 256, 64, 128), "fp32", "I2 scan"),
+]
+
+
+def train_fn_case(kind, shape, dtype):
+    """(forward fn, its plain version, inputs, output gradient, tolerance
+    function) of one Function case on the card."""
+    import torch
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda")
+    ulp = lambda w: 2.0**-7 * float(w.float().abs().max())
+    rel = lambda w: 1e-4 * float(w.float().abs().max())
+    if kind == "lora":
+        m, k, n, r, slots = shape
+        x, w = rnd(m, k).to(dt), (rnd(k, n) / k**0.5).to(dt)
+        a, b = rnd(max(slots, 1), k, r) / k**0.5, rnd(max(slots, 1), r, n) * 0.05
+        gy = rnd(m, n).to(dt)
+        if slots:
+            rows = (torch.arange(m, device="cuda") * slots // m).to(torch.int32)
+            fn = lambda x_, a_, b_: lm.gathered_lora_matmul(x_, w, a_, b_, rows, 2.0)
+            plain = lambda x_, a_, b_: ref.gathered_lora_matmul_ref(x_, w, a_, b_, rows, 2.0)
+            ins = (x, a, b)
+        else:
+            fn = lambda x_, a_, b_: lm.lora_matmul(x_, w, a_, b_, 2.0)
+            plain = lambda x_, a_, b_: ref.lora_matmul_ref(x_, w, a_, b_, 2.0)
+            ins = (x, a[0], b[0])
+        return fn, plain, ins, gy, (lambda w_: 2 * ulp(w_), rel, rel)
+    if kind == "attn":
+        bsz, s, h, d = shape
+        q, k_, v = (rnd(bsz, s, h, d).to(dt) for _ in range(3))
+        gy = rnd(bsz, s, h, d).to(dt)
+
+        def plain(q_, kk, vv):
+            fold = lambda t: t.transpose(1, 2).reshape(bsz * h, s, d)
+            out = ref.local_attention_ref(fold(q_), fold(kk), fold(vv), window=0)
+            return out.reshape(bsz, h, s, d).transpose(1, 2)
+
+        return lambda *t: ops.local_attention(*t), plain, (q, k_, v), gy, (ulp, ulp, ulp)
+    bsz, heads, s, p, n = shape
+    x = rnd(bsz * heads, s, p)
+    da = -0.5 * torch.rand((bsz * heads, s), generator=g, device="cuda")
+    b, c = rnd(bsz, s, n), rnd(bsz, s, n)
+    gy = rnd(bsz * heads, s, p)
+    return (lambda *t: ops.ssd_scan(*t, chunk=256), lambda *t: ref.ssd_scan_ref(*t),
+            (x, da, b, c), gy, (rel, rel, rel, rel))
+
+
+def check_training_functions() -> dict:
+    """Phase 3 for training: every Function's forward launches its kernel
+    once and gives the no-grad bits; its gradients hold to the plain
+    version's autograd; forward and backward device ms.  Returns
+    {label: row}."""
+    import torch
+    from repro_torch.kernels import local_attention, lora_matmul, ssd_scan
+
+    counters = {"gathered_lora_matmul": lora_matmul.gathered_lora_matmul,
+                "lora_matmul": lora_matmul.lora_matmul,
+                "local_attention": local_attention.local_attention,
+                "ssd_scan": ssd_scan.ssd_scan}
+    rows = {}
+    for name, kind, shape, dtype, label in TRAIN_FN_CASES:
+        fn, plain, ins, gy, tols = train_fn_case(kind, shape, dtype)
+        live = [t.clone().requires_grad_() for t in ins]
+        before = counters[name].launches
+        out = fn(*live)
+        if counters[name].launches - before != 1:
+            raise AssertionError(f"{label}: the Function's forward did not launch {name} once")
+        with torch.no_grad():
+            if not torch.equal(out.detach(), fn(*ins)):
+                raise AssertionError(f"{label}: the Function's forward is not the kernel's bits")
+        got = torch.autograd.grad(out, live, gy, retain_graph=True)
+        plain_live = [t.clone().requires_grad_() for t in ins]
+        want = torch.autograd.grad(plain(*plain_live), plain_live, gy)
+        errs = []
+        for i, (gg, ww, tol) in enumerate(zip(got, want, tols)):
+            err, bound = max_abs(gg, ww), tol(ww)
+            if not bool(torch.isfinite(gg).all()) or err > bound:
+                raise AssertionError(f"{label}: gradient {i} {err} > {bound}")
+            errs.append(err)
+        fwd_ms = device_ms(lambda: fn(*ins), reps=10)
+        bwd_ms = device_ms(lambda: torch.autograd.grad(out, live, gy, retain_graph=True),
+                           reps=5)
+        plain_bwd_ms = device_ms(lambda: torch.autograd.grad(plain(*plain_live), plain_live,
+                                                             gy), reps=3)
+        rows[label] = dict(kernel=name, fwd_ms=round(fwd_ms, 4), bwd_ms=round(bwd_ms, 4),
+                           plain_fwd_bwd_ms=round(plain_bwd_ms, 4),
+                           grad_err=[float(f"{e:.3g}") for e in errs])
+        print(f"[train fn] {label} {name} {shape} {dtype}: forward (kernel) {fwd_ms:.4f} ms, "
+              f"backward (plain) {bwd_ms:.4f} ms, plain forward+backward {plain_bwd_ms:.4f} ms; "
+              f"gradient max|err| vs plain autograd {rows[label]['grad_err']}", flush=True)
+        del out, got, want, live, plain_live
+    return rows
+
+
+# --- Path I: federated LoRA fine-tuning of an LM ------------------------------------
+# The learning rate of I1 and I2: the synthetic corpus uses 512 of the
+# vocabulary, so a step of Adam at this rate moves the random model's
+# uniform next-token distribution toward it within 3 rounds.
+I_LR = 1e-2
+I_ROUNDS = 3
+I_COMMON = ["--clients", "8", "--per-client-batch", "2", "--seq", "256", "--local-steps", "2",
+            "--local-optimizer", "adam", "--rounds", str(I_ROUNDS), "--aggregator", "fedrpca",
+            "--svt-mode", "subspace", "--carry-mode", "subspace", "--rpca-fused-tail",
+            "--uplink", "sketch", "--local-lr", str(I_LR)]
+I2_EXTRA = ["--client-ranks", "8,4,2", "--pipeline", "--staleness", "1"]
+# I3: the warm session round's uplink, whose tolerance 1.0 takes every valid
+# carry's sketch (energy_frac is at most 1).
+I3_UPLINK = "sketch:64:1.0"
+
+
+def run_train_cli(arch, extra, counts, launched, expect, card, label):
+    """``launch.train.main`` at full width; prints the round times, hit rates,
+    bytes and eval losses, checks finite state and a falling eval loss and
+    the launch counts.  Returns the CLI's result."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    t0 = time.perf_counter()
+    out = train.main(["--arch", arch, *I_COMMON, *extra])
+    wall = time.perf_counter() - t0
+    n_l, steps_ = cfg.n_layers, I_ROUNDS * 2
+    attn = cfg.layer_pattern == ("attn",)
+    # Local phase: one gathered launch per adapted projection per step; the
+    # two evaluations: lora_matmul; the mixer once a layer in both.
+    mixer = {"local_attention" if attn else "ssd_scan": n_l * (steps_ + 2)}
+    got = launched(before)
+    agg = got["admm_tail"] + got["subspace_apply"]
+    expect(label, {k: v for k, v in got.items() if k not in ("admm_tail", "subspace_apply",
+                                                               "subspace_apply_tc")},
+           gathered_lora_matmul=2 * n_l * steps_, gathered_lora_matmul_tc=2 * n_l * steps_,
+           lora_matmul=2 * n_l * 2, lora_matmul_tc=2 * n_l * 2,
+           local_attention_tc=mixer.get("local_attention", 0), **mixer)
+    if agg == 0:
+        raise AssertionError(f"{label}: the aggregation launched no tail kernel")
+    rounds = out["rounds"]
+    if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(out["lora"])):
+        raise AssertionError(f"{label}: non-finite LoRA")
+    if not out["final_eval_loss"] < out["initial_eval_loss"]:
+        raise AssertionError(f"{label}: eval loss {out['initial_eval_loss']:.4f} -> "
+                             f"{out['final_eval_loss']:.4f} did not fall")
+    keys = ("t_local_s", "t_agg_s", "t_overlap_s", "mean_local_loss", "uplink_hit_rate",
+            "bytes_up", "bytes_down", "fallback_count", "carry_hit_rate")
+    for r in rounds:
+        print(f"[path I] {card} | {label} round {r['round']}: "
+              + ", ".join(f"{k}={r[k]:.4g}" for k in keys if k in r), flush=True)
+    print(f"[path I] {card} | {label} {arch}: eval loss {out['initial_eval_loss']:.4f} -> "
+          f"{out['final_eval_loss']:.4f}; round_s median "
+          f"{statistics.median(r['t_local_s'] + r['t_agg_s'] for r in rounds):.4f} "
+          f"(t_local_s {[round(r['t_local_s'], 4) for r in rounds]}, t_agg_s "
+          f"{[round(r['t_agg_s'], 4) for r in rounds]}); wall {wall:.1f} s; peak device memory "
+          f"{out['peak_gib']:.3f} GiB; launches {got}", flush=True)
+    return out
+
+
+# I3's local phases: card vs CPU per-client deltas relative to each leaf's
+# norm.  Held with SGD, whose deltas are linear in the gradients, so the
+# bound sees the kernels and the backward passes; printed with Adam beside a
+# CPU witness (the same phase on the CPU from weights perturbed by 1e-7):
+# Adam normalizes each element's step, so an element whose gradient is
+# round-off sized takes a full step either way, and on these models the CPU
+# moves its own Adam deltas 1.2e-3 (StableLM, 2 layers) and 3.3e-3 (Mamba-2)
+# of the norm under that perturbation, SGD's 8.7e-6.
+I3_PERTURB = 1e-7
+
+
+def i3_local_phase(arch, n_layers, lora, card, label):
+    """One local phase (2 steps, 2 clients x 1 x 64 tokens) of ``arch`` at
+    full width and ``n_layers`` layers in float32 on the card and on the
+    CPU, from the same weights and the card's global LoRA (its first
+    layers): with SGD the per-client deltas within ``STATE_FRO_RTOL`` of
+    each leaf's norm and the loss within 1e-5; with Adam printed beside the
+    CPU's own difference under an ``I3_PERTURB`` perturbation."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
+    model = init_params(cfg, seed=0, device=DEVICE)
+    cpu_model = copy.deepcopy(model).cpu()
+    lora = tree_map(lambda x: x[:n_layers].contiguous(), lora)
+    toks = torch.randint(0, 512, (2, 1, 65), generator=torch.Generator().manual_seed(19))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    res = {}
+    for opt in ("sgd", "adam"):
+        step = steps.make_local_step(cfg, local_lr=I_LR, local_steps=2, local_optimizer=opt,
+                                     remat=False)
+        got, loss, _ = step(model, lora, tree_map(lambda t: t.to(DEVICE), batch))
+        want, cpu_loss, _ = step(cpu_model, to_cpu(lora), batch)
+        res[opt] = (rel_fro(got, want), abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss)))
+        if opt == "adam":
+            gen = torch.Generator().manual_seed(29)
+            with torch.no_grad():
+                for p in cpu_model.parameters():
+                    p.mul_(1 + I3_PERTURB * torch.randn(p.shape, generator=gen))
+            res["witness"] = rel_fro(step(cpu_model, to_cpu(lora), batch)[0], want)
+    err, lerr = res["sgd"]
+    if err > STATE_FRO_RTOL or max(lerr, res["adam"][1]) > 1e-5:
+        raise AssertionError(f"{label}: SGD local phase card vs CPU {err:.3g} of the norm (bound "
+                             f"{STATE_FRO_RTOL}), losses {lerr:.3g} / {res['adam'][1]:.3g}")
+    print(f"[path I] {card} | {label}: one local phase of {arch} ({n_layers} layers, float32, "
+          f"2 clients x 64 tokens) card vs CPU from the card's LoRA: SGD deltas {err:.3g} of the "
+          f"norm (bound {STATE_FRO_RTOL:g}), loss {lerr:.3g} relative; Adam deltas "
+          f"{res['adam'][0]:.3g}, loss {res['adam'][1]:.3g} (not held; the CPU against itself "
+          f"under a {I3_PERTURB:g} weight perturbation: {res['witness']:.3g})", flush=True)
+
+
+def i3_warm_sketch_round(out, card):
+    """A profiled local phase of I1's shape from I1's global (device-busy
+    share and top kernels); then one warm session round on I1's LoRA tree and
+    final carry, card vs CPU,
+    with ``I3_UPLINK``: the deltas of one local phase of the full model from
+    I1's global (8 clients x 1 x 64 tokens); updates within ``AGG_RTOL`` of
+    max|delta|, the sketch taken (``uplink_hit_rate`` 1) on both devices."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import AggregatorConfig
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core.aggregators import rpca_diag_summary
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cfg = get_config("stablelm-1.6b")
+    model = init_params(cfg, seed=0, device=DEVICE)
+    # Where a local phase's time goes: one of I1's shape (8 clients x 2 x 256
+    # tokens, 2 Adam steps) from I1's global, after a warm-up call.
+    toks = torch.randint(0, 512, (8, 2, 257), generator=torch.Generator().manual_seed(21))
+    big = {"tokens": toks[..., :-1].to(DEVICE), "labels": toks[..., 1:].to(DEVICE)}
+    phase = steps.make_local_step(cfg, local_lr=I_LR, local_steps=2, local_optimizer="adam",
+                                  remat=False)
+    phase(model, out["lora"], big)
+    wall, busy, top = profiled(lambda: phase(model, out["lora"], big))
+    share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
+    print(f"[path I] {card} | one I1 local phase (8 x 2 x 256 tokens, 2 Adam steps) under "
+          f"torch.profiler: host {wall:.4f} s, device {share} of it; top kernels by device ms "
+          f"(name, ms, calls): {top}", flush=True)
+    del big
+    toks = torch.randint(0, 512, (8, 1, 65), generator=torch.Generator().manual_seed(23))
+    batch = {"tokens": toks[..., :-1].to(DEVICE), "labels": toks[..., 1:].to(DEVICE)}
+    step = steps.make_local_step(cfg, local_lr=I_LR, local_steps=1, local_optimizer="adam",
+                                 remat=False)
+    deltas, _, _ = step(model, out["lora"], batch)
+    del model
+    agg = AggregatorConfig(method="fedrpca", rpca_iters=30, svt_mode="subspace",
+                           carry_mode="subspace", rpca_fused_tail=True)
+    res = {}
+    for dev, d, c in (("card", deltas, out["agg_carry"]),
+                      ("cpu", to_cpu(deltas), tree_map(lambda x: x.cpu(), out["agg_carry"]))):
+        plan = engine_lib.plan_aggregation(d, agg, uplink=I3_UPLINK)
+        if set(engine_lib.init_agg_carry(plan)) != set(c):
+            raise AssertionError("path I3: I1's carry does not fit the warm round's plan")
+        upd, _, diag = engine_lib.aggregate_planned(plan, d, c, with_diagnostics=True)
+        res[dev] = (upd, {k: float(v) for k, v in rpca_diag_summary(diag).items()})
+    big = max(float(x.abs().max()) for x in tree_leaves(deltas))
+    err = max(max_abs(g.cpu(), w) for g, w in zip(tree_leaves(res["card"][0]),
+                                                  tree_leaves(res["cpu"][0])))
+    hits = (res["card"][1]["uplink_hit_rate"], res["cpu"][1]["uplink_hit_rate"])
+    if hits != (1.0, 1.0) or err > AGG_RTOL * big:
+        raise AssertionError(f"path I3: warm sketch round card vs CPU {err} (bound {AGG_RTOL} * "
+                             f"{big}), uplink_hit_rate card/CPU {hits}")
+    sc = res["card"][1]
+    print(f"[path I] {card} | I3 warm session round on I1's LoRA and carry, uplink "
+          f"{I3_UPLINK}: update card vs CPU {err:.3g} (bound {AGG_RTOL:g} x max|delta| "
+          f"{big:.4g}); uplink_hit_rate card {hits[0]:g}, CPU {hits[1]:g}; bytes_up "
+          f"{sc['bytes_up']:.6g} vs dense {4.0 * sum(x[0].numel() for x in tree_leaves(deltas)) * 8:.6g}; "
+          f"fallbacks card {sc['fallback_count']:g} CPU {res['cpu'][1]['fallback_count']:g}",
+          flush=True)
+
+
+def main_path_i(counts, card: str) -> dict:
+    """I1 ``launch.train.main`` on StableLM-2-1.6B at full width and depth
+    (bf16, LoRA r 8 on q and v), 8 clients x 2 x 256 tokens, 2 Adam steps,
+    3 rounds of FedRPCA (subspace SVT and carry, fused tail, sketch uplink);
+    I2 the same on Mamba-2-130M with client ranks 8, 4, 2 and the pipeline at
+    staleness 1; I3 one local phase of each model card vs CPU from the card's
+    LoRA, and one warm sketch session round on I1's tree card vs CPU.
+    Returns the launch counts."""
+    import torch
+
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path I")
+    out1 = run_train_cli("stablelm-1.6b", [], counts, launched, expect, card, "I1")
+    out2 = run_train_cli("mamba2-130m", I2_EXTRA, counts, launched, expect, card, "I2")
+    before = counts()
+    i3_local_phase("stablelm-1.6b", 2, out1["lora"], card, "I3 StableLM")
+    i3_local_phase("mamba2-130m", 24, out2["lora"], card, "I3 Mamba-2")
+    del out2
+    torch.cuda.empty_cache()
+    i3_warm_sketch_round(out1, card)
+    got = launched(before)
+    for name in ("gathered_lora_matmul", "local_attention", "ssd_scan", "subspace_apply"):
+        if not got[name]:
+            raise AssertionError(f"path I3: {name} never launched")
+    phase["I3"] = got
+    total = launched(start)
+    print(f"[path I] {card} | launches {total} by phase {phase}", flush=True)
+    return total
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repro_torch package is not beside this script", file=sys.stderr)
@@ -2609,6 +2960,7 @@ def main() -> int:
     rec.update(check_ssd_kernel(bw, flops, tensor_flops / 2))  # TF32: half the bf16 rate
     rec.update(check_soft_threshold_kernel(bw, flops))
     rec.update(check_factored_kernel(bw, flops))
+    train_fns = check_training_functions()
 
     regime_probe()
 
@@ -2655,6 +3007,7 @@ def main() -> int:
     _, paths["F"] = run_path("F", main_path_f, counts, smi)
     _, paths["G"] = run_path("G", main_path_g, counts, smi, finals_a)
     _, paths["H"] = run_path("H", main_path_h, counts, smi, finals_a)
+    _, paths["I"] = run_path("I", main_path_i, counts, smi)
     launches = {k: sum(p[k] for p in paths.values()) for k in wrappers}
     for name, n in launches.items():
         if n == 0:
@@ -2685,6 +3038,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    print(f"[train fn] {smi} | forward (kernel) and backward (plain) per Function, with "
+          f"path I's launches: " + json.dumps(
+              {k: {**v, "launches_path_i": paths["I"][v["kernel"]]}
+               for k, v in train_fns.items()}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[wall] {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Any, Callable, Mapping
 
 import torch
@@ -81,6 +82,10 @@ class PackSpec:
     n_clients: int  # original (pre-padding) cohort size
     bucket_dims: Mapping[BucketKey, tuple]  # key -> (total_modules, padded_vec)
     cohort_size: int = 0  # padded client-axis length
+    # Declared per-client LoRA ranks of a heterogeneous cohort (None =
+    # uniform).  A descriptor only: the rank masks are applied to the deltas
+    # before packing (``fed.partition.client_rank_masks``).
+    client_ranks: tuple | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,11 +331,20 @@ def _fedrpca_bucket(
     carry=None,
     svt_rank: int | None = None,
     mesh=None,
+    uplink=None,
     true_cols: int | None = None,
 ):
     """FedRPCA over one bucket in one ``robust_pca_bucket`` call, or one
     ``robust_pca_bucket_sharded`` call on a multi-shard ``mesh``:
     ((B, vec) update, diagnostics, new carry).
+
+    ``uplink`` (an active ``fed.sketch.UplinkConfig``, carry required)
+    replaces the client columns by their sketch round trip against the
+    carry's basis when the carry is valid and no module's dropped energy
+    exceeds ``energy_tol``.  The gate is a device tensor and the choice a
+    ``torch.where`` (no host read); a tripped gate is the dense columns
+    bit for bit.  The diagnostics then gain ``uplink_bytes_up``,
+    ``uplink_bytes_down`` and ``uplink_hit``.
 
     ``carry`` is this bucket tier's ``BucketCarry`` (None: the stateless
     call, and the returned carry is None); ``svt_rank`` overrides the
@@ -350,6 +364,28 @@ def _fedrpca_bucket(
     else:
         n_eff = torch.clamp_min(torch.sum(bucket.client_mask), 1.0)
         w_uniform = bucket.client_mask / n_eff
+    uplink_diag = {}
+    if uplink is not None and uplink.active and carry is not None:
+        from repro_torch.fed import sketch as sketch_lib
+
+        basis = sketch_lib.uplink_basis(carry.l, carry.v)
+        sk = sketch_lib.encode_delta(m, basis, uplink.k)
+        m_hat = sketch_lib.decode_into_bucket(sk, basis)
+        use_sketch = carry.valid & (torch.amax(sk.energy_frac) <= uplink.energy_tol)
+        m = torch.where(use_sketch, m_hat, m)
+        b_mod, d1, r = basis.shape
+        kk = min(int(uplink.k), d1)
+        dense_b = sketch_lib.dense_bytes_per_client(bucket.dims)
+        sketch_b = sketch_lib.sketch_bytes_per_client(b_mod, r, kk)
+        hit = use_sketch.to(torch.float32)
+        per_client = torch.where(use_sketch, torch.tensor(sketch_b, device=m.device),
+                                 torch.tensor(dense_b, device=m.device))
+        uplink_diag = {
+            "uplink_bytes_up": per_client * n_eff,
+            "uplink_bytes_down": torch.tensor(sketch_lib.basis_bytes(b_mod, d1, r),
+                                              dtype=torch.float32, device=m.device),
+            "uplink_hit": hit,
+        }
     if col_scaled:
         m = m * (bucket.weights * n_eff)[None, None, :]
     rpca_fn = rpca_lib.robust_pca_bucket
@@ -404,6 +440,7 @@ def _fedrpca_bucket(
     update = low_mean + beta[:, None] * sparse_mean
     diag = {
         "beta": beta, "energy": energy, "residual": res.residual, **diag_extra,
+        **uplink_diag,
     }
     return update, diag, new_carry
 
@@ -549,6 +586,10 @@ class AggPlan:
     tiers: Mapping[BucketKey, TierSpec]
     mesh: Any = None
     device: Any = None  # where init_agg_carry puts the carries
+    # Uplink codec (``fed.sketch.UplinkConfig``); None never enters the
+    # codec.  Only a carrying plan sketches: the codec projects onto the
+    # carried basis.
+    uplink: Any = None
 
 
 def _plan_carry(cfg) -> bool:
@@ -567,15 +608,6 @@ def _plan_carry(cfg) -> bool:
     return True
 
 
-def _check_uplink(uplink, client_ranks) -> None:
-    """A dense uplink (``None`` or ``"dense"``) is the plain path; any
-    sketch mode, or client ranks, is not ported yet."""
-    if uplink not in (None, "dense") or client_ranks is not None:
-        raise NotImplementedError(
-            "compressed uplinks and client ranks are not ported yet (ROADMAP.md queue 1, item 6)"
-        )
-
-
 def plan_aggregation(
     stacked: Tree,
     cfg=None,
@@ -589,21 +621,42 @@ def plan_aggregation(
     structure, shapes, dtypes and device matter).  Every bucket starts in
     one burn-in tier; ``plan_retier`` moves converged modules to a low
     tier.  A one-shard ``mesh`` is normalized to None, the unsharded path.
-    Carries live on the mesh's first device, else on ``stacked``'s."""
+    Carries live on the mesh's first device, else on ``stacked``'s.
+
+    ``uplink`` is the codec config (a ``fed.sketch.UplinkConfig`` or a spec
+    for ``fed.sketch.parse_uplink``).  Dense or None plans never enter the
+    codec; sketch mode on a plan without a carry warns and runs dense.
+    ``client_ranks`` records the cohort's declared ranks on the
+    ``PackSpec`` (a descriptor: the rank masks are applied upstream)."""
     cfg = cfg or AggregatorConfig()
-    _check_uplink(uplink, client_ranks)
     if rpca_lib.mesh_client_shards(mesh) == 1:
         mesh = None
     granularity = "leaf" if cfg.method == "ties" else "module"
     joint = cfg.method == "fedrpca" and cfg.joint_ab
     _, spec = pack(stacked, granularity=granularity, joint_ab=joint, cohort_size=cohort_size)
+    if client_ranks is not None:
+        spec = dataclasses.replace(spec, client_ranks=tuple(int(r) for r in client_ranks))
+    carry = _plan_carry(cfg)
+    if uplink is not None:
+        from repro_torch.fed import sketch as sketch_lib
+
+        uplink = sketch_lib.parse_uplink(uplink)
+        if uplink.active and not carry:
+            warnings.warn(
+                "uplink sketch mode needs a carrying fedrpca plan (the codec "
+                "projects onto the carried basis); running dense",
+                stacklevel=2,
+            )
+            uplink = None
+        elif not uplink.active:
+            uplink = None  # dense is the no-codec path
     tiers = {
         key: TierSpec(low_idx=(), full_idx=tuple(range(dims[0])), low_cap=0)
         for key, dims in spec.bucket_dims.items()
     }
     device = mesh.devices[0] if mesh is not None else tree_leaves(stacked)[0].device
     return AggPlan(cfg=cfg, spec=spec, granularity=granularity, joint_ab=joint,
-                   carry=_plan_carry(cfg), tiers=tiers, mesh=mesh, device=device)
+                   carry=carry, tiers=tiers, mesh=mesh, device=device, uplink=uplink)
 
 
 def init_agg_carry(plan: AggPlan) -> AggCarry:
@@ -649,9 +702,11 @@ def aggregate_planned(
     ``EngineDiagnostics`` with ``with_diagnostics``.  Each bucket tier runs
     as one batched call with its own rank cap and carry slot; fedrpca adds
     per-module ``live_rank`` and the ``fallback_count`` / ``carry_hit_rate``
-    scalars when a carry threads.  An empty carry with a carrying plan
-    cold-starts every bucket; other methods delegate to ``aggregate_packed``
-    and pass the carry through."""
+    scalars when a carry threads; a sketch-uplink plan adds the wire
+    scalars ``bytes_up``, ``bytes_down_basis``, ``uplink_hit_rate`` and
+    ``uplink_dense_falls``, summed over the bucket tiers.  An empty carry
+    with a carrying plan cold-starts every bucket; other methods delegate to
+    ``aggregate_packed`` and pass the carry through."""
     cfg = plan.cfg
     if cfg.method != "fedrpca":
         out = aggregate_packed(
@@ -685,12 +740,17 @@ def aggregate_planned(
     updates: dict[BucketKey, torch.Tensor] = {}
     new_carry: AggCarry = {}
     falls, hits = [], []
+    up_bytes, down_bytes, up_hits = [], [], []
 
     def run_tier(sub, ck, cap):
         upd, d, c2 = _fedrpca_bucket(
             sub, cfg, shrink_fn, carry=carry.get(ck) if plan.carry else None, svt_rank=cap,
-            mesh=plan.mesh, true_cols=plan.spec.n_clients,
+            mesh=plan.mesh, uplink=plan.uplink, true_cols=plan.spec.n_clients,
         )
+        if "uplink_bytes_up" in d:
+            up_bytes.append(d["uplink_bytes_up"])
+            down_bytes.append(d["uplink_bytes_down"])
+            up_hits.append(d["uplink_hit"])
         if plan.carry:
             new_carry[ck] = c2
             falls.append(c2.fall_count)
@@ -734,6 +794,13 @@ def aggregate_planned(
             "fallback_count": functools.reduce(lambda a, b: a + b, falls),
             "carry_hit_rate": torch.mean(torch.stack(hits)),
         }
+    if up_bytes:
+        total = lambda xs: functools.reduce(lambda a, b: a + b, xs)
+        hit_t = torch.stack(up_hits)
+        scalars["bytes_up"] = total(up_bytes)
+        scalars["bytes_down_basis"] = total(down_bytes)
+        scalars["uplink_hit_rate"] = torch.mean(hit_t)
+        scalars["uplink_dense_falls"] = torch.sum(1.0 - hit_t)
     return out, new_carry, EngineDiagnostics(spec=spec, arrays=arrays, scalars=scalars)
 
 
@@ -840,7 +907,6 @@ class AggSession:
 
     def __init__(self, cfg=None, *, shrink_fn: Callable = rpca_lib.soft_threshold,
                  mesh=None, uplink=None, device="cuda"):
-        _check_uplink(uplink, None)
         self.cfg = cfg or AggregatorConfig()
         self.shrink_fn = shrink_fn
         self.device = backend.resolve_device(device)
@@ -849,6 +915,7 @@ class AggSession:
                 raise ValueError(f"a mesh on {mesh.devices[0]} cannot aggregate on {self.device}")
             self.device = mesh.devices[0]
         self.mesh = mesh
+        self.uplink = uplink
         self.plan: AggPlan | None = None
         self.carry: AggCarry = {}
         self.round_idx = 0
@@ -872,7 +939,7 @@ class AggSession:
         mask = None if mask is None else torch.as_tensor(mask, device=self.device)
         weights = None if weights is None else torch.as_tensor(weights, device=self.device)
         if self.plan is None:
-            self.plan = plan_aggregation(stacked, self.cfg, mesh=self.mesh)
+            self.plan = plan_aggregation(stacked, self.cfg, mesh=self.mesh, uplink=self.uplink)
             self.carry = init_agg_carry(self.plan)
         elif (self.cfg.retier_every and self.round_idx
               and self.round_idx % self.cfg.retier_every == 0):

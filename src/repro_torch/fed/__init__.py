@@ -1,6 +1,7 @@
-"""Federated simulation: partitioning, planted tasks, clients, server loop,
-the round pipeline, the update quarantine and fault injection."""
-from repro_torch.fed import faults, guard, partition, pipeline, synth
+"""Federated simulation: partitioning and client ranks, planted tasks,
+clients, server loop, the round pipeline, the update quarantine, fault
+injection and the sketch uplink codec."""
+from repro_torch.fed import faults, guard, partition, pipeline, sketch, synth
 from repro_torch.fed.client import LocalResult, LocalSpec, make_local_fn
 from repro_torch.fed.faults import FaultConfig, FaultModel, make_deadline_sampler
 from repro_torch.fed.guard import GuardConfig, screen
@@ -37,5 +38,6 @@ __all__ = [
     "RoundPhases", "RoundState", "init_round_state", "make_round_fn", "make_round_phases",
     "make_sampler", "rounds_to_reach", "run_simulation", "AdaptiveStaleScale", "AggWorker",
     "FaultConfig", "FaultModel", "GuardConfig", "InFlightQueue", "make_deadline_sampler",
-    "run_rounds", "screen", "stale_scale", "faults", "guard", "partition", "pipeline", "synth",
+    "run_rounds", "screen", "stale_scale", "faults", "guard", "partition", "pipeline", "sketch",
+    "synth",
 ]

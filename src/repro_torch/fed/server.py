@@ -23,7 +23,9 @@ passes the reference's ``jax.random`` draws).  DARE's key for round t is
 ``(cfg.seed, t)``; fault draws are a pure function of (fault seed, round)
 (``fed.faults``).  ``mesh_shards > 1`` shards every aggregation's client
 axis over ``launch.mesh.make_host_mesh(mesh_shards)`` on the run's device.
-A non-dense ``uplink`` and ``client_ranks`` raise until ROADMAP.md item 6.
+``uplink="sketch[:k[:tol]]"`` sends each client column through the
+carry-basis sketch codec (``fed.sketch``) inside a carrying fedrpca session;
+``client_ranks`` zero-masks each client's delta beyond its declared rank.
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ from repro_torch.core.aggregators import (
 )
 from repro_torch.fed import faults as faults_lib
 from repro_torch.fed import guard as guard_lib
+from repro_torch.fed import partition as partition_lib
+from repro_torch.fed import sketch as sketch_lib
 from repro_torch.fed.client import LocalSpec, make_local_fn
 from repro_torch.fed.faults import top_k_stable
 from repro_torch.kernels import backend
@@ -135,7 +139,14 @@ class FedRunConfig:
     faults: Any = None
     guard: Any = None
     mesh_shards: int = 0
+    # Compressed uplink codec: "dense" (the plain wire), "sketch[:k[:tol]]"
+    # or a fed.sketch.UplinkConfig.  Sketch mode needs a carrying packed
+    # fedrpca round (the codec projects onto the carried basis); otherwise
+    # it runs dense with a warning.
     uplink: Any = "dense"
+    # Heterogeneous per-client LoRA ranks: None = uniform, else a
+    # fed.partition.parse_client_ranks spec (cycled over the clients).
+    # Client i's delta is zero-masked beyond rank_i before aggregation.
     client_ranks: Any = None
 
 
@@ -221,8 +232,7 @@ def make_sampler(kind: str, n_clients: int, cohort_pad: int, *, availability=Non
 
 
 def _check_config(cfg: FedRunConfig, n_clients: int) -> None:
-    """Validate the run configuration; refuse what is not ported yet, naming
-    its ROADMAP.md item."""
+    """Validate the run configuration."""
     sample_size = cfg.clients_per_round or n_clients
     if not 0 < sample_size <= n_clients:
         raise ValueError(
@@ -238,13 +248,6 @@ def _check_config(cfg: FedRunConfig, n_clients: int) -> None:
         raise ValueError(
             f"unknown carry_mode: {cfg.aggregator.carry_mode!r} (expected one of {CARRY_MODES})"
         )
-    todo = [
-        (cfg.uplink not in (None, "dense"), "compressed uplinks", "queue 1, item 6"),
-        (cfg.client_ranks is not None, "heterogeneous client ranks", "queue 1, item 6"),
-    ]
-    for bad, what, item in todo:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 def make_round_phases(
@@ -318,10 +321,37 @@ def make_round_phases(
         else:
             mesh = make_host_mesh(cfg.mesh_shards, device=dev)
 
+    # Heterogeneous ranks: 0/1 masks applied to the deltas in the local
+    # phase, so the aggregation sees what rank-r_i clients zero-padded into
+    # the uniform layout would ship.
+    rank_masks = ranks_all = None
+    if cfg.client_ranks is not None:
+        if lora_template is None:
+            raise ValueError(
+                "client_ranks needs the LoRA structure to build the rank masks: pass "
+                "lora_template= (e.g. the lora_init given to init_round_state)"
+            )
+        r_dim = partition_lib.infer_lora_rank(lora_template)
+        ranks_all = partition_lib.parse_client_ranks(cfg.client_ranks, n_clients, r_dim)
+        rank_masks = partition_lib.client_rank_masks(tree_to(lora_template, dev), ranks_all,
+                                                     r_dim)
+    carry_on = (agg_cfg.carry_mode != "none" and cfg.engine == "packed"
+                and agg_cfg.method == "fedrpca")
+    uplink_cfg = None
+    if cfg.uplink is not None:
+        uplink_cfg = sketch_lib.parse_uplink(cfg.uplink)
+        if uplink_cfg.active and not carry_on:
+            warnings.warn(
+                "uplink sketch mode needs a carrying packed-engine fedrpca round (the "
+                "codec projects onto the carried basis); running dense",
+                stacklevel=2,
+            )
+            uplink_cfg = None
+
     # Cross-round carry: packed-engine fedrpca only (the reference engine is
     # the stateless parity oracle).
     plan = None
-    if agg_cfg.carry_mode != "none" and cfg.engine == "packed" and agg_cfg.method == "fedrpca":
+    if carry_on:
         if lora_template is None:
             raise ValueError(
                 f"carry_mode={agg_cfg.carry_mode!r} needs the LoRA structure to plan the "
@@ -330,7 +360,10 @@ def make_round_phases(
         example = tree_map(
             lambda x: torch.zeros((slots, *x.shape), dtype=x.dtype, device=dev), lora_template,
         )
-        plan = engine_lib.plan_aggregation(example, agg_cfg, mesh=mesh)
+        plan = engine_lib.plan_aggregation(
+            example, agg_cfg, mesh=mesh, uplink=uplink_cfg,
+            client_ranks=None if ranks_all is None else ranks_all.tolist(),
+        )
 
     def draw_round(state: RoundState, n_active):
         """The round's cohort (None = everyone), CPU validity mask and
@@ -399,6 +432,8 @@ def make_round_phases(
         new_state = state._replace(scaffold_c=new_c, scaffold_ci=new_ci, prev_local=new_prev,
                                    round_idx=r + 1)
         deltas = results.delta
+        if rank_masks is not None:
+            deltas = tree_map(lambda d, mk: d * take(mk).to(d.dtype), deltas, rank_masks)
         bundle_mask = mask
         fault_slots = None
         if (fault_model is not None or guard_cfg is not None) and bundle_mask is None:
@@ -435,12 +470,14 @@ def make_round_phases(
         return diags
 
     def wire_diags(diags, deltas, mask2):
-        # Dense f32 wire: per-client payload times the live cohort up, the
-        # update broadcast once down.
+        # A sketch round's engine already counted its exact bytes up; any
+        # other round ships the dense f32 payload of every live client.  Down:
+        # the update broadcast once, plus the sketch basis multicast.
         per_client = 4.0 * sum(int(np.prod(l.shape[1:])) for l in tree_leaves(deltas))
         n_live = float(n_clients) if mask2 is None else torch.clamp_min(torch.sum(mask2), 0.0)
-        diags["bytes_up"] = per_client * n_live
-        diags["bytes_down"] = per_client
+        if "bytes_up" not in diags:
+            diags["bytes_up"] = per_client * n_live
+        diags["bytes_down"] = per_client + diags.pop("bytes_down_basis", 0.0)
         return diags
 
     def scale_tree(tree, scale):

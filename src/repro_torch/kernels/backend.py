@@ -51,6 +51,13 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel and no plain path for device {t.device}")
 
 
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """True when autograd records this call: grad mode is on and an input
+    requires a gradient.  The wrappers then run through their
+    ``torch.autograd.Function`` (the same kernel forward, a plain backward)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def resolve_device(device) -> torch.device:
     """Entry-point device policy: ``"cuda"`` unless the caller asks for
     the CPU.  A CUDA request on a machine without CUDA raises; nothing moves

@@ -7,6 +7,11 @@ causal, keys limited to the last ``window`` positions when ``window > 0``
 key tiles a query tile needs and keeps scores out of device memory; see the
 source note.  ``route`` says which of its two routes a call takes: bf16 runs
 QK^T and PV on the tensor cores, float32 stays on fp32 FMA.
+
+Under autograd the wrapper runs through ``_AttentionFn``: the forward is the
+kernel (the plain version on the CPU); the backward recomputes the plain
+version from the saved q, k, v and differentiates it, as the reference has
+no backward kernel.
 """
 from __future__ import annotations
 
@@ -42,15 +47,44 @@ def route(d: int, dtype: torch.dtype) -> str:
     return "tensor" if dtype == torch.bfloat16 else "scalar"
 
 
+class _AttentionFn(torch.autograd.Function):
+    """The attention kernel with a recompute-the-plain-version backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.causal = window, causal
+        return _forward(q, k, v, window, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(saved, ctx.needs_input_grad[:3])]
+            out = ref.local_attention_ref(*ins, window=ctx.window, causal=ctx.causal)
+            want = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, want, g))
+        return (*(next(got) if t.requires_grad else None for t in ins), None, None)
+
+
 def local_attention(q, k, v, *, window: int = 0, causal: bool = True) -> torch.Tensor:
     """Attention over q, k, v of shape (BH, S, D).  CPU tensors compute
     ``ref.local_attention_ref``; CUDA tensors (contiguous float32 or
-    bfloat16, D in ``HEAD_DIMS``) launch the kernel by ``route``."""
+    bfloat16, D in ``HEAD_DIMS``) launch the kernel by ``route``.
+    Differentiable in q, k and v (``_AttentionFn``)."""
     if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"expected three (BH, S, D) tensors, got {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if backend.needs_grad(q, k, v):
+        return _AttentionFn.apply(q, k, v, window, causal)
+    return _forward(q, k, v, window, causal)
+
+
+def _forward(q, k, v, window, causal):
+    """The kernel launch, or the plain version for CPU tensors."""
     if not backend.use_kernel(q):
         return ref.local_attention_ref(q, k, v, window=window, causal=causal)
     bh, s, d = q.shape

@@ -9,7 +9,12 @@ adapters, one slot per row):
 Both wrappers launch the same kernels of ``csrc/lora_matmul.cu``: a block
 per few rows takes x @ A at the real rank and a tiled kernel computes x @ W
 with the correction in its epilogue (splitting K across blocks when the
-output has too few tiles to fill the card, as at decode).  ``route`` says
+output has too few tiles to fill the card, as at decode).
+
+Under autograd (an input that requires a gradient, grad mode on) both
+wrappers run through ``_LoraFn``: the forward is the same kernel (the plain
+version on the CPU), the backward plain PyTorch (``_lora_backward``), as the
+reference has no backward kernel.  W is frozen and gets no gradient.  ``route`` says
 which base product a call takes: bf16 with 16-byte row strides runs on the
 tensor cores (TMA-fed ``wgmma``), everything else on fp32 FMA.  Every row
 reads its own slot, so rows are never sorted or padded into single-adapter
@@ -150,19 +155,92 @@ def _check_shapes(x, w, a, b, name):
                          f"W {tuple(w.shape)}")
 
 
+def _lora_forward(x, w, a, b, row_slot, scale):
+    """The kernel of ``lora_matmul`` (``row_slot`` None, a 2-D adapter) or of
+    ``gathered_lora_matmul``; the plain version for CPU tensors."""
+    if row_slot is None:
+        if not backend.use_kernel(x):
+            return ref.lora_matmul_ref(x, w, a, b, scale)
+        y, tensor = _launch(x, w, a[None], b[None], None, scale, "lora_matmul")
+        _count(lora_matmul, tensor)
+        return y
+    if not backend.use_kernel(x):
+        return ref.gathered_lora_matmul_ref(x, w, a, b, row_slot, scale)
+    y, tensor = _launch(x, w, a, b, row_slot, scale, "gathered_lora_matmul")
+    _count(gathered_lora_matmul, tensor)
+    return y
+
+
+def _lora_backward(g, x, w, a, b, row_slot, scale, need):
+    """Gradients of ``_lora_forward`` for (x, A, B) in plain PyTorch, each
+    None unless ``need`` asks for it.
+
+    It mirrors the autograd of the plain version with one difference: the
+    base part g W^T is taken in x's dtype, as the reference's autodiff of a
+    bf16 product is (exact in float32).  Everything else is fp32: the
+    adapter is rounded to x's dtype (the model's cast), x A is rounded to
+    x's dtype before the B product as the forward rounds it, and the
+    gradient of x A is rounded there too.  For a pool, slot s takes the
+    rows that name it (``row_slot`` None: one adapter for every row):
+    dB_s = s (x A_s)^T g_s, dA_s = x^T (s g_s B_s^T), summed over those
+    rows; slot -1 rows contribute nothing."""
+    need_x, need_a, need_b = need
+    dt = x.dtype
+    gf = g.float()
+    xf = x.float()
+    two_d = a.ndim == 2
+    pool_a, pool_b = (a[None], b[None]) if two_d else (a, b)
+    dx = (g @ w.to(dt).T).float() if need_x else None
+    da = torch.zeros(pool_a.shape, dtype=a.dtype, device=a.device) if need_a else None
+    db = torch.zeros(pool_b.shape, dtype=b.dtype, device=b.device) if need_b else None
+    for s in range(pool_a.shape[0]):
+        a_s = pool_a[s].to(dt).float()
+        b_s = pool_b[s].to(dt).float()
+        gl = scale * gf if row_slot is None else scale * gf * (row_slot == s)[:, None]
+        if need_b:
+            xa = (xf @ a_s).to(dt).float()
+            db[s] = (xa.T @ gl).to(dt).to(b.dtype)
+        if need_a or need_x:
+            dxa = (gl @ b_s.T).to(dt).float()
+            if need_a:
+                da[s] = (xf.T @ dxa).to(dt).to(a.dtype)
+            if need_x:
+                dx = dx + dxa @ a_s.T
+    if two_d:
+        da = None if da is None else da[0]
+        db = None if db is None else db[0]
+    return (None if dx is None else dx.to(dt)), da, db
+
+
+class _LoraFn(torch.autograd.Function):
+    """The fused LoRA product with a plain-PyTorch backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, row_slot, scale):
+        ctx.save_for_backward(x, w, a, b, row_slot)
+        ctx.scale = scale
+        return _lora_forward(x, w, a, b, row_slot, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b, row_slot = ctx.saved_tensors
+        need = (ctx.needs_input_grad[0], ctx.needs_input_grad[2], ctx.needs_input_grad[3])
+        dx, da, db = _lora_backward(g, x, w, a, b, row_slot, ctx.scale, need)
+        return dx, None, da, db, None, None
+
+
 def lora_matmul(x, w, a, b, scale: float = 1.0) -> torch.Tensor:
     """y = x @ W + scale * (x @ A) @ B for x (M, K), W (K, N), A (K, R),
     B (R, N).  x and W are float32 or bfloat16 of one type; A and B are
     float32 or bfloat16 and are rounded to x's type.  CPU tensors compute
-    ``ref.lora_matmul_ref``; CUDA tensors launch the kernel."""
+    ``ref.lora_matmul_ref``; CUDA tensors launch the kernel.  Differentiable
+    in x, A and B (``_LoraFn``)."""
     _check_shapes(x, w, a, b, "lora_matmul")
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError("lora_matmul takes a 2-D adapter; use gathered_lora_matmul for a pool")
-    if not backend.use_kernel(x):
-        return ref.lora_matmul_ref(x, w, a, b, scale)
-    y, tensor = _launch(x, w, a[None], b[None], None, scale, "lora_matmul")
-    _count(lora_matmul, tensor)
-    return y
+    if backend.needs_grad(x, a, b):
+        return _LoraFn.apply(x, w, a, b, None, scale)
+    return _lora_forward(x, w, a, b, None, scale)
 
 
 def gathered_lora_matmul(x, w, a_pool, b_pool, row_slot, scale: float = 1.0) -> torch.Tensor:
@@ -172,18 +250,17 @@ def gathered_lora_matmul(x, w, a_pool, b_pool, row_slot, scale: float = 1.0) -> 
     same bits as an all-zero adapter.  Each slot of a pool is contiguous;
     the slot stride is free.  CPU tensors compute
     ``ref.gathered_lora_matmul_ref``; CUDA tensors launch the kernel, which
-    traps on a slot outside [-1, n_slots)."""
+    traps on a slot outside [-1, n_slots).  Differentiable in x and the
+    pools (``_LoraFn``)."""
     _check_shapes(x, w, a_pool, b_pool, "gathered_lora_matmul")
     if a_pool.ndim != 3 or b_pool.ndim != 3 or a_pool.shape[0] != b_pool.shape[0]:
         raise ValueError(f"gathered_lora_matmul: pools {tuple(a_pool.shape)} and "
                          f"{tuple(b_pool.shape)} are not (n_slots, K, R) and (n_slots, R, N)")
     if row_slot.shape != (x.shape[0],):
         raise ValueError(f"row_slot {tuple(row_slot.shape)} is not ({x.shape[0]},)")
-    if not backend.use_kernel(x):
-        return ref.gathered_lora_matmul_ref(x, w, a_pool, b_pool, row_slot, scale)
-    y, tensor = _launch(x, w, a_pool, b_pool, row_slot, scale, "gathered_lora_matmul")
-    _count(gathered_lora_matmul, tensor)
-    return y
+    if backend.needs_grad(x, a_pool, b_pool):
+        return _LoraFn.apply(x, w, a_pool, b_pool, row_slot, scale)
+    return _lora_forward(x, w, a_pool, b_pool, row_slot, scale)
 
 
 #: Kernel launches since the count was last set to 0 (plain version

@@ -140,3 +140,46 @@ def ssd_scan_ref(x, da, b, c, chunk: int = 256, *, h0=None, return_state: bool =
         ys.append(torch.einsum("bn,bnp->bp", cf[:, t], h))
     y = (torch.stack(ys, dim=1) if ys else xf.new_zeros((bh, 0, p))).to(x.dtype)
     return (y, h) if return_state else y
+
+
+def ssd_chunked_ref(x, da, b, c, chunk: int, *, return_state: bool = False):
+    """The same SSD core as ``ssd_scan_ref`` in the chunked dual form (the
+    reference's differentiable ``models/ssd.py::ssd_chunked``, in the
+    kernel's layout): within a chunk of Q positions the masked quadratic
+    form (L o C B^T) x, across chunks the carried state.  A few dozen
+    batched ops for any S, so its autograd is the backward of the SSD
+    kernel.  Shapes, groups and dtypes as ``ssd_scan_ref``."""
+    bh, s, p = x.shape
+    g, n = b.shape[0], b.shape[-1]
+    rep = bh // g
+    q = max(1, min(int(chunk), s))
+    pad = (-s) % q
+    nc = (s + pad) // q
+    xf, daf, bf, cf = x.float(), da.float(), b.float(), c.float()
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, pad))
+        daf = torch.nn.functional.pad(daf, (0, pad))
+        bf = torch.nn.functional.pad(bf, (0, 0, 0, pad))
+        cf = torch.nn.functional.pad(cf, (0, 0, 0, pad))
+    xc = xf.reshape(g, rep, nc, q, p)
+    cum = torch.cumsum(daf.reshape(g, rep, nc, q), dim=-1)
+    bc = bf.reshape(g, nc, q, n)
+    cc = cf.reshape(g, nc, q, n)
+    # Intra-chunk: lower-triangular decays exp(cum_i - cum_j), j <= i.
+    tril = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    seg = torch.where(tril, cum[..., :, None] - cum[..., None, :],
+                      torch.full((), float("-inf"), device=x.device))
+    scores = cc @ bc.mT  # (G, nc, Q, Q)
+    y = (torch.exp(seg) * scores[:, None]) @ xc
+    # Each chunk's contribution to the state at its end, then the carry.
+    decay_to_end = torch.exp(cum[..., -1:] - cum)
+    states = bc[:, None].mT @ (decay_to_end[..., None] * xc)  # (G, rep, nc, N, P)
+    chunk_decay = torch.exp(cum[..., -1])
+    h = torch.zeros((g, rep, n, p), dtype=torch.float32, device=x.device)
+    entering = []
+    for ci in range(nc):
+        entering.append(h)
+        h = chunk_decay[:, :, ci, None, None] * h + states[:, :, ci]
+    y = y + (cc[:, None] @ torch.stack(entering, dim=2)) * torch.exp(cum)[..., None]
+    y = y.reshape(bh, nc * q, p)[:, :s].to(x.dtype)
+    return (y, h.reshape(bh, n, p)) if return_state else y

@@ -9,6 +9,11 @@ decode.  A first pass writes each group's C B^T score tiles and the
 in-tile sums of da once; the scan runs its three products on the tensor
 cores in 3xTF32 (fp32-level accuracy, never a single TF32 pass) with h in
 the accumulator fragments; see the source note for its tiling.
+
+Under autograd the wrapper runs through ``_SSDScanFn``: the forward is the
+kernel (the plain sequential scan on the CPU); the backward recomputes the
+plain chunked form (``ref.ssd_chunked_ref``) from the saved inputs and
+differentiates it, as the reference has no backward kernel.
 """
 from __future__ import annotations
 
@@ -54,6 +59,29 @@ def _check(x, da, b, c, chunk):
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
 
+class _SSDScanFn(torch.autograd.Function):
+    """The SSD scan kernel with a recompute-the-chunked-form backward."""
+
+    @staticmethod
+    def forward(ctx, x, da, b, c, chunk, return_state):
+        ctx.save_for_backward(x, da, b, c)
+        ctx.chunk, ctx.return_state = chunk, return_state
+        return _forward(x, da, b, c, chunk, return_state)
+
+    @staticmethod
+    def backward(ctx, gy, gh=None):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(saved, ctx.needs_input_grad[:4])]
+            outs = ref.ssd_chunked_ref(*ins, ctx.chunk, return_state=True)
+            pairs = [(o, gr) for o, gr in zip(outs, (gy, gh)) if gr is not None]
+            want = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                           [gr for _, gr in pairs]))
+        return (*(next(got) if t.requires_grad else None for t in ins), None, None)
+
+
 def ssd_scan(x, da, b, c, *, chunk: int = 256, return_state: bool = False):
     """y (BH, S, P) of the SSD scan, and with ``return_state`` the final
     state (BH, N, P) in float32.
@@ -65,8 +93,16 @@ def ssd_scan(x, da, b, c, *, chunk: int = 256, return_state: bool = False):
     result does not depend on ``chunk`` in exact arithmetic; the kernel
     tiles by 64 positions.  CPU tensors compute ``ref.ssd_scan_ref``; CUDA
     tensors (contiguous float32, N <= ``MAX_STATE``) launch the kernel.
+    Differentiable in x, da, b and c (``_SSDScanFn``).
     """
     _check(x, da, b, c, chunk)
+    if backend.needs_grad(x, da, b, c):
+        return _SSDScanFn.apply(x, da, b, c, chunk, return_state)
+    return _forward(x, da, b, c, chunk, return_state)
+
+
+def _forward(x, da, b, c, chunk, return_state):
+    """The kernel launch, or the plain scan for CPU tensors."""
     if not backend.use_kernel(x):
         return ref.ssd_scan_ref(x, da, b, c, chunk, return_state=return_state)
     bh, s, p = x.shape

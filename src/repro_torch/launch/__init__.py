@@ -1,2 +1,4 @@
 """Entry points of the port: ``launch.serve``, the multi-tenant serving CLI,
-and ``launch.mesh``, the client meshes of sharded aggregation."""
+``launch.train``, the federated LoRA fine-tuning CLI (its round halves in
+``launch.steps``), and ``launch.mesh``, the client meshes of sharded
+aggregation."""

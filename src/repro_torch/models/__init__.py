@@ -1,7 +1,9 @@
-"""Models of the port: the decoder LM that ``launch/serve.py`` serves, with
-attention (``"attn"``) or Mamba-2 SSD (``"ssd"``) blocks."""
+"""Models of the port: the decoder LM that ``launch/serve.py`` serves and
+``launch/train.py`` fine-tunes, with attention (``"attn"``) or Mamba-2 SSD
+(``"ssd"``) blocks."""
 from repro_torch.models.model import (
     DecoderLM,
+    client_losses,
     decode_step,
     extend_caches,
     forward,
@@ -13,7 +15,7 @@ from repro_torch.models.model import (
 from repro_torch.models import attention, blocks, ffn, kvcache, layers, ssd
 
 __all__ = [
-    "DecoderLM", "decode_step", "extend_caches", "forward", "init_decode_caches",
+    "DecoderLM", "client_losses", "decode_step", "extend_caches", "forward", "init_decode_caches",
     "init_lora_params", "init_params", "loss_fn", "attention", "blocks", "ffn", "kvcache",
     "layers", "ssd",
 ]

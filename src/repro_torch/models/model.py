@@ -10,9 +10,12 @@ of pattern slot ``i % unit``, e.g.
 and caches ``{"groups": ({"self": KVCache(k=(n_groups, B, S, n_kv, hd), v=...)},), "tail": ()}``
 (``SSMState(h=(n_groups, B, H, P, N), conv=...)`` for an ``"ssd"`` slot).
 
-Modes: ``prefill`` (full prompt, caches, last-position logits) and
+Modes: ``train`` (full sequence, logits at every position, for
+``loss_fn``), ``prefill`` (full prompt, caches, last-position logits) and
 ``decode`` (one token against the caches, written in place).  Training
-(``mode="train"``, ``loss_fn``) is not ported yet.
+differentiates the LoRA leaves only: the base weights are frozen
+(``requires_grad=False``), and the kernels' backward passes are plain
+PyTorch (``kernels/*.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import backend
 from repro_torch.models import blocks, layers, ssd
@@ -29,10 +33,6 @@ from repro_torch.models.kvcache import KVCache, attn_cache
 Tree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _train_not_ported():
-    return NotImplementedError("LM training is not ported yet (ROADMAP.md queue 1, item 8)")
 
 
 class DecoderLM(nn.Module):
@@ -119,17 +119,23 @@ def _stack_states(states):
 
 
 def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: str = "prefill",
-            caches: Optional[Tree] = None, cache_index: Optional[int] = None):
+            caches: Optional[Tree] = None, cache_index: Optional[int] = None,
+            remat: bool = False):
     """Returns (logits, new_caches, moe_aux_loss).
 
-    ``prefill`` returns the last position's float32 logits (B, 1, V) and
-    caches sized to the prompt; ``decode`` takes one token per request
-    (``batch["tokens"]`` (B, 1)) at position ``cache_index``, writes it into
-    ``caches`` in place and returns them.  ``lora`` is None, a 2-D adapter
-    tree (``init_lora_params``, the merged path) or a pool view
-    (``serve.pool.adapter_view``)."""
-    if mode not in ("prefill", "decode"):
-        raise _train_not_ported()
+    ``train`` returns float32 logits at every position (B, S, V) and no
+    caches; with ``remat`` each block's activations are recomputed in the
+    backward pass (``torch.utils.checkpoint``), as the reference wraps its
+    scanned block in ``jax.checkpoint``.  ``prefill`` returns the last
+    position's float32 logits (B, 1, V) and caches sized to the prompt;
+    ``decode`` takes one token per request (``batch["tokens"]`` (B, 1)) at
+    position ``cache_index``, writes it into ``caches`` in place and
+    returns them.  ``lora`` is None, a 2-D adapter tree
+    (``init_lora_params``, the merged path) or a view with a slot per
+    request (``serve.pool.adapter_view``: a pool, or the client-stacked
+    adapters of a local training step)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = F.embedding(tokens, model.embed)
@@ -139,8 +145,14 @@ def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: s
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     new = []
     for blk, lo, c in zip(model.layers, _layer_trees(lora, cfg), _layer_caches(caches, cfg)):
-        x, nc = blk(x, lo, cfg, positions=positions, mode=mode, cache=c,
-                    cache_index=cache_index)
+        if remat and mode == "train":
+            x = checkpoint(lambda h, lo_, blk_=blk: blk_(h, lo_, cfg, positions=positions,
+                                                         mode=mode)[0],
+                           x, lo, use_reentrant=False)
+            nc = None
+        else:
+            x, nc = blk(x, lo, cfg, positions=positions, mode=mode, cache=c,
+                        cache_index=cache_index)
         new.append(nc)
     x = layers.apply_norm(model.final_norm, x, cfg.norm_eps)
     if mode == "prefill":
@@ -156,8 +168,38 @@ def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: s
     return logits, caches, torch.zeros((), device=x.device)
 
 
-def loss_fn(*args, **kwargs):
-    raise _train_not_ported()
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor):
+    """(B, S) next-token negative log-likelihoods (0 where the label is < 0)
+    and the (B, S) float32 mask of counted tokens."""
+    mask = labels >= 0
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          torch.where(mask, labels, -100).reshape(-1).long(),
+                          ignore_index=-100, reduction="none")
+    return nll.reshape(labels.shape), mask.to(torch.float32)
+
+
+def loss_fn(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, remat: bool = False):
+    """Next-token cross-entropy over float32 logits; labels < 0 are masked.
+    Returns ``(total, {"ce", "aux"})`` with total = ce +
+    ``cfg.router_aux_weight`` * aux (aux is 0: no ported model routes)."""
+    logits, _, aux = forward(model, lora, batch, cfg, mode="train", remat=remat)
+    nll, mask = _token_nll(logits, batch["labels"])
+    loss = torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
+    return loss + cfg.router_aux_weight * aux, {"ce": loss, "aux": aux}
+
+
+def client_losses(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, n_clients: int, *,
+                  remat: bool = False) -> torch.Tensor:
+    """``loss_fn``'s total for each of ``n_clients`` equal, contiguous blocks
+    of the batch rows, as a (n_clients,) vector: client c's mean over its
+    own counted tokens.  With client-stacked adapters (one slot per
+    client's rows), the gradient of the vector's sum gives each client's
+    adapter exactly the gradient of its own loss."""
+    logits, _, aux = forward(model, lora, batch, cfg, mode="train", remat=remat)
+    nll, mask = _token_nll(logits, batch["labels"])
+    per = nll.reshape(n_clients, -1).sum(dim=1)
+    count = mask.reshape(n_clients, -1).sum(dim=1)
+    return per / torch.clamp_min(count, 1.0) + cfg.router_aux_weight * aux
 
 
 def init_decode_caches(cfg, batch: int, cache_len: int, dtype=None, *, device="cuda") -> Tree:
@@ -207,6 +249,6 @@ def param_count(model: nn.Module) -> int:
 
 
 __all__ = [
-    "DecoderLM", "decode_step", "extend_caches", "forward", "init_decode_caches",
+    "DecoderLM", "client_losses", "decode_step", "extend_caches", "forward", "init_decode_caches",
     "init_lora_params", "init_params", "loss_fn", "param_count",
 ]

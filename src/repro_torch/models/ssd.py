@@ -6,7 +6,7 @@ Follows Dao & Gu (2024, arXiv:2405.21060): the selective SSM
     h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t^T      (per head)
     y_t = C_t . h_t + D x_t
 
-* Prefill runs ``kernels.ops.ssd_scan``: the CUDA kernel on a card, its
+* Prefill and training run ``kernels.ops.ssd_scan``: the CUDA kernel on a card, its
   plain sequential scan on the CPU.  It takes the place of the reference's
   associative-scan ``ssd_chunked`` (the jnp twin of the same Pallas kernel)
   and returns the final state that decode starts from.
@@ -101,8 +101,11 @@ def ssd_chunked(
     d_skip: torch.Tensor,  # (H,)
     chunk: int,
     h_init: Optional[torch.Tensor] = None,  # (B, H, P, N)
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, S, H, P), final_state (B, H, P, N)).
+    *,
+    return_state: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (y (B, S, H, P), final_state (B, H, P, N), or None without
+    ``return_state``).
 
     Folds (B, S, H, P) into (B*H, S, P) rows, premultiplies by dt and calls
     ``ops.ssd_scan`` with B and C as one group per batch row (read by all its
@@ -115,7 +118,9 @@ def ssd_chunked(
     da = (dt * a[None, None, :]).permute(0, 2, 1).reshape(bsz * h, s).contiguous()
     xk = (x * dt[..., None]).permute(0, 2, 1, 3).reshape(bsz * h, s, p).contiguous()
     bk, ck = b_mat.contiguous(), c_mat.contiguous()
-    if h_init is None:
+    if h_init is None and not return_state:
+        y, final = ops.ssd_scan(xk, da, bk, ck, chunk=chunk), None
+    elif h_init is None:
         y, final = ops.ssd_scan(xk, da, bk, ck, chunk=chunk, return_state=True)
     elif backend.use_kernel(x):
         raise NotImplementedError("ssd_chunked: the kernel starts from a zero state; h_init "
@@ -125,6 +130,8 @@ def ssd_chunked(
         y, final = ref.ssd_scan_ref(xk, da, bk, ck, chunk, h0=h0, return_state=True)
     y = y.reshape(bsz, h, s, p).permute(0, 2, 1, 3)
     y = y + x * d_skip[None, None, :, None]
+    if final is None:
+        return y, None
     return y, final.reshape(bsz, h, n, p).transpose(-1, -2)
 
 
@@ -177,7 +184,7 @@ def apply_ssd(params, lora, x: torch.Tensor, cfg, *, state: Optional[SSMState] =
         xs, b_mat, c_mat = torch.split(xbc, [d_inner, n_state, n_state], dim=-1)
         xs = xs.reshape(*xs.shape[:2], h_heads, p_dim)
         y, h_final = ssd_chunked(xs.float(), dt, params["A_log"], b_mat.float(), c_mat.float(),
-                                 params["D"], cfg.ssm_chunk)
+                                 params["D"], cfg.ssm_chunk, return_state=return_state)
         if return_state:
             new_state = SSMState(h=h_final, conv=conv_tail.contiguous())
     else:

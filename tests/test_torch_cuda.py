@@ -573,3 +573,143 @@ def test_reduced_mamba_serving_card_matches_cpu(cuda):
     got, _ = dec(base, pool.pooled, pool.acquire(ids), toks[:, -1:].to(cuda), caches, 69)
     want, _ = dec(cpu_base, cpu_pool.pooled, cpu_pool.acquire(ids), toks[:, -1:], cpu_caches, 69)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
+
+
+# --- Training: the kernels' autograd Functions --------------------------------
+# The forward of each Function is the kernel (one launch, the bits of the
+# no-grad call); the backward is plain PyTorch.  Gradients are held to the
+# plain version's autograd on the card: LoRA dx within two bf16 ulps of its
+# largest entry in bf16 (g W^T rounded to bf16 first) and 1e-5 of it in
+# float32, dA and dB within 1e-4 of their largest entry (fp32 sums over the
+# rows in other orders); attention within 1e-5 of the largest gradient in
+# float32 and one bf16 ulp in bf16 (the same plain operations, recomputed);
+# the SSD's chunked recompute against the sequential scan's autograd within
+# 1e-4 of the largest gradient entry.
+
+
+def _card_grads(fn, ins, g):
+    live = [t.clone().requires_grad_() for t in ins]
+    out = fn(*live)
+    return out.detach(), torch.autograd.grad(out, live, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gathered", [False, True])
+def test_lora_function_grads_on_the_card(cuda, dtype, gathered):
+    from repro_torch.kernels import lora_matmul as lm
+
+    m, k, n, r = 512, 2048, 2048, 8
+    x, w, a, b = lora_case(cuda, m, k, n, r, dtype)
+    gen = torch.Generator().manual_seed(9)
+    g = torch.randn((m, n), generator=gen).to(cuda, dtype)
+    slots = (torch.arange(m) * 8 // m).to(torch.int32).to(cuda)
+    if gathered:
+        fn = lambda x_, a_, b_: lm.gathered_lora_matmul(x_, w, a_, b_, slots, 2.0)
+        plain = lambda x_, a_, b_: ref.gathered_lora_matmul_ref(x_, w, a_, b_, slots, 2.0)
+        ins, counter = (x, a, b), lm.gathered_lora_matmul
+    else:
+        fn = lambda x_, a_, b_: lm.lora_matmul(x_, w, a_, b_, 2.0)
+        plain = lambda x_, a_, b_: ref.lora_matmul_ref(x_, w, a_, b_, 2.0)
+        ins, counter = (x, a[2], b[2]), lm.lora_matmul
+    before = counter.launches
+    out, got = _card_grads(fn, ins, g)
+    assert counter.launches - before == 1
+    assert torch.equal(out, fn(*ins))
+    _, want = _card_grads(plain, ins, g)
+    scale = float(want[0].float().abs().max())
+    tol = 2 * 2.0**-7 * scale if dtype == torch.bfloat16 else 1e-5 * scale
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=0)
+    for gg, ww in zip(got[1:], want[1:]):
+        torch.testing.assert_close(gg, ww, atol=1e-4 * float(ww.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2])
+def test_attention_function_grads_on_the_card(cuda, dtype, group):
+    from repro_torch.kernels import local_attention as la
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(10 + group)
+    q = torch.randn((4, 256, 8, 64), generator=gen).to(cuda, dtype)
+    k, v = (torch.randn((4, 256, 8 // group, 64), generator=gen).to(cuda, dtype)
+            for _ in range(2))
+    g = torch.randn((4, 256, 8, 64), generator=gen).to(cuda, dtype)
+
+    def plain(q_, k_, v_):
+        bsz, s, h, d = q_.shape
+        fold = lambda t: t.transpose(1, 2).reshape(bsz * h, s, d)
+        kk, vv = (t.repeat_interleave(group, dim=2) for t in (k_, v_))
+        out = ref.local_attention_ref(fold(q_), fold(kk), fold(vv), window=0)
+        return out.reshape(bsz, h, s, d).transpose(1, 2)
+
+    before = la.local_attention.launches
+    out, got = _card_grads(lambda *t: ops.local_attention(*t), (q, k, v), g)
+    assert la.local_attention.launches - before == 1
+    assert torch.equal(out, ops.local_attention(q, k, v))
+    _, want = _card_grads(plain, (q, k, v), g)
+    for gg, ww in zip(got, want):
+        scale = float(ww.float().abs().max())
+        tol = 2.0**-7 * scale if dtype == torch.bfloat16 else 1e-5 * scale
+        torch.testing.assert_close(gg.float(), ww.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,groups,s,chunk", [(48, 2, 256, 256), (24, 1, 300, 64)])
+def test_ssd_function_grads_on_the_card(cuda, bh, groups, s, chunk):
+    from repro_torch.kernels import ops, ssd_scan
+
+    gen = torch.Generator().manual_seed(s)
+    x = torch.randn((bh, s, 64), generator=gen).to(cuda)
+    da = (-0.5 * torch.rand((bh, s), generator=gen)).to(cuda)
+    b, c = (torch.randn((groups, s, 128), generator=gen).to(cuda) for _ in range(2))
+    gy = torch.randn((bh, s, 64), generator=gen).to(cuda)
+    before = ssd_scan.ssd_scan.launches
+    out, got = _card_grads(lambda *t: ops.ssd_scan(*t, chunk=chunk), (x, da, b, c), gy)
+    assert ssd_scan.ssd_scan.launches - before == 1
+    assert torch.equal(out, ops.ssd_scan(x, da, b, c, chunk=chunk))
+    _, want = _card_grads(lambda *t: ref.ssd_scan_ref(*t), (x, da, b, c), gy)
+    for gg, ww in zip(got, want):
+        torch.testing.assert_close(gg, ww, atol=1e-4 * float(ww.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "mamba2-130m"])
+def test_reduced_local_step_card_matches_cpu(cuda, arch):
+    """One local phase (Adam, 2 steps, 4 clients) of the reduced model in
+    float32 on the card against the CPU from the same weights: the
+    kernels forward, plain backward; per-client deltas within 1e-4 of each
+    leaf's norm (Adam's near-eps elements)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import local_attention as la
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch import steps
+    from repro_torch.models import init_lora_params, init_params
+    from repro_torch.utils.pytree import tree_leaves, tree_to
+
+    cfg = get_config(arch).reduced()
+    model = init_params(cfg, seed=0, device=cuda)
+    cpu_model = copy.deepcopy(model).cpu()
+    lora = init_lora_params(cfg, seed=1, device=cuda)
+    for node in lora["groups"][0]["mixer"].values():
+        node["B"].normal_(0.0, 0.1, generator=torch.Generator(device=cuda).manual_seed(2))
+    toks = torch.randint(0, cfg.vocab_size, (4, 2, 33), generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    step = steps.make_local_step(cfg, local_lr=1e-2, local_steps=2, local_optimizer="adam",
+                                 remat=False)
+    before = (lm.gathered_lora_matmul.launches, la.local_attention.launches,
+              ssd_scan.ssd_scan.launches)
+    got, loss, _ = step(model, lora, tree_to(batch, cuda))
+    launched = (lm.gathered_lora_matmul.launches - before[0],
+                la.local_attention.launches - before[1], ssd_scan.ssd_scan.launches - before[2])
+    mixer = 1 if arch == "stablelm-1.6b" else 2
+    assert launched == (2 * 2 * cfg.n_layers, 2 * cfg.n_layers * (mixer == 1),
+                        2 * cfg.n_layers * (mixer == 2))
+    want, cpu_loss, _ = step(cpu_model, tree_to(lora, "cpu"), batch)
+    torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert float((g.cpu() - w).norm()) <= 1e-4 * float(w.norm())

@@ -175,11 +175,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_unported_parts_raise(pair):
     cfg, model = pair["cfg"], pair["model"]
+    # Training (mode="train", loss_fn) is ported (tests/test_torch_train.py);
+    # an unknown mode is refused.
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        models.forward(model, None, toks, cfg, mode="train")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        models.loss_fn(model, None, toks, cfg)
+    with pytest.raises(ValueError, match="mode"):
+        models.forward(model, None, toks, cfg, mode="score")
     for bad in (cfg.replace(layer_pattern=("local_attn",)), cfg.replace(n_experts=4),
                 cfg.replace(ffn_kind="gelu"), cfg.replace(kv_quant=True),
                 cfg.replace(encoder_decoder=True), cfg.replace(mrope=True)):

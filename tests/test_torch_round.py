@@ -115,12 +115,25 @@ def test_run_simulation_needs_an_explicit_cpu(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [("uplink", "sketch"), ("client_ranks", "2,1")])
 def test_unported_round_options_raise(field, value):
+    """Both options are ported now and no longer raise: under fedavg the
+    sketch uplink has no carried basis, so it warns and runs the dense
+    round bit for bit; client ranks zero-mask the rank-1 clients' deltas
+    beyond rank 1, which moves the global's second rank row."""
     task = synth.make_synth_task(**TASK)
-    cfg = FedRunConfig(aggregator=AggregatorConfig(method="fedavg"),
-                       local=port_local(task, **LOCAL), rounds=1, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_simulation(task.base, synth.init_lora(task), task.client_x, task.client_y, cfg,
-                       lambda l: 0.0, device="cpu")
+    run = lambda **kw: run_simulation(
+        task.base, synth.init_lora(task, seed=0), task.client_x, task.client_y,
+        FedRunConfig(aggregator=AggregatorConfig(method="fedavg"),
+                     local=port_local(task, **LOCAL), rounds=1, **kw),
+        lambda l: 0.0, device="cpu")[0]
+    plain = run()
+    if field == "uplink":
+        with pytest.warns(UserWarning, match="running dense"):
+            got = run(**{field: value})
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(plain)))
+    else:
+        got = run(**{field: value})
+        assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(got))
+        assert not all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(plain)))
 
 
 def test_rounds_to_reach():

@@ -430,9 +430,13 @@ def test_plan_refusals():
     with pytest.raises(ValueError, match="carry_mode"):
         plan_aggregation({"w": torch.zeros((4, 3, 3))},
                          AggregatorConfig(method="fedrpca", carry_mode="warp"))
-    for kw in ({"uplink": "sketch"}, {"client_ranks": [2, 1, 2, 1]}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            plan_aggregation({"w": torch.zeros((4, 3, 3))}, AggregatorConfig(), **kw)
+    # Uplinks and client ranks are ported: a sketch uplink on a plan with no
+    # carry warns and plans dense; declared ranks ride on the PackSpec.
+    with pytest.warns(UserWarning, match="running dense"):
+        assert plan_aggregation({"w": torch.zeros((4, 3, 3))}, AggregatorConfig(),
+                                uplink="sketch").uplink is None
+    assert plan_aggregation({"w": torch.zeros((4, 3, 3))}, AggregatorConfig(),
+                            client_ranks=[2, 1, 2, 1]).spec.client_ranks == (2, 1, 2, 1)
     plan_aggregation({"w": torch.zeros((4, 3, 3))}, AggregatorConfig(), uplink="dense")
 
 
