@@ -30,7 +30,9 @@ Phases (any failed check raises and the script exits non-zero):
      bf16 shape timed beside cuBLAS ``x @ W``; ``local_attention`` at (BH,
      S, D) = (256, 512, 64), S = 300 and window 128, float32 and bf16,
      beside ``F.scaled_dot_product_attention`` (timed only), and
-     ``causal=False`` at (256, 512, 64).  Each checked
+     ``causal=False`` at (256, 512, 64); at D = 256, path J's prefill (80,
+     2560, 256) with window 2048, timed beside SDPA with the same boolean
+     causal-window mask, and S = 2100.  Each checked
      shape prints its route (``lora_matmul.route``,
      ``local_attention.route``: bf16 on the tensor cores, float32 and the
      ragged bf16 LoRA shape on fp32 FMA) and its tensor-route launches must
@@ -130,23 +132,37 @@ Phases (any failed check raises and the script exits non-zero):
      profiled local phase of I1's shape (device-busy share, top kernels),
      and one warm session round on I1's tree and carry with
      the uplink ``sketch:64:1.0``, card vs CPU, the sketch taken on both.
+ 11c. Main path J, multi-tenant serving of ``configs/recurrentgemma_2b.py``
+     at full width and depth (26 layers: 18 RG-LRU, 8 sliding-window
+     attention, 2 of them tail layers; bf16, LoRA r 8): J1 8 requests of 4
+     tenants in 8 slots, a 2560-token prompt past the 2048 window (the ring
+     wraps), 32 greedy tokens, with prefill s, decode tokens/s, a profiled
+     decode window and warm prefill, peak memory; J2 the merged adapter and
+     one tenant on every row against its 2-D adapter; J3 a FedRPCA
+     aggregate of planted client deltas (tail leaves included) published
+     into tenant 0, decoded again (only tenant 0's rows move); J4 card vs
+     CPU in float32 at depth 5 with the window set to 64, prompts 96 and 40,
+     8 decode steps; J5 depth 5 in float32 at the real window, prompt 2100,
+     each of 4 decode steps against the train-mode forward (and a zeroed
+     ring, which must miss).  Path J's wall time is printed.
  12. The card tests: ``pytest -m gpu tests/test_torch_cuda.py`` in a
      subprocess with its own time limit; any failure, error or skip fails
      the script, and the counts and wall time go on a ``[card tests]``
      line.
  13. A ``[train fn]`` line (each Function's forward and backward ms with
-     path I's launches), the ``kernels`` JSON line, the wall time, then the
-     result line.
+     path I's launches), the ``kernels`` JSON line (each kernel's launches
+     on all paths and on path J, ``local_attention`` also at path J's
+     prefill shape), the wall time, then the result line.
 
 Kernel launch counts are set to 0 just before phase 4 and read just after
-phase 5, and set to 0 again just before each of phases 6, 7, 8, 9, 10, 11
-and 11b and read just after it; every kernel must have launched, and each phase exactly
-as often as its rounds, ADMM iterations, fallbacks, shards, buckets, layers
-and decode steps say.  Beside them the tensor-route launches of the
-subspace, LoRA and attention kernels are counted: paths A and B must
-launch every ``subspace_apply`` call on the tensor route, and paths C and
-D every bf16 call on it and every float32 one (the depth-2 card-vs-CPU
-runs, the state handoff) off it.
+phase 5, and set to 0 again just before each of phases 6, 7, 8, 9, 10, 11,
+11b and 11c and read just after it; every kernel must have launched, and
+each phase exactly as often as its rounds, ADMM iterations, fallbacks,
+shards, buckets, layers and decode steps say.  Beside them the
+tensor-route launches of the subspace, LoRA and attention kernels are
+counted: paths A and B must launch every ``subspace_apply`` call on the
+tensor route, and paths C, D and J every bf16 call on it and every float32
+one (the card-vs-CPU runs, the state handoff, J5) off it.
 """
 from __future__ import annotations
 
@@ -514,17 +530,34 @@ LORA_F32_RTOL_PER_SQRT_K = 1e-6
 LORA_BF16_RTOL = 2.0**-6
 # local_attention: float32 online vs materialized softmax, O(1) outputs.
 ATTN_F32_ATOL = 2e-5
-# bfloat16: the two fp32 results round to bf16 one ulp apart at most.
+# bfloat16: one ulp of the largest output of the whole tensor, and a bound
+# entry by entry from the kernel's arithmetic: it rounds each p_j to bf16
+# before P V (relative error at most u = 2^-8, bf16's unit roundoff), which
+# moves an output sum_j p_j v_j / l by at most u sum_j p_j |v_j| / l (the
+# plain version run on |v|); both fp32 sums over up to ~2048 keys add at most
+# 2^-12 of that; each result then rounds to bf16 (at most u of itself).  The
+# whole-tensor bound alone is ~30x too loose for the late rows of a long
+# window, which average ~2048 values (row 0's output is v_0), and would not
+# see a lost key tile there.
 ATTN_BF16_RTOL = 2.0**-7
+ATTN_BF16_U = 2.0**-8
+ATTN_BF16_SUM_RTOL = 2.0**-12
+# The controls that must fail the bf16 bound: the plain version with each
+# row's window cut by one 32-key tile, and grown by one.
+ATTN_CONTROL_KEYS = 32
 LORA_SHAPES = [(4096, 2048, 2048, 8, "prefill"), (8, 2048, 2048, 8, "decode"),
                (129, 513, 130, 8, "ragged"), (4096, 768, 3352, 8, "mamba2 in_proj"),
                (8, 768, 3352, 8, "mamba2 in_proj decode"),
                (4096, 1536, 768, 8, "mamba2 out_proj"),
                (8, 1536, 768, 8, "mamba2 out_proj decode")]
 # (BH, S, D, window, causal, label); "bidirectional" is the encoder's call
-# (causal=False), checked and not timed.
+# (causal=False), checked and not timed.  "rg-prefill" is path J's prefill
+# (8 requests x 10 heads, S 2560 past the window of 2048, D 256), "rg ragged"
+# a length that is no multiple of the tiles (J5's prompt).
 ATTN_SHAPES = [(256, 512, 64, 0, True, "prefill"), (256, 300, 64, 0, True, "ragged"),
-               (256, 512, 64, 128, True, "window"), (256, 512, 64, 0, False, "bidirectional")]
+               (256, 512, 64, 128, True, "window"), (256, 512, 64, 0, False, "bidirectional"),
+               (80, 2560, 256, 2048, True, "rg-prefill"), (80, 2100, 256, 2048, True, "rg ragged")]
+ATTN_UNTIMED = ("ragged", "bidirectional", "rg ragged")
 TENANT_SLOTS = (1, 3, 4, 6)  # 4 tenants resident in a pool of 8 slots
 
 
@@ -648,9 +681,38 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
     return rec
 
 
+def attention_work(bh, s, d, window, causal, elem_bytes):
+    """(operations, bytes) of attention over (BH, S, D): 4 D FLOP (q . k and
+    p v) per (query, key) pair the mask keeps, the window's skip counted;
+    q, k and v read once and the output written once."""
+    import torch
+
+    i = torch.arange(s)
+    keep = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        keep &= i[:, None] >= i[None, :]
+    if window:
+        keep &= i[None, :] > i[:, None] - window
+    return 4 * d * int(keep.sum()) * bh, 4 * bh * s * d * elem_bytes
+
+
+def attn_bf16_excess(got, want, q, k, v, window, causal) -> float:
+    """The largest |got - want| over its entry's bf16 bound (see
+    ``ATTN_BF16_U``); at most 1 where the bound holds."""
+    from repro_torch.kernels import ref
+
+    mass = ref.local_attention_ref(q.float(), k.float(), v.float().abs(), window=window,
+                                   causal=causal)
+    got, want = got.float(), want.float()
+    bound = ((ATTN_BF16_U + ATTN_BF16_SUM_RTOL) * mass
+             + ATTN_BF16_U * (got.abs() + want.abs()))
+    return float(((got - want).abs() / bound).max())
+
+
 def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
     """local_attention against its plain version, bitwise repeatable, and
-    timed beside ``F.scaled_dot_product_attention(is_causal=True)``."""
+    timed beside ``F.scaled_dot_product_attention`` (``is_causal=True``, or
+    an explicit boolean causal-window mask with a window)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import local_attention as la
@@ -674,26 +736,44 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
                 raise AssertionError(f"local_attention {tag}: two launches differ")
             if la.local_attention.tc_launches - tc_before != (2 if route == "tensor" else 0):
                 raise AssertionError(f"local_attention {tag}: launched off its route")
-            tol = (ATTN_F32_ATOL if dtype == torch.float32
-                   else ATTN_BF16_RTOL * float(want.double().abs().max()))
-            err = check_close(got, want, tol, f"local_attention {tag}")
-            print(f"[kernels] local_attention {tag}: err={err:.3g}", flush=True)
-            if dtype != torch.bfloat16 or label in ("ragged", "bidirectional"):
+            if dtype == torch.float32:
+                err = check_close(got, want, ATTN_F32_ATOL, f"local_attention {tag}")
+                print(f"[kernels] local_attention {tag}: err={err:.3g}", flush=True)
+            else:
+                err = check_close(got, want, ATTN_BF16_RTOL * float(want.double().abs().max()),
+                                  f"local_attention {tag}")
+                excess = lambda x: attn_bf16_excess(x, want, q, k, v, window, causal)
+                worst = excess(got)
+                if not worst <= 1.0:
+                    raise AssertionError(f"local_attention {tag}: |err| reaches {worst:.3g} x "
+                                         f"its entry's bf16 bound")
+                controls = []
+                for w in ((window - ATTN_CONTROL_KEYS, window + ATTN_CONTROL_KEYS)
+                          if window > ATTN_CONTROL_KEYS else ()):
+                    ctl = excess(ref.local_attention_ref(q, k, v, window=w, causal=causal))
+                    if not ctl > 1.0:
+                        raise AssertionError(f"local_attention {tag}: the control at window "
+                                             f"{w} passes the bound ({ctl:.3g} x)")
+                    controls.append(f"window {w}: {ctl:.3g} x")
+                print(f"[kernels] local_attention {tag}: err={err:.3g}, worst entry {worst:.3g} "
+                      f"x its bound; controls that must fail it: "
+                      f"{', '.join(controls) or 'none (window too short)'}", flush=True)
+            if dtype != torch.bfloat16 or label in ATTN_UNTIMED:
                 continue
-            i = torch.arange(s)
-            keep = i[:, None] >= i[None, :]
-            if window:
-                keep &= i[None, :] > i[:, None] - window
-            pairs = int(keep.sum()) * bh
-            n_ops = 4 * d * pairs
-            n_bytes = 4 * bh * s * d * q.element_size()
+            n_ops, n_bytes = attention_work(bh, s, d, window, causal, q.element_size())
             t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / tensor_flops * 1e3
             ms, plain_ms, call_ms = device_ms(run), device_ms(plain), bench_ms(run)
             # SDPA on (1, BH, S, D): the four-dimensional layout its flash
-            # backend takes.  Timed only; the port never calls it.
+            # backend takes; with a window, an explicit boolean mask of the
+            # same keys.  Timed only; the port never calls it.
             q4, k4, v4 = (t[None] for t in (q, k, v))
-            lib_ms = (device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
-                      if window == 0 else None)
+            if window:
+                i = torch.arange(s, device="cuda")
+                mask = (i[:, None] >= i[None, :]) & (i[None, :] > i[:, None] - window)
+                lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+            else:
+                lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            lib_ms = device_ms(lib)
             out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        library_ms=lib_ms)
@@ -704,6 +784,8 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
                   f"call_ms={call_ms:.4f}", flush=True)
             if label == "prefill":
                 rec["local_attention"] = out
+            elif label == "rg-prefill":
+                rec["local_attention_rg"] = out
     return rec
 
 
@@ -2046,15 +2128,17 @@ C_CARD_CPU_RTOL = 2e-4
 
 
 def tenant_adapter(cfg, seed: int, device=None):
-    """A trained-looking adapter: the init's A, and B drawn from ``seed``."""
+    """A trained-looking adapter: the init's A, and B drawn from ``seed``,
+    pattern slot by pattern slot, then the tail layers."""
     import torch
     from repro_torch.models import init_lora_params
 
     device = device or DEVICE
     tree = init_lora_params(cfg, seed=seed, device=device)
     g = torch.Generator(device=device).manual_seed(seed)
-    for node in tree["groups"][0]["mixer"].values():
-        node["B"].normal_(0.0, C_B_STD, generator=g)
+    for layer in (*tree["groups"], *tree["tail"]):
+        for node in layer["mixer"].values():
+            node["B"].normal_(0.0, C_B_STD, generator=g)
     return tree
 
 
@@ -2070,10 +2154,17 @@ def client_deltas(cfg, seed: int, n_clients: int = 4):
         x.shape, generator=g, device=DEVICE) for _ in range(n_clients)]), shared)
 
 
-def serve_once(base, pool, cfg, adapter_ids, prompts, gen):
+def serve_once(base, pool, cfg, adapter_ids, prompts, gen, keep_caches: bool = False):
     """``serve_batch`` through a ``RequestScheduler``, recording the prefill
-    and decode logits, the extended caches and the first token; prefill time
-    and decode time on the host clock, each ending in a synchronise."""
+    and decode logits, the extended caches and the first token; prefill
+    time and decode time on the host clock, each ending in a synchronise.
+
+    Decode writes the caches in place.  With ``keep_caches`` the record
+    holds a copy of them as the prefill left them, taken before the decode
+    clock starts: a ring that wraps or a recurrent state is otherwise read
+    after the run's own decode has moved it on.  Without it the record holds
+    the live caches and the clock starts at the first decode call, which
+    does for a KV cache whose decode rewrites each position it reads."""
     import torch
     from repro_torch.launch import serve
 
@@ -2093,7 +2184,11 @@ def serve_once(base, pool, cfg, adapter_ids, prompts, gen):
         return logits, caches
 
     def recorded_decode(base_, pooled, slots, tok, caches, idx):
-        if "caches" not in rec:
+        if "caches" not in rec and keep_caches:
+            rec.update(caches=clone_caches(caches), first_tok=tok, slots=slots)
+            torch.cuda.synchronize()
+            rec["t"]["decode_t0"] = time.perf_counter()
+        elif "caches" not in rec:
             rec["t"]["decode_t0"] = time.perf_counter()
             rec.update(caches=caches, first_tok=tok, slots=slots)
         logits, caches = decode(base_, pooled, slots, tok, caches, idx)
@@ -2108,13 +2203,22 @@ def serve_once(base, pool, cfg, adapter_ids, prompts, gen):
     return rec
 
 
+def clone_caches(caches):
+    """A copy of a cache tree (decode writes KV rings and recurrent states in
+    place)."""
+    one = lambda c: {"self": type(c["self"])(*(x.clone() for x in c["self"]))}
+    return {"groups": tuple(map(one, caches["groups"])), "tail": tuple(map(one, caches["tail"]))}
+
+
 def decode_again(base, pool, cfg, rec, gen):
-    """Greedy decode from the recorded prefill caches and first token."""
+    """Greedy decode from a copy of the recorded caches (see ``serve_once``)
+    and the first token."""
     import torch
     from repro_torch.launch import serve
 
     _, decode = serve.make_serving_fns(cfg)
-    tok, caches, logits_out, toks = rec["first_tok"], rec["caches"], [], [rec["first_tok"]]
+    tok, caches = rec["first_tok"], clone_caches(rec["caches"])
+    logits_out, toks = [], [rec["first_tok"]]
     prompt_len = rec["prompt_len"]
     for i in range(gen - 1):
         logits, caches = decode(base, pool.pooled, rec["slots"], tok, caches, prompt_len + i)
@@ -2149,18 +2253,18 @@ def profiled(fn):
 
 
 def profile_decode(base, pool, cfg, rec, steps: int):
-    """``steps`` greedy decode steps from the recorded caches under
-    ``torch.profiler`` (see ``profiled``).  The steps rewrite the KV cache
-    positions the serving run wrote, with the same values; a recurrent
-    state advances past the served tokens."""
+    """``steps`` greedy decode steps under ``torch.profiler`` (see
+    ``profiled``), from a copy of the recorded caches (see ``serve_once``)
+    made before the profiled window."""
     from repro_torch.launch import serve
 
     _, decode = serve.make_serving_fns(cfg)
+    caches = clone_caches(rec["caches"])
 
     def run():
         tok = rec["first_tok"]
         for i in range(steps):
-            logits, _ = decode(base, pool.pooled, rec["slots"], tok, rec["caches"],
+            logits, _ = decode(base, pool.pooled, rec["slots"], tok, caches,
                                rec["prompt_len"] + i)
             tok = serve.greedy(logits)
 
@@ -2187,13 +2291,15 @@ def launch_checker(counts, path: str):
 
 
 def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
-                prefill_launches: dict):
-    """The serving run at full width, depth 2, in float32, on the card and on
-    the CPU from the same weights and adapters: 4 requests of 4 tenants, a
-    64-token prompt, then 3 decode steps of the card's greedy tokens on both
-    devices; logits within ``C_CARD_CPU_RTOL`` of the largest.  The card's
-    prefill launches ``prefill_launches`` and each decode step 2 gathered
-    launches a layer."""
+                prefill_launches: dict, *, n_layers: int = 2, n_requests: int = 4,
+                prompt_lens=(64,), steps: int = 3):
+    """The serving run at full width, depth ``n_layers``, in float32, on the
+    card and on the CPU from the same weights and adapters: ``n_requests``
+    requests of as many tenants, for each prompt length a prefill, then
+    ``steps`` decode steps of the card's greedy tokens on both devices;
+    logits within ``C_CARD_CPU_RTOL`` of the largest.  The card's prefill
+    launches ``prefill_launches`` and each decode step 2 gathered launches a
+    layer."""
     import copy
 
     import torch
@@ -2202,44 +2308,49 @@ def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
     from repro_torch.serve import AdapterPool
     from repro_torch.utils.pytree import tree_to
 
-    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    cfg2 = cfg.replace(n_layers=n_layers, dtype="float32")
     base2 = init_params(cfg2, seed=5, device=DEVICE)
     cpu_base = copy.deepcopy(base2).cpu()
-    pools = {"card": AdapterPool(tenant_adapter(cfg2, 98), 4),
-             "cpu": AdapterPool(tree_to(tenant_adapter(cfg2, 98), "cpu"), 4)}
-    for i in range(4):
+    pools = {"card": AdapterPool(tenant_adapter(cfg2, 98), n_requests),
+             "cpu": AdapterPool(tree_to(tenant_adapter(cfg2, 98), "cpu"), n_requests)}
+    ids = [f"tenant-{i}" for i in range(n_requests)]
+    for i, aid in enumerate(ids):
         tree = tenant_adapter(cfg2, 200 + i)
-        pools["card"].publish(f"tenant-{i}", tree)
-        pools["cpu"].publish(f"tenant-{i}", tree_to(tree, "cpu"))
-    prompts2 = torch.as_tensor(rng.integers(0, cfg2.vocab_size, size=(4, 64)))
+        pools["card"].publish(aid, tree)
+        pools["cpu"].publish(aid, tree_to(tree, "cpu"))
     prefill, decode = serve.make_serving_fns(cfg2)
     runs = {"card": (DEVICE, base2), "cpu": ("cpu", cpu_base)}
-    logits_of, state = {"card": [], "cpu": []}, {}
-    before = counts()
-    for key, (dev, b_) in runs.items():
-        slots = pools[key].acquire([f"tenant-{i}" for i in range(4)])
-        logits, caches = prefill(b_, pools[key].pooled, slots, {"tokens": prompts2.to(dev)})
-        logits_of[key].append(logits.cpu())
-        state[key] = (slots, serve.extend_caches(caches, 4, cfg2))
-    expect("card vs CPU prefill", launched(before), **prefill_launches)
-    before = counts()
-    tok = serve.greedy(logits_of["card"][0])
-    for i in range(3):  # both devices decode the card's greedy tokens
+    for prompt in prompt_lens:
+        prompts2 = torch.as_tensor(rng.integers(0, cfg2.vocab_size, size=(n_requests, prompt)))
+        logits_of, state = {"card": [], "cpu": []}, {}
+        before = counts()
         for key, (dev, b_) in runs.items():
-            slots, caches = state[key]
-            logits, _ = decode(b_, pools[key].pooled, slots, tok.to(dev), caches, 64 + i)
+            slots = pools[key].acquire(ids)
+            logits, caches = prefill(b_, pools[key].pooled, slots, {"tokens": prompts2.to(dev)})
             logits_of[key].append(logits.cpu())
-        tok = serve.greedy(logits_of["card"][-1])
-    expect("card vs CPU decode", launched(before), gathered_lora_matmul=2 * 2 * 3)
-    errs = []
-    for g_, c_ in zip(logits_of["card"], logits_of["cpu"]):
-        err, scale = max_abs(g_, c_), float(c_.abs().max())
-        if not bool(torch.isfinite(g_).all()) or err > C_CARD_CPU_RTOL * scale:
-            raise AssertionError(f"{path} card vs CPU: {err} > {C_CARD_CPU_RTOL} * {scale}")
-        errs.append(err)
-    print(f"[{path}] {card} | card vs CPU, depth 2 float32, 4 requests x 64 prompt + 4 "
-          f"tokens: prefill and decode logits max|err| {[f'{e:.3g}' for e in errs]} (max|logit| "
-          f"{float(logits_of['cpu'][0].abs().max()):.4g})", flush=True)
+            state[key] = (slots, serve.extend_caches(caches, steps + 1, cfg2))
+        expect(f"card vs CPU prefill {prompt}", launched(before), **prefill_launches)
+        before = counts()
+        tok = serve.greedy(logits_of["card"][0])
+        for i in range(steps):  # both devices decode the card's greedy tokens
+            for key, (dev, b_) in runs.items():
+                slots, caches = state[key]
+                logits, _ = decode(b_, pools[key].pooled, slots, tok.to(dev), caches, prompt + i)
+                logits_of[key].append(logits.cpu())
+            tok = serve.greedy(logits_of["card"][-1])
+        expect(f"card vs CPU decode {prompt}", launched(before),
+               gathered_lora_matmul=2 * n_layers * steps)
+        errs = []
+        for g_, c_ in zip(logits_of["card"], logits_of["cpu"]):
+            err, scale = max_abs(g_, c_), float(c_.abs().max())
+            if not bool(torch.isfinite(g_).all()) or err > C_CARD_CPU_RTOL * scale:
+                raise AssertionError(f"{path} card vs CPU (prompt {prompt}): {err} > "
+                                     f"{C_CARD_CPU_RTOL} * {scale}")
+            errs.append(err)
+        print(f"[{path}] {card} | card vs CPU, depth {n_layers} float32, {n_requests} requests "
+              f"x {prompt} prompt + {steps + 1} tokens: prefill and decode logits max|err| "
+              f"{[f'{e:.3g}' for e in errs]} (max|logit| "
+              f"{float(logits_of['cpu'][0].abs().max()):.4g})", flush=True)
 
 
 def main_path_c(counts, card: str) -> dict:
@@ -2529,8 +2640,7 @@ def main_path_d(counts, card: str) -> dict:
     before = counts()
     _, caches = prefill32(base32, pool32.pooled, slots32, {"tokens": long_toks[:, :-1]})
     caches = serve.extend_caches(caches, 1, cfg32)
-    kept = {"groups": tuple({"self": type(g["self"])(*(x.clone() for x in g["self"]))}
-                            for g in caches["groups"]), "tail": ()}
+    kept = clone_caches(caches)
     step = decode32(base32, pool32.pooled, slots32, long_toks[:, -1:], kept, D_HANDOFF)[0]
     whole = prefill32(base32, pool32.pooled, slots32, {"tokens": long_toks})[0]
     for g in caches["groups"]:
@@ -2555,6 +2665,232 @@ def main_path_d(counts, card: str) -> dict:
                 dict(gathered_lora_matmul=4, ssd_scan=2))
     total = launched(start)
     print(f"[path D] {card} | launches {total} by phase {phase}", flush=True)
+    return total
+
+
+# --- Path J: multi-tenant serving of RecurrentGemma-2B ------------------------------
+J_ARCH = "recurrentgemma-2b"
+# A prompt past the 2048-token window: the window binds at prefill and the
+# ring wraps (decode writes slot t % 2048 over keys that left the window).
+J_BATCH, J_PROMPT, J_GEN, J_TENANTS, J_SLOTS = 8, 2560, 32, 4, 8
+# J4: card vs CPU at full width, depth 5 (one pattern unit and the two tail
+# layers), with the window replaced by 64 so the CPU side is cheap and the
+# ring still wraps: a prompt past it and one short of it (the ring then
+# grows to min(window, prompt + steps), extend_caches).
+J4_LAYERS, J4_WINDOW, J4_PROMPTS, J4_STEPS = 5, 64, (96, 40), 8
+# J5: on the card alone, depth 5 in float32 at the real window, each decode
+# step's logits against the train-mode forward's at that position: the
+# prefill runs the window kernel and the doubling scan, decode the ring and
+# the stepwise recurrence, fp32 sums in other orders over 5 layers; 1e-4 of
+# the largest logit, as path D's state handoff.  The same step from a
+# zeroed ring must miss it, or the check could not see a broken ring.
+J5_PROMPT, J5_STEPS, J5_RTOL = 2100, 4, 1e-4
+
+
+def main_path_j(counts, card: str) -> dict:
+    """Serve full-width RecurrentGemma-2B (26 layers, bf16) to 8 requests of
+    4 tenants at a 2560-token prompt through the pool (J1), through the
+    merged adapter and one tenant on every row against its 2-D adapter
+    (J2); hot-swap a FedRPCA aggregate of planted client deltas (tail leaves
+    included) into tenant 0 and decode again (J3); card against CPU at depth
+    5 with a 64-token window at prompts past and short of it (J4); decode
+    against the train-mode forward at the real window (J5).  Returns the
+    launch counts of the run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import AggregatorConfig, aggregate
+    from repro_torch.core.engine import pack
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.model import param_count
+    from repro_torch.serve import AdapterPool, adapter_view
+    from repro_torch.utils.pytree import tree_leaves
+
+    t_path = time.perf_counter()
+    cfg = get_config(J_ARCH)
+    n_l = cfg.n_layers
+    n_attn = sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] == "local_attn"
+                 for i in range(n_l))
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path J")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = init_params(cfg, seed=0, device=DEVICE)
+    trees = [tenant_adapter(cfg, 500 + i) for i in range(J_TENANTS)]
+    pool = AdapterPool(tenant_adapter(cfg, 499), J_SLOTS)
+    for i, tree in enumerate(trees):
+        pool.publish(f"tenant-{i}", tree)
+    torch.cuda.synchronize()
+    print(f"[path J] {card} | {J_ARCH}: {param_count(base) / 1e9:.3f} B parameters "
+          f"({cfg.dtype}), {n_l} layers ({cfg.n_tail_layers} tail, {n_attn} local_attn, window "
+          f"{cfg.window_size}), pool {len(pool)}/{pool.n_slots} slots, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab_size, size=(J_BATCH, J_PROMPT))
+    ids = [f"tenant-{i % J_TENANTS}" for i in range(J_BATCH)]
+
+    # J1: the pool.
+    before = counts()
+    rec = serve_once(base, pool, cfg, ids, prompts, J_GEN, keep_caches=True)
+    expect("J1 pool", launched(before), gathered_lora_matmul=2 * n_l * J_GEN,
+           gathered_lora_matmul_tc=2 * n_l * J_GEN, local_attention=n_attn,
+           local_attention_tc=n_attn)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    all_logits = [rec["prefill_logits"]] + rec["decode_logits"]
+    if not all(bool(torch.isfinite(x).all()) for x in all_logits):
+        raise AssertionError("path J: non-finite logits on the pool path")
+    t = rec["t"]
+    tok_s = J_BATCH * (J_GEN - 1) / t["decode_s"]
+    print(f"[path J] {card} | J1 pool: prefill {J_BATCH}x{J_PROMPT} tokens {t['prefill_s']:.4f} "
+          f"s, decode {J_GEN - 1} steps {t['decode_s']:.4f} s = {tok_s:.1f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB, launches {phase['J1 pool']}", flush=True)
+    print(f"[path J] pool continuations (first 8 tokens): {rec['tokens'][:, :8].tolist()}",
+          flush=True)
+    before = counts()
+    wall, busy, top = profile_decode(base, pool, cfg, rec, C_PROFILE_STEPS)
+    expect("J1 profile decode", launched(before),
+           gathered_lora_matmul=2 * n_l * C_PROFILE_STEPS,
+           gathered_lora_matmul_tc=2 * n_l * C_PROFILE_STEPS)
+    share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
+    print(f"[path J] {card} | {C_PROFILE_STEPS} decode steps under torch.profiler: host "
+          f"{wall:.4f} s, device {share} of it; top kernels by device ms (name, ms, "
+          f"calls): {top}", flush=True)
+    toks = torch.as_tensor(prompts, device=DEVICE)
+    prefill = serve.make_serving_fns(cfg)[0]
+    slots = pool.acquire(ids)
+    before = counts()
+    wall, busy, top = profiled(lambda: prefill(base, pool.pooled, slots, {"tokens": toks}))
+    expect("J1 profile prefill", launched(before), gathered_lora_matmul=2 * n_l,
+           gathered_lora_matmul_tc=2 * n_l, local_attention=n_attn, local_attention_tc=n_attn)
+    share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
+    print(f"[path J] {card} | one warm prefill under torch.profiler: host {wall:.4f} s, device "
+          f"{share} of it; top kernels by device ms (name, ms, calls): {top}", flush=True)
+
+    # J2: the merged adapter; one tenant on every row.
+    merged = pool.merged()
+    before = counts()
+    t1 = time.perf_counter()
+    merged_tokens = serve.serve_merged(base, merged, toks, cfg, gen=J_GEN)
+    torch.cuda.synchronize()
+    t_merged = time.perf_counter() - t1
+    merged_logits = forward(base, merged, {"tokens": toks}, cfg, mode="prefill")[0]
+    expect("J2 merged", launched(before), lora_matmul=2 * n_l * (J_GEN + 1),
+           lora_matmul_tc=2 * n_l * (J_GEN + 1), local_attention=2 * n_attn,
+           local_attention_tc=2 * n_attn)
+    gaps = [float((rec["prefill_logits"][i] - merged_logits[i]).abs().max())
+            for i in range(J_BATCH)]
+    if not bool(torch.isfinite(merged_logits).all()) or min(gaps) <= 0.0:
+        raise AssertionError(f"path J: per-tenant logits do not differ from merged: {gaps}")
+    same_tokens = int((merged_tokens == rec["tokens"]).all(dim=1).sum())
+    print(f"[path J] {card} | J2 merged: {J_GEN} tokens in {t_merged:.4f} s; per-request max "
+          f"|pool - merged| prefill logit {min(gaps):.4g}..{max(gaps):.4g}; requests with "
+          f"identical continuations {same_tokens}/{J_BATCH}; launches {phase['J2 merged']}",
+          flush=True)
+    del merged, merged_logits
+    before = counts()
+    one_pool = prefill(base, pool.pooled, pool.acquire(["tenant-1"] * J_BATCH),
+                       {"tokens": toks})[0]
+    one_plain = forward(base, trees[1], {"tokens": toks}, cfg, mode="prefill")[0]
+    expect("J2 one tenant", launched(before), gathered_lora_matmul=2 * n_l,
+           gathered_lora_matmul_tc=2 * n_l, lora_matmul=2 * n_l, lora_matmul_tc=2 * n_l,
+           local_attention=2 * n_attn, local_attention_tc=2 * n_attn)
+    err, scale = max_abs(one_pool, one_plain), float(one_plain.abs().max())
+    if err > C_ONE_TENANT_RTOL * scale:
+        raise AssertionError(f"path J: one tenant via pool vs 2-D adapter {err} > "
+                             f"{C_ONE_TENANT_RTOL} * {scale}")
+    print(f"[path J] {card} | J2 one tenant on every row, pool (gathered) vs 2-D adapter "
+          f"(lora_matmul): max|err| {err:.4g} (max|logit| {scale:.4g}, bitwise "
+          f"{bool(err == 0.0)})", flush=True)
+
+    # J3: FedRPCA over 4 client deltas of tenant 0 (group and tail leaves),
+    # published in place, then decode again from the prefill's caches.
+    ptrs = [x.data_ptr() for x in tree_leaves(pool.pooled)]
+    deltas = client_deltas(cfg, 9)
+    n_buckets = len(pack(deltas)[0])
+    before = counts()
+    t1 = time.perf_counter()
+    update = aggregate(deltas, AggregatorConfig(method="fedrpca", rpca_iters=5), device=DEVICE)
+    pool.publish_round("tenant-0", trees[0], update)
+    torch.cuda.synchronize()
+    t_swap = time.perf_counter() - t1
+    new_logits, new_tokens = decode_again(base, pool, cfg, rec, J_GEN)
+    expect("J3 hot swap", launched(before), admm_tail=5 * n_buckets,
+           gathered_lora_matmul=2 * n_l * (J_GEN - 1),
+           gathered_lora_matmul_tc=2 * n_l * (J_GEN - 1))
+    if [x.data_ptr() for x in tree_leaves(pool.pooled)] != ptrs:
+        raise AssertionError("path J: publish_round moved the pooled tensors")
+    tail_moved = float((pool.pooled["tail"][0]["mixer"]["q"]["B"][pool.slot_map()["tenant-0"]]
+                        - trees[0]["tail"][0]["mixer"]["q"]["B"]).abs().max())
+    tenant0 = torch.tensor([i % J_TENANTS == 0 for i in range(J_BATCH)], device=DEVICE)
+    moved = max(float((a[tenant0] - b[tenant0]).abs().max())
+                for a, b in zip(new_logits, rec["decode_logits"]))
+    others_same = all(torch.equal(a[~tenant0], b[~tenant0])
+                      for a, b in zip(new_logits, rec["decode_logits"]))
+    if (moved <= 0.0 or tail_moved <= 0.0 or not others_same
+            or not torch.equal(new_tokens[~tenant0], rec["tokens"][~tenant0])):
+        raise AssertionError(f"path J hot swap: tenant-0 logits moved {moved}, its tail adapter "
+                             f"{tail_moved}, other tenants bitwise unchanged {others_same}")
+    changed = int((new_tokens[tenant0] != rec["tokens"][tenant0]).any(dim=1).sum())
+    print(f"[path J] {card} | J3 hot swap: aggregate ({n_buckets} buckets, 5 ADMM iterations) "
+          f"+ publish_round {t_swap:.4f} s; tenant-0 tail adapter moved by up to "
+          f"{tail_moved:.4g}, decode logits by up to {moved:.4g}, continuations changed "
+          f"{changed}/{int(tenant0.sum())}, other tenants bitwise unchanged; pooled data_ptr "
+          f"unchanged; launches {phase['J3 hot swap']}", flush=True)
+    del base, pool, trees, rec, new_logits, deltas, update, one_pool, one_plain
+    torch.cuda.empty_cache()
+
+    # J4: card vs CPU at depth 5 with a 64-token window.
+    card_vs_cpu(cfg.replace(window_size=J4_WINDOW), rng, "path J", card, counts, launched,
+                expect, dict(gathered_lora_matmul=2 * J4_LAYERS, local_attention=1),
+                n_layers=J4_LAYERS, n_requests=2, prompt_lens=J4_PROMPTS, steps=J4_STEPS)
+
+    # J5: decode against the train-mode forward at the real window.
+    cfg5 = cfg.replace(n_layers=J4_LAYERS, dtype="float32")
+    base5 = init_params(cfg5, seed=7, device=DEVICE)
+    pool5 = AdapterPool(tenant_adapter(cfg5, 599), 2)
+    for i in range(2):
+        pool5.publish(f"tenant-{i}", tenant_adapter(cfg5, 600 + i))
+    slots5 = pool5.acquire(["tenant-0", "tenant-1"])
+    toks5 = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, J5_PROMPT + J5_STEPS)),
+                            device=DEVICE)
+    prefill5, decode5 = serve.make_serving_fns(cfg5)
+    before = counts()
+    with torch.no_grad():
+        train = forward(base5, adapter_view(pool5.pooled, slots5), {"tokens": toks5}, cfg5,
+                        mode="train")[0]
+        _, caches = prefill5(base5, pool5.pooled, slots5, {"tokens": toks5[:, :J5_PROMPT]})
+        caches = serve.extend_caches(caches, J5_STEPS, cfg5)
+        ring = caches["groups"][2]["self"].k
+        if ring.shape[-3] != cfg5.window_size:
+            raise AssertionError(f"path J5: ring of {ring.shape[-3]} slots, not the window")
+        blank = clone_caches(caches)
+        blank["groups"][2]["self"].k.zero_()
+        blank["groups"][2]["self"].v.zero_()
+        miss = decode5(base5, pool5.pooled, slots5, toks5[:, J5_PROMPT:J5_PROMPT + 1], blank,
+                       J5_PROMPT)[0]
+        errs, scale = [], float(train[:, J5_PROMPT:].abs().max())
+        for i in range(J5_STEPS):
+            pos = J5_PROMPT + i
+            step = decode5(base5, pool5.pooled, slots5, toks5[:, pos:pos + 1], caches, pos)[0]
+            errs.append(max_abs(step[:, 0], train[:, pos]))
+        miss_err = max_abs(miss[:, 0], train[:, J5_PROMPT])
+    expect("J5 ring at the real window", launched(before),
+           gathered_lora_matmul=2 * J4_LAYERS * (3 + J5_STEPS), local_attention=2)
+    if max(errs) > J5_RTOL * scale or miss_err <= J5_RTOL * scale:
+        raise AssertionError(f"path J5: decode vs train-mode forward {errs} (bound {J5_RTOL} * "
+                             f"{scale}); from a zeroed ring {miss_err}")
+    print(f"[path J] {card} | J5 depth {J4_LAYERS} float32, window {cfg5.window_size}, prompt "
+          f"{J5_PROMPT}: decode steps vs the train-mode forward max|err| "
+          f"{[f'{e:.3g}' for e in errs]} (bound {J5_RTOL:g} x max|logit| {scale:.4g}); from a "
+          f"zeroed ring {miss_err:.4g}", flush=True)
+    del base5, pool5, train, caches, blank
+    torch.cuda.empty_cache()
+
+    total = launched(start)
+    print(f"[path J] {card} | launches {total} by phase {phase}; wall "
+          f"{time.perf_counter() - t_path:.1f} s", flush=True)
     return total
 
 
@@ -3008,6 +3344,7 @@ def main() -> int:
     _, paths["G"] = run_path("G", main_path_g, counts, smi, finals_a)
     _, paths["H"] = run_path("H", main_path_h, counts, smi, finals_a)
     _, paths["I"] = run_path("I", main_path_i, counts, smi)
+    _, paths["J"] = run_path("J", main_path_j, counts, smi)
     launches = {k: sum(p[k] for p in paths.values()) for k in wrappers}
     for name, n in launches.items():
         if n == 0:
@@ -3030,14 +3367,17 @@ def main() -> int:
                                     "src/repro/kernels/svt_subspace.py:272"),
     }
     kernels = []
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name in wrappers:
         r = rec[name]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in timed}, "launches_path_j": paths["J"][name],
         })
+        if name == "local_attention":
+            # The same kernel at path J's prefill shape (D = 256, window 2048).
+            kernels[-1]["rg_prefill"] = {k: rec["local_attention_rg"][k] for k in timed}
     print(f"[train fn] {smi} | forward (kernel) and backward (plain) per Function, with "
           f"path I's launches: " + json.dumps(
               {k: {**v, "launches_path_i": paths["I"][v["kernel"]]}

@@ -1,10 +1,10 @@
 """Architecture registry of the port: the configs the slices so far run.
 
-``get_config(arch_id)`` returns the config of ``stablelm-1.6b`` or
-``mamba2-130m`` (served by ``repro_torch.launch.serve``) or
-``paper-vit-b32`` (the LoRA geometry of the aggregation paths).  The
-reference's other architecture ids are known but not ported: they raise
-``NotImplementedError``.
+``get_config(arch_id)`` returns the config of ``stablelm-1.6b``,
+``mamba2-130m`` or ``recurrentgemma-2b`` (served by
+``repro_torch.launch.serve``) or ``paper-vit-b32`` (the LoRA geometry of
+the aggregation paths).  The reference's other architecture ids are known
+but not ported: they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,12 +15,12 @@ from repro_torch.config import ModelConfig
 _ARCH_MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "mamba2-130m": "mamba2_130m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "paper-vit-b32": "paper_vit_b32",
 }
 
 #: Architecture ids of the reference that the port does not run yet.
 NOT_PORTED = (
-    "recurrentgemma-2b",
     "llama4-maverick-400b-a17b",
     "qwen2-vl-2b",
     "qwen1.5-32b",

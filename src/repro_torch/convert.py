@@ -27,16 +27,21 @@ def from_jax_tree(tree: Any, device="cpu") -> Any:
 def model_from_jax(params: Any, cfg, device="cpu"):
     """The reference's base-model tree (``repro.models.init_params``, leaves
     array-likes) as the port's ``DecoderLM`` on ``device``.  The reference
-    stacks layer ``i`` at group ``i // unit`` of pattern slot ``i % unit``;
-    here each layer is its own ``Block``.  Bits are kept."""
+    stacks layer ``i`` at group ``i // unit`` of pattern slot ``i % unit``
+    and keeps the layers past the last whole unit unstacked in ``tail``
+    (layer ``n_groups * unit + j`` is ``params["tail"][j]``); here each
+    layer is its own ``Block``.  Bits are kept."""
     from repro_torch.models.model import DecoderLM
 
     model = DecoderLM(cfg, None, device=device)
     unit = len(cfg.layer_pattern)
+    n_grouped = cfg.n_pattern_groups * unit
     with torch.no_grad():
         for name, p in model.named_parameters():
             path = name.split(".")
-            if path[0] == "layers":
+            if path[0] == "layers" and int(path[1]) >= n_grouped:
+                node, path, index = params["tail"][int(path[1]) - n_grouped], path[2:], None
+            elif path[0] == "layers":
                 i = int(path[1])
                 node, path, index = params["groups"][i % unit], path[2:], i // unit
             else:

@@ -9,20 +9,34 @@
 //
 // with the reference's online softmax: a running max m, normalizer l and
 // accumulator acc per query row in fp32, masked scores set to -1e30 (not
-// -inf), out = acc / max(l, 1e-30).  D is 32 or 64.  Both routes visit only
-// the key tiles a query tile needs (the causal and window skip of the TPU
-// kernel), mask keys past S in a ragged last tile, and use no atomics: the
-// same inputs give the same bits on every launch.
+// -inf), out = acc / max(l, 1e-30).  D is 32, 64, 128 or 256 (RecurrentGemma
+// and Gemma take 256, Qwen2-VL 128).  Both routes visit only the key tiles a
+// query tile needs (the causal and window skip of the TPU kernel), mask keys
+// past S in a ragged last tile, and use no atomics: the same inputs give the
+// same bits on every launch.
 //
 // Two routes, chosen by the wrapper from the dtype alone
 // (``local_attention.route``):
 //
 // * Tensor route (bf16): attention_tc.  A block of 4 warps takes 64 query
-//   rows, 16 a warp, four blocks an SM; the blocks of the longest causal rows
-//   launch first.  Q is staged once in shared memory; 64-key tiles of K and
-//   V are double-buffered there by cp.async (the next tile's copy runs under
-//   this tile's products), each read once per query tile (128-row blocks of
-//   8 warps measured slower).  S = Q K^T and
+//   rows, 16 a warp; the blocks of the longest causal rows launch first.  Q
+//   is staged once in shared memory; key tiles of K and V are
+//   double-buffered there by cp.async (the next tile's copy runs under this
+//   tile's products), each read once per query tile (128-row blocks of 8
+//   warps measured slower).  The geometry depends on D (TcGeom): up to
+//   D = 64, 64-key tiles, Q's fragments held in registers, four blocks an SM
+//   (46 KB of tiles at D = 64).  At D = 128, 64-key tiles, Q in registers,
+//   two blocks an SM (85 KB).  At D = 256 a warp's 16 x 256 fp32 output
+//   accumulator alone is 128 registers a thread, and Q's fragments would be
+//   64 more, so Q's fragments are read again from shared memory (ldmatrix)
+//   for every key tile, the key tiles are 32 keys (16 score registers), and
+//   two blocks fit an SM: 99 KB of tiles (Q 33 KB, two buffers of K and V
+//   66 KB) a block, 198 KB of the SM's 227 KB, under
+//   __launch_bounds__(128, 2), 255 registers a thread.  ``nvcc -Xptxas -v``
+//   with the flags of ``kernels/backend.py`` (CUDA 12.9, sm_90a): 116, 128,
+//   203 and 238 registers a thread at D = 32, 64, 128 and 256, no spills.
+//   Above 48 KB the launcher opts in to the shared memory once per device
+//   (smem_opt_in.cuh).  S = Q K^T and
 //   O += P V run on the tensor cores as mma.sync m16n8k16 bf16 -> fp32 with
 //   ldmatrix fragments (V through ldmatrix.trans).  mma.sync and not wgmma:
 //   at the prefill shape (BH, S, D) = (256, 512, 64) causal the kernel is
@@ -34,60 +48,89 @@
 //   skip a tile that is masked for all its rows (exact: such a tile's p
 //   are 0, or garbage that the first kept key wipes).  The softmax is fp32
 //   and online, in log2 units (scores scaled by log2(e) / sqrt(D), the
-//   SFU's ex2.approx):
-//   each row's 64 scores of a tile sit in the 4 threads of a quad, whose
+//   SFU's ex2.approx): each row's scores of a tile sit in the 4 threads of
+//   a quad, whose
 //   running max is combined by a fixed shuffle tree (xor 1, then 2); each
 //   thread keeps a partial normalizer, added over the quad the same way at
 //   the end.  The scores' C fragments are the A fragments of P V once
 //   rounded to bf16.  That rounding is one the plain version does not make:
-//   each p_j in [0, 1] moves by at most 2^-9 p_j, so an output
-//   sum_j p_j v_j / l moves by at most 2^-9 max|v| -- inside the bf16
-//   tolerance of 2^-7 max|out| (max|out| is of the order of max|v|: the
-//   first query row's output is v_0).
-// * Scalar route (float32): attention_scalar.  One block of 64 threads per
-//   64-query tile, each thread one query row with q and acc (D floats each)
-//   in registers; each 32-key tile of K and V is staged in shared memory and
-//   read by all threads at the same address (a broadcast); products and
-//   sums are fp32 FMA on the CUDA cores, where the operations bind.  float32
-//   stays here because TF32 tensor cores would not hold the float32 serving
-//   check against the CPU.
+//   each p_j moves by at most 2^-8 p_j (bf16's unit roundoff), so an output
+//   sum_j p_j v_j / l moves by at most 2^-8 sum_j p_j |v_j| / l.  The checks
+//   hold each output entry to that, plus 2^-12 of it for the fp32 sums and
+//   2^-8 of each result for its rounding to bf16 (chip_smoke.py,
+//   ATTN_BF16_U).
+// * Scalar route (float32): attention_scalar.  One block per 64-query tile
+//   (32 at D = 256).  Up to D = 64 a thread takes one query row, q and acc
+//   (D floats each) in its registers.  Wider heads would spill them, so at
+//   D = 128 and 256 ScalarGeom splits a row over D / 32 threads of one
+//   warp: each holds 32 of the row's D entries of q and acc, as float4
+//   pieces dealt round robin (the row's threads read 16 consecutive bytes
+//   each, no bank conflict), and a dot product's partial sums are added by
+//   a fixed xor-shuffle tree, which gives every thread of the row the same
+//   bits.  Key tiles of K and V
+//   (32 keys, 16 at D = 256: 32 KB, under the static limit) are staged in
+//   shared memory and read by all rows at the same address (a broadcast);
+//   products and sums are fp32 FMA on the CUDA cores, where the operations
+//   bind.  ``-Xptxas -v`` as above: 152, 236, 159 and 137 registers at D =
+//   32, 64, 128 and 256, no spills (64-row blocks of 512 threads at D = 256
+//   spilled 52 bytes under their 128-register bound).  float32 stays here
+//   because TF32 tensor cores would not hold the float32 serving check
+//   against the CPU.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "smem_opt_in.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 
 // --- Scalar route (float32) ----------------------------------------------------
-constexpr int BQ = 64;   // query rows per block, one per thread
-constexpr int BKV = 32;  // keys per shared-memory tile
+// Query rows per block, threads per query row and keys per shared-memory
+// tile, by head width.  At D = 256, 32 rows a block: 256 threads, so the
+// launch bound leaves 255 registers a thread (512 threads spilled).
+template <int D>
+struct ScalarGeom {
+  static constexpr int kRows = D <= 128 ? 64 : 32;
+  static constexpr int kLanes = D <= 64 ? 1 : D / 32;
+  static constexpr int kKeys = D <= 128 ? 32 : 16;
+  static constexpr int kThreads = kRows * kLanes;
+  static constexpr int kPieces = D / 4 / kLanes;  // float4 pieces of q a thread holds
+  static_assert(32 % kLanes == 0 && D % (4 * kLanes) == 0, "a row's threads share a warp");
+};
 
 template <int D>
-__global__ void __launch_bounds__(BQ)
+__global__ void __launch_bounds__(ScalarGeom<D>::kThreads)
 attention_scalar(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S, int window,
                  int causal, float scale) {
+  using G = ScalarGeom<D>;
+  constexpr int BKV = G::kKeys;
   __shared__ __align__(16) float ks[BKV][D];
   __shared__ __align__(16) float vs[BKV][D];
-  const int q_lo = blockIdx.x * BQ;
-  const int qi = q_lo + threadIdx.x;
+  const int q_lo = blockIdx.x * G::kRows;
+  const int lane = threadIdx.x % G::kLanes;  // this thread's pieces: lane + kLanes * i
+  const int qi = q_lo + threadIdx.x / G::kLanes;
   const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
 
-  float qr[D], acc[D];
+  float qr[4 * G::kPieces], acc[4 * G::kPieces];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = qi < S ? q[base + static_cast<size_t>(qi) * D + d] : 0.f;
-    acc[d] = 0.f;
-  }
+  for (int i = 0; i < G::kPieces; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 4 * (lane + G::kLanes * i) + e;
+      qr[4 * i + e] = qi < S ? q[base + static_cast<size_t>(qi) * D + d] : 0.f;
+      acc[4 * i + e] = 0.f;
+    }
   float m = kNegInf, l = 0.f;
 
-  const int q_last = min(q_lo + BQ, S) - 1;
+  const int q_last = min(q_lo + G::kRows, S) - 1;
   const int key_last = causal ? q_last : S - 1;
   const int key_first = window ? max(0, q_lo - window + 1) : 0;
   for (int t0 = (key_first / BKV) * BKV; t0 <= key_last; t0 += BKV) {
-    for (int e = threadIdx.x; e < BKV * D; e += BQ) {
+    for (int e = threadIdx.x; e < BKV * D; e += G::kThreads) {
       const int j = e / D, d = e % D;
       const int kpos = t0 + j;
       const size_t off = base + static_cast<size_t>(kpos) * D + d;
@@ -103,13 +146,18 @@ attention_scalar(const float* __restrict__ q, const float* __restrict__ k,
       const float4* kr = reinterpret_cast<const float4*>(ks[j]);
       float dot = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 kv = kr[d4];
-        dot = fmaf(qr[4 * d4], kv.x, dot);
-        dot = fmaf(qr[4 * d4 + 1], kv.y, dot);
-        dot = fmaf(qr[4 * d4 + 2], kv.z, dot);
-        dot = fmaf(qr[4 * d4 + 3], kv.w, dot);
+      for (int i = 0; i < G::kPieces; ++i) {
+        const float4 kv = kr[lane + G::kLanes * i];
+        dot = fmaf(qr[4 * i], kv.x, dot);
+        dot = fmaf(qr[4 * i + 1], kv.y, dot);
+        dot = fmaf(qr[4 * i + 2], kv.z, dot);
+        dot = fmaf(qr[4 * i + 3], kv.w, dot);
       }
+      // The row's partial sums, added pairwise: both threads of a pair add
+      // the same two numbers, so every thread ends with the same bits.
+#pragma unroll
+      for (int off = 1; off < G::kLanes; off <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
       const int kpos = t0 + j;
       bool keep = kpos < S;
       if (causal) keep = keep && qi >= kpos;
@@ -127,17 +175,17 @@ attention_scalar(const float* __restrict__ q, const float* __restrict__ k,
     }
     l = l * alpha + psum;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    for (int d = 0; d < 4 * G::kPieces; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < BKV; ++j) {
       const float4* vr = reinterpret_cast<const float4*>(vs[j]);
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 vv = vr[d4];
-        acc[4 * d4] = fmaf(s[j], vv.x, acc[4 * d4]);
-        acc[4 * d4 + 1] = fmaf(s[j], vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(s[j], vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(s[j], vv.w, acc[4 * d4 + 3]);
+      for (int i = 0; i < G::kPieces; ++i) {
+        const float4 vv = vr[lane + G::kLanes * i];
+        acc[4 * i] = fmaf(s[j], vv.x, acc[4 * i]);
+        acc[4 * i + 1] = fmaf(s[j], vv.y, acc[4 * i + 1]);
+        acc[4 * i + 2] = fmaf(s[j], vv.z, acc[4 * i + 2]);
+        acc[4 * i + 3] = fmaf(s[j], vv.w, acc[4 * i + 3]);
       }
     }
     m = m_new;
@@ -148,7 +196,9 @@ attention_scalar(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l, 1e-30f);
     float* out = o + base + static_cast<size_t>(qi) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) out[d] = acc[d] * inv;
+    for (int i = 0; i < G::kPieces; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[4 * (lane + G::kLanes * i) + e] = acc[4 * i + e] * inv;
   }
 }
 
@@ -157,17 +207,26 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 constexpr int BQ = 64;      // query rows per block: 4 warps of 16
-constexpr int BKV = 64;     // keys per tile
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Keys per K / V tile, blocks an SM, and whether Q's fragments stay in
+// registers, by head width (see the note at the top).
+template <int D>
+struct TcGeom {
+  static constexpr int kKeys = D <= 128 ? 64 : 32;
+  static constexpr int kBlocksPerSm = D <= 64 ? 4 : 2;
+  static constexpr bool kQInRegs = D <= 128;
+};
+
 // Shared rows padded by 16 bytes: the 8 rows an ldmatrix phase reads fall
-// in 8 distinct 16-byte bank groups (row strides 144 and 80 bytes).
+// in 8 distinct 16-byte bank groups (row strides of an odd number of
+// 16-byte pieces: 80, 144, 272 and 528 bytes).
 template <int D>
 struct Tiles {
   bf16 q[BQ][D + 8];
-  bf16 k[2][BKV][D + 8];
-  bf16 v[2][BKV][D + 8];
+  bf16 k[2][TcGeom<D>::kKeys][D + 8];
+  bf16 v[2][TcGeom<D>::kKeys][D + 8];
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -238,10 +297,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // columns 2 (lane % 4) and + 1 of each 8-column block; index 2 h + e is
 // row g + 8 h, column 2 (lane % 4) + e.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, TcGeom<D>::kBlocksPerSm)
 attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o, int S, int window, int causal,
              float scale_log2) {
+  constexpr int BKV = TcGeom<D>::kKeys;
+  constexpr bool kQInRegs = TcGeom<D>::kQInRegs;
   extern __shared__ __align__(16) unsigned char tiles_raw[];
   Tiles<D>& sm = *reinterpret_cast<Tiles<D>*>(tiles_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -265,7 +326,7 @@ attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
 
   const int w_lo = q_lo + warp * 16;  // this warp's rows [w_lo, w_lo + 16)
-  uint32_t qf[D / 16][4];
+  uint32_t qf[kQInRegs ? D / 16 : 1][4];  // Q's A fragments, when they stay in registers
   float acc[D / 8][4];
 #pragma unroll
   for (int nb = 0; nb < D / 8; ++nb)
@@ -284,10 +345,12 @@ attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (i == 0) {
+    if constexpr (kQInRegs) {
+      if (i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], &sm.q[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+        for (int kk = 0; kk < D / 16; ++kk)
+          ldmatrix_x4(qf[kk], &sm.q[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+      }
     }
     const int t0 = (t_first + i) * BKV;
     // A tile masked for every row of this warp changes nothing it keeps
@@ -302,15 +365,23 @@ attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4];
+        if constexpr (kQInRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          ldmatrix_x4(qa, &sm.q[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+        }
 #pragma unroll
         for (int nb2 = 0; nb2 < BKV / 16; ++nb2) {
           uint32_t b[4];
           ldmatrix_x4(b, &sm.k[buf][nb2 * 16 + (lane & 7) + (lane >> 4) * 8]
                                  [kk * 16 + ((lane >> 3) & 1) * 8]);
-          mma_bf16(s[2 * nb2], qf[kk], b[0], b[1]);
-          mma_bf16(s[2 * nb2 + 1], qf[kk], b[2], b[3]);
+          mma_bf16(s[2 * nb2], qa, b[0], b[1]);
+          mma_bf16(s[2 * nb2 + 1], qa, b[2], b[3]);
         }
+      }
 
       // Scale (to log2 units) and mask; a tile wholly inside every row's
       // window skips the mask.
@@ -403,15 +474,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, 
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   if (tensor) {
     constexpr int kSmem = sizeof(tc::Tiles<D>);
-    static_assert(kSmem <= 48 * 1024, "attention_tc's tiles need a shared-memory opt-in");
+    if constexpr (kSmem > 48 * 1024) {
+      static repro::SmemOptIn opt_in;
+      const cudaError_t err = opt_in.need(tc::attention_tc<D>, kSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     dim3 grid((S + tc::BQ - 1) / tc::BQ, BH);
     tc::attention_tc<D><<<grid, tc::kThreads, kSmem, st>>>(
         static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
         static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), S, window, causal,
         scale * tc::kLog2e);
   } else {
-    dim3 grid((S + BQ - 1) / BQ, BH);
-    attention_scalar<D><<<grid, BQ, 0, st>>>(
+    dim3 grid((S + ScalarGeom<D>::kRows - 1) / ScalarGeom<D>::kRows, BH);
+    attention_scalar<D><<<grid, ScalarGeom<D>::kThreads, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), S, window, causal, scale);
   }
@@ -434,6 +509,8 @@ int repro_local_attention(const void* q, const void* k, const void* v, void* o, 
   const bool tensor = tensor_route != 0;
   if (D == 64) return launch<64>(q, k, v, o, BH, S, window, causal, tensor, st);
   if (D == 32) return launch<32>(q, k, v, o, BH, S, window, causal, tensor, st);
+  if (D == 128) return launch<128>(q, k, v, o, BH, S, window, causal, tensor, st);
+  if (D == 256) return launch<256>(q, k, v, o, BH, S, window, causal, tensor, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

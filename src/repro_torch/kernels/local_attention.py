@@ -25,7 +25,7 @@ _C = ctypes.c_void_p
 _I = ctypes.c_int
 
 #: Head widths the kernel is built for.
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _lib():

@@ -7,15 +7,21 @@ greedy decode run one forward pass per mixed-tenant batch, in which every
 adapted projection is one launch of the gathered LoRA kernel reading the
 pool in place.  ``--merged`` serves the mean of all adapters instead
 (``lora_matmul`` with one 2-D adapter).  ``--arch`` is ``stablelm-1.6b``
-(attention blocks) or ``mamba2-130m`` (SSD blocks, prefill through the
-``ssd_scan`` kernel).
+(attention blocks), ``mamba2-130m`` (SSD blocks, prefill through the
+``ssd_scan`` kernel) or ``recurrentgemma-2b`` (RG-LRU and sliding-window
+attention blocks with a ring cache, two tail layers, GeGLU, MQA at head
+width 256).
 
 On a card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --batch 8 --prompt-len 512 --gen 32 --n-adapters 4 --pool-slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+      --batch 8 --prompt-len 2560 --gen 32 --n-adapters 4 --pool-slots 8
 On the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduced \\
       --device cpu --batch 4 --prompt-len 16 --gen 8 --n-adapters 3 --pool-slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced \\
+      --device cpu --prompt-len 40
 """
 from __future__ import annotations
 
@@ -137,7 +143,8 @@ def serve_merged(base, lora, tokens, cfg, *, gen: int):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--arch", default="stablelm-1.6b",
+                    help="stablelm-1.6b (default), mamba2-130m or recurrentgemma-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")

@@ -1,12 +1,14 @@
-"""Attention: causal self-attention with RoPE, prefill and decode (port of
-``repro/models/attention.py``).
+"""Attention: causal self-attention with RoPE, full or sliding-window,
+prefill and decode (port of ``repro/models/attention.py``).
 
 * Prefill runs ``kernels.ops.local_attention``: the CUDA flash kernel on a
   card, its plain version on the CPU.  It takes the place of the
   reference's switch between ``naive_attention`` and ``flash_attention``
-  (the jnp twin of the same Pallas kernel).
+  (the jnp twin of the same Pallas kernel).  Grouped queries (MQA at
+  kv = 1) repeat K and V per group there (``ops.local_attention``).
 * Decode runs ``decode_attention``, one query against the cache, in plain
-  torch, as the reference computes it outside any kernel.
+  torch, as the reference computes it outside any kernel.  A
+  sliding-window mixer's cache is a ring: token t sits at slot t % ring.
 """
 from __future__ import annotations
 
@@ -81,19 +83,33 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     return torch.einsum("bhgqs,bshd->bqhgd", p, v_cache)
 
 
-def apply_attention(params, lora, x: torch.Tensor, cfg, *, positions,
+def ring_cache(k: torch.Tensor, v: torch.Tensor, window: int) -> KVCache:
+    """The decode cache of a sliding-window prefill of S positions, k and v
+    (B, S, n_kv, hd): with S >= window, the last ``window`` keys rolled by
+    S % window, so that position p sits at slot p % window where decode
+    writes it; a shorter prompt keeps its S keys at slots 0..S-1."""
+    s = k.shape[1]
+    if s < window:
+        return KVCache(k=k, v=v)
+    return KVCache(k=torch.roll(k[:, -window:], shifts=s % window, dims=1),
+                   v=torch.roll(v[:, -window:], shifts=s % window, dims=1))
+
+
+def apply_attention(params, lora, x: torch.Tensor, cfg, *, positions, window: int = 0,
                     cache: Optional[KVCache] = None, cache_index: Optional[int] = None,
                     return_cache: bool = False):
-    """Full causal self-attention (the ``"attn"`` mixer); returns
-    (output, new_cache).
+    """Causal self-attention, full (``window=0``, the ``"attn"`` mixer) or
+    over the last ``window`` positions (``"local_attn"``); returns (output,
+    new_cache).
 
     Prefill (``cache is None``) attends over x and, with ``return_cache``,
-    returns its K and V as the decode cache.  Decode writes the new K and V
-    at position ``cache_index`` of ``cache`` in place and attends to the
-    ``cache_index + S`` positions written so far; the returned cache is the
-    same object.  Sliding-window mixers with their ring cache,
-    cross-attention, M-RoPE and the int8 cache are not ported yet
-    (``blocks.check_ported`` refuses configs that need them).
+    returns its K and V as the decode cache (``ring_cache`` with a window).
+    Decode writes the new K and V in place, at position ``cache_index`` of
+    ``cache`` or, with a window, at slot ``cache_index % ring`` of the ring,
+    and attends to every slot written so far (a ring's recency does not
+    matter to the softmax, as in the reference); the returned cache is the
+    same object.  Cross-attention, M-RoPE and the int8 cache are not ported
+    yet (``blocks.check_ported`` refuses configs that need them).
     """
     lora = lora or {}
     scale = cfg.lora.scale
@@ -107,13 +123,17 @@ def apply_attention(params, lora, x: torch.Tensor, cfg, *, positions,
 
     new_cache = cache
     if cache is not None:
-        cache.k[:, cache_index:cache_index + sq] = k.to(cache.k.dtype)
-        cache.v[:, cache_index:cache_index + sq] = v.to(cache.v.dtype)
+        ring = cache.k.shape[1] if window else 0
+        slot = cache_index % ring if ring else cache_index
+        cache.k[:, slot:slot + sq] = k.to(cache.k.dtype)
+        cache.v[:, slot:slot + sq] = v.to(cache.v.dtype)
+        total = cache_index + sq
         out = decode_attention(q.reshape(b, sq, n_kv, g, hd), cache.k.to(q.dtype),
-                               cache.v.to(q.dtype), cache_index + sq)
+                               cache.v.to(q.dtype), min(total, ring) if ring else total,
+                               window=window, ring=bool(ring))
     else:
-        out = ops.local_attention(q, k, v, window=0, causal=True)
+        out = ops.local_attention(q, k, v, window=window, causal=True)
         if return_cache:
-            new_cache = KVCache(k=k, v=v)
+            new_cache = ring_cache(k, v, window) if window else KVCache(k=k, v=v)
     out = out.reshape(b, sq, n_kv * g * hd)
     return layers.dense(out, params["o"], lora.get("o"), scale), new_cache

@@ -1,15 +1,17 @@
 """Decoder block: pre-norm mixer and optional FFN with residuals (port of
-``repro/models/blocks.py``).  This slice runs the ``"attn"`` mixer
-(full causal attention) and the ``"ssd"`` mixer (Mamba-2), each with a
-SwiGLU FFN when ``d_ff > 0`` and none when ``d_ff == 0``; the other
-mixers, MoE and cross-attention raise."""
+``repro/models/blocks.py``).  This slice runs the ``"attn"`` mixer (full
+causal attention), ``"local_attn"`` (sliding-window attention, a ring cache
+at decode), ``"ssd"`` (Mamba-2) and ``"rglru"`` (Griffin's RG-LRU), each
+with a SwiGLU or GeGLU FFN when ``d_ff > 0`` and none when ``d_ff == 0``;
+MoE, cross-attention and the plain GELU FFN raise."""
 from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models import attention, ffn, layers, ssd
+from repro_torch.models import attention, ffn, layers, rglru, ssd
 
-PORTED_MIXERS = ("attn", "ssd")
+ATTN_KINDS = ("attn", "local_attn")
+PORTED_MIXERS = ATTN_KINDS + ("ssd", "rglru")
 
 
 def check_ported(cfg) -> None:
@@ -17,8 +19,6 @@ def check_ported(cfg) -> None:
     missing = []
     if any(k not in PORTED_MIXERS for k in cfg.layer_pattern):
         missing.append(f"mixers {cfg.layer_pattern}")
-    if cfg.n_tail_layers:
-        missing.append(f"{cfg.n_tail_layers} tail layers")
     if cfg.n_experts:
         missing.append("MoE")
     if cfg.encoder_decoder:
@@ -31,9 +31,7 @@ def check_ported(cfg) -> None:
         missing.append("the int8 KV cache")
     if not cfg.tie_embeddings:
         missing.append("an untied output head")
-    if cfg.embed_scale:
-        missing.append("embed_scale")
-    if cfg.d_ff and cfg.ffn_kind != "swiglu":
+    if cfg.d_ff and cfg.ffn_kind not in ffn.GATED:
         missing.append(f"ffn {cfg.ffn_kind!r}")
     if missing:
         raise NotImplementedError(
@@ -43,27 +41,32 @@ def check_ported(cfg) -> None:
 
 def lora_dims(cfg, kind: str) -> dict:
     """{target: (d_in, d_out)} of the adapters of a ``kind`` block: the
-    attention projections in ``cfg.lora.targets``, or the SSD mixer's
-    ``in_proj`` ("q") and ``out_proj`` ("v")."""
+    attention projections in ``cfg.lora.targets``, or the recurrent mixers'
+    input ("q": SSD ``in_proj``, RG-LRU ``proj_x``) and output ("v":
+    ``out_proj``) projections."""
     if kind == "ssd":
         return ssd.lora_dims(cfg)
+    if kind == "rglru":
+        return rglru.lora_dims(cfg)
     dims = attention.lora_dims(cfg)
     return {t: dims[t] for t in cfg.lora.targets}
 
 
 class Block(nn.Module):
-    """One layer: ``norm1``, ``mixer`` (attention q, k, v, o or the SSD
-    mixer) and, when ``d_ff > 0``, ``norm2`` and ``ffn`` (gate, up, down),
-    keyed as the reference's block pytree."""
+    """One layer: ``norm1``, ``mixer`` (attention q, k, v, o, the SSD mixer
+    or the RG-LRU block) and, when ``d_ff > 0``, ``norm2`` and ``ffn``
+    (gate, up, down), keyed as the reference's block pytree."""
 
     def __init__(self, cfg, kind: str, gen, *, dtype, device):
         super().__init__()
         self.kind = kind
         self.norm1 = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
-        if kind == "attn":
+        if kind in ATTN_KINDS:
             self.mixer = attention.init_attention(gen, cfg, dtype=dtype, device=device)
         elif kind == "ssd":
             self.mixer = ssd.init_ssd(gen, cfg, dtype=dtype, device=device)
+        elif kind == "rglru":
+            self.mixer = rglru.init_rglru(gen, cfg, dtype=dtype, device=device)
         else:
             raise ValueError(kind)
         if cfg.d_ff > 0:
@@ -72,20 +75,28 @@ class Block(nn.Module):
                                     device=device)
 
     def forward(self, x, lora, cfg, *, positions, mode: str, cache=None, cache_index=None):
-        """Returns (x, new_cache); ``new_cache`` is ``{"self": KVCache}`` or
-        ``{"self": SSMState}`` in prefill and decode, None otherwise."""
+        """Returns (x, new_cache); ``new_cache`` is ``{"self": KVCache}``,
+        ``{"self": SSMState}`` or ``{"self": LRUState}`` in prefill and
+        decode, None otherwise."""
         lora = lora or {}
         h = layers.apply_norm(self.norm1, x, cfg.norm_eps)
         self_cache = None if cache is None else cache["self"]
-        if self.kind == "attn":
+        prefill = mode == "prefill"
+        if self.kind in ATTN_KINDS:
             out, new_self = attention.apply_attention(
-                self.mixer, lora.get("mixer"), h, cfg, positions=positions, cache=self_cache,
-                cache_index=cache_index, return_cache=mode == "prefill",
+                self.mixer, lora.get("mixer"), h, cfg, positions=positions,
+                window=cfg.window_size if self.kind == "local_attn" else 0, cache=self_cache,
+                cache_index=cache_index, return_cache=prefill,
             )
-        else:
+        elif self.kind == "ssd":
             out, new_self = ssd.apply_ssd(
                 self.mixer, lora.get("mixer"), h, cfg, state=self_cache,
-                lora_scale=cfg.lora.scale, return_state=mode == "prefill",
+                lora_scale=cfg.lora.scale, return_state=prefill,
+            )
+        else:
+            out, new_self = rglru.apply_rglru(
+                self.mixer, lora.get("mixer"), h, cfg, state=self_cache,
+                lora_scale=cfg.lora.scale, return_state=prefill,
             )
         x = x + out
         if cfg.d_ff > 0:

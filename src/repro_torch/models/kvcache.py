@@ -2,10 +2,11 @@
 ``repro/models/kvcache.py``).
 
 The port's decode writes each new token's K and V into the cache tensors in
-place (``attention.apply_attention``), and each new SSM state into the
-``SSMState`` tensors (``ssd.apply_ssd``), where the reference returns
-updated copies; the positions, the mask and the recurrences are the
-reference's.  The int8 cache and the RG-LRU state are not ported yet.
+place (``attention.apply_attention``; slot ``t % ring`` of a sliding-window
+ring), and each new recurrent state into the ``SSMState`` / ``LRUState``
+tensors (``ssd.apply_ssd``, ``rglru.apply_rglru``), where the reference
+returns updated copies; the positions, the mask and the recurrences are the
+reference's.  The int8 cache is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +23,11 @@ class KVCache(NamedTuple):
 class SSMState(NamedTuple):
     h: torch.Tensor  # (..., B, n_heads, head_dim, state) float32
     conv: torch.Tensor  # (..., B, conv_width - 1, conv_dim)
+
+
+class LRUState(NamedTuple):
+    h: torch.Tensor  # (..., B, lru_width) float32
+    conv: torch.Tensor  # (..., B, conv_width - 1, lru_width)
 
 
 def attn_cache(batch: int, length: int, n_kv: int, head_dim: int, dtype,

@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -125,6 +126,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def apply_mrope(x, positions_3d, theta, sections):
     raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md queue 1, item 8)")
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh form, as ``jax.nn.gelu(approximate=True)``."""
+    return F.gelu(x, approximate="tanh")
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

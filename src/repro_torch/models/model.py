@@ -4,11 +4,15 @@
 The base model is an ``nn.Module``, ``DecoderLM``, with one ``Block`` per
 layer (the reference scans a group axis instead).  LoRA trees, caches and
 the adapter pool keep the reference's layout, so the pool, the aggregation
-engine and the converter share it: layer ``i`` sits at group ``i // unit``
-of pattern slot ``i % unit``, e.g.
+engine and the converter share it: layer ``i < n_groups * unit`` sits at
+group ``i // unit`` of pattern slot ``i % unit``, e.g.
 ``{"groups": ({"mixer": {"q": {"A": (n_groups, d_in, r), "B": ...}, "v": ...}},), "tail": ()}``
 and caches ``{"groups": ({"self": KVCache(k=(n_groups, B, S, n_kv, hd), v=...)},), "tail": ()}``
-(``SSMState(h=(n_groups, B, H, P, N), conv=...)`` for an ``"ssd"`` slot).
+(``SSMState(h=(n_groups, B, H, P, N), conv=...)`` for an ``"ssd"`` slot,
+``LRUState(h=(n_groups, B, W), conv=...)`` for ``"rglru"``).  Layers that
+do not fill a whole unit (RecurrentGemma's 26 = 8 x 3 + 2) are the tail:
+layer ``n_groups * unit + j`` is ``tree["tail"][j]``, with no group axis,
+e.g. ``{"mixer": {"q": {"A": (d_in, r), ...}}}`` and ``{"self": LRUState(h=(B, W), ...)}``.
 
 Modes: ``train`` (full sequence, logits at every position, for
 ``loss_fn``), ``prefill`` (full prompt, caches, last-position logits) and
@@ -19,6 +23,7 @@ PyTorch (``kernels/*.py``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
@@ -27,7 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import backend
-from repro_torch.models import blocks, layers, ssd
+from repro_torch.models import blocks, layers, rglru, ssd
 from repro_torch.models.kvcache import KVCache, attn_cache
 
 Tree = Any
@@ -75,13 +80,20 @@ def init_lora_params(cfg, *, seed: int = 0, device="cuda") -> Tree:
     dev = backend.resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = _DTYPES[cfg.lora.dtype]
-    groups = tuple(
-        {"mixer": {t: layers.init_lora(gen, d_in, d_out, cfg.lora.rank, dtype=dtype, device=dev,
-                                       lead=(cfg.n_pattern_groups,))
-                   for t, (d_in, d_out) in blocks.lora_dims(cfg, kind).items()}}
-        for kind in cfg.layer_pattern
-    )
-    return {"groups": groups, "tail": ()}
+
+    def one(kind, lead):
+        return {"mixer": {t: layers.init_lora(gen, d_in, d_out, cfg.lora.rank, dtype=dtype,
+                                              device=dev, lead=lead)
+                          for t, (d_in, d_out) in blocks.lora_dims(cfg, kind).items()}}
+
+    groups = tuple(one(kind, (cfg.n_pattern_groups,)) for kind in cfg.layer_pattern)
+    return {"groups": groups, "tail": tuple(one(kind, ()) for kind in _tail_kinds(cfg))}
+
+
+def _tail_kinds(cfg):
+    """Mixer kinds of the tail layers."""
+    unit = len(cfg.layer_pattern)
+    return [cfg.layer_pattern[j % unit] for j in range(cfg.n_tail_layers)]
 
 
 def _select(node, g: int):
@@ -93,29 +105,44 @@ def _select(node, g: int):
 
 
 def _layer_trees(tree, cfg):
-    """Per-layer subtrees of a ``{"groups", "tail"}`` tree (None -> Nones)."""
+    """Per-layer subtrees of a ``{"groups", "tail"}`` tree (None -> Nones):
+    group layers sliced from their slot, then the tail's entries."""
     unit = len(cfg.layer_pattern)
     if tree is None:
         return [None] * cfg.n_layers
-    return [_select(tree["groups"][i % unit], i // unit) for i in range(cfg.n_layers)]
+    n_grouped = cfg.n_pattern_groups * unit
+    return ([_select(tree["groups"][i % unit], i // unit) for i in range(n_grouped)]
+            + list(tree["tail"]))
 
 
 def _layer_caches(caches, cfg):
-    """Per-layer views ``{"self": KVCache | SSMState}`` of the group-stacked
-    caches; writes through a view land in the stacked tensors."""
+    """Per-layer views ``{"self": KVCache | SSMState | LRUState}`` of the
+    group-stacked caches, then the tail's caches; writes through a view land
+    in the stacked tensors."""
     unit = len(cfg.layer_pattern)
     if caches is None:
         return [None] * cfg.n_layers
     out = []
-    for i in range(cfg.n_layers):
+    for i in range(cfg.n_pattern_groups * unit):
         state = caches["groups"][i % unit]["self"]
         out.append({"self": type(state)(*(t[i // unit] for t in state))})
-    return out
+    return out + [{"self": c["self"]} for c in caches["tail"]]
 
 
 def _stack_states(states):
     """One cache container of layer-stacked tensors from per-layer ones."""
     return type(states[0])(*(torch.stack(ts) for ts in zip(*states)))
+
+
+def embed_tokens(model: DecoderLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Token embeddings (B, S, D) in the model's dtype, times sqrt(d_model)
+    with ``embed_scale`` (Gemma): the factor is rounded to the activations'
+    dtype first, as the reference rounds it (50.5 in bf16 at d_model 2560,
+    not 50.596)."""
+    x = F.embedding(tokens, model.embed)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
 
 
 def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: str = "prefill",
@@ -138,7 +165,7 @@ def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: s
         raise ValueError(f"unknown mode {mode!r}")
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = F.embedding(tokens, model.embed)
+    x = embed_tokens(model, tokens, cfg)
     if mode == "decode":
         positions = torch.full((b, s), cache_index, dtype=torch.int64, device=x.device)
     else:
@@ -162,9 +189,11 @@ def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: s
                             cfg.logit_softcap)
     if mode == "prefill":
         unit = len(cfg.layer_pattern)
+        n_grouped = cfg.n_pattern_groups * unit
         caches = {"groups": tuple(
-            {"self": _stack_states([c["self"] for c in new[slot::unit]])} for slot in range(unit)
-        ), "tail": ()}
+            {"self": _stack_states([c["self"] for c in new[slot:n_grouped:unit]])}
+            for slot in range(unit)
+        ), "tail": tuple(new[n_grouped:])}
     return logits, caches, torch.zeros((), device=x.device)
 
 
@@ -204,37 +233,64 @@ def client_losses(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, n_cl
 
 def init_decode_caches(cfg, batch: int, cache_len: int, dtype=None, *, device="cuda") -> Tree:
     """Zeroed caches for ``cache_len`` positions, in the layout ``forward``
-    returns."""
+    returns: a sliding-window ring holds ``min(window, cache_len)``."""
     blocks.check_ported(cfg)
     dev = backend.resolve_device(device)
     dtype = dtype or _DTYPES[cfg.dtype]
     n = cfg.n_pattern_groups
 
     def one(kind):
-        if kind == "attn":
-            return attn_cache(batch, cache_len, cfg.n_kv_heads, cfg.head_dim_, dtype, device=dev)
+        if kind in blocks.ATTN_KINDS:
+            length = min(cfg.window_size, cache_len) if kind == "local_attn" else cache_len
+            return attn_cache(batch, length, cfg.n_kv_heads, cfg.head_dim_, dtype, device=dev)
+        if kind == "rglru":
+            return rglru.init_lru_state(batch, cfg, dtype, device=dev)
         return ssd.init_ssm_state(batch, cfg, dtype, device=dev)
 
     return {"groups": tuple(
         {"self": _stack_states([one(kind)] * n)} for kind in cfg.layer_pattern
-    ), "tail": ()}
+    ), "tail": tuple({"self": one(kind)} for kind in _tail_kinds(cfg))}
 
 
 def extend_caches(caches: Tree, extra: int, cfg) -> Tree:
-    """Full-attention KV buffers with ``extra`` zero positions appended on
-    the sequence axis: prefill emits caches sized to the prompt, decode
-    writes one position per step into the headroom.  Allocated once per
-    batch; decode then writes in place.  Recurrent states (``"ssd"``
-    slots) are passed through as they are: they have no sequence axis."""
-    def pad(t):
-        out = t.new_zeros((*t.shape[:-3], t.shape[-3] + extra, *t.shape[-2:]))
+    """Room for ``extra`` decode positions: prefill emits caches sized to the
+    prompt, decode writes one position per step in place.
+
+    * Full-attention KV buffers gain ``extra`` zero positions on the
+      sequence axis.
+    * A sliding-window ring shorter than the window (a prompt shorter than
+      it) grows to ``min(window, length + extra)`` zero-padded slots, the
+      size ``init_decode_caches`` gives; a ring already ``window`` long is
+      kept.  Decode at position t then writes slot t % ring and evicts only
+      keys that have left the window, so decode equals the train-mode
+      forward at every prompt length.  The reference pads no ring: after a
+      prompt shorter than the window its decode writes slot t % prompt
+      length and evicts keys still inside the window, so there the port's
+      decode departs from the reference's by design (ROADMAP.md queue 3).
+    * Recurrent states (``"ssd"``, ``"rglru"``) are passed through: they
+      have no sequence axis.
+
+    Allocated once per batch, group slots and tail alike."""
+    def pad(t, length):
+        if length == t.shape[-3]:
+            return t
+        out = t.new_zeros((*t.shape[:-3], length, *t.shape[-2:]))
         out[..., : t.shape[-3], :, :] = t
         return out
 
-    return {"groups": tuple(
-        dict(g, self=KVCache(*(pad(t) for t in g["self"]))) if kind == "attn" else g
-        for kind, g in zip(cfg.layer_pattern, caches["groups"])
-    ), "tail": caches["tail"]}
+    def fix(kind, cache):
+        state = cache["self"]
+        if kind == "attn":
+            length = state.k.shape[-3] + extra
+        elif kind == "local_attn":
+            have = state.k.shape[-3]
+            length = have if have >= cfg.window_size else min(cfg.window_size, have + extra)
+        else:
+            return cache
+        return dict(cache, self=KVCache(*(pad(t, length) for t in state)))
+
+    return {"groups": tuple(fix(kind, g) for kind, g in zip(cfg.layer_pattern, caches["groups"])),
+            "tail": tuple(fix(kind, c) for kind, c in zip(_tail_kinds(cfg), caches["tail"]))}
 
 
 def decode_step(model, lora, tokens, caches, cache_index: int, cfg):
@@ -249,6 +305,6 @@ def param_count(model: nn.Module) -> int:
 
 
 __all__ = [
-    "DecoderLM", "client_losses", "decode_step", "extend_caches", "forward", "init_decode_caches",
-    "init_lora_params", "init_params", "loss_fn", "param_count",
+    "DecoderLM", "client_losses", "decode_step", "embed_tokens", "extend_caches", "forward",
+    "init_decode_caches", "init_lora_params", "init_params", "loss_fn", "param_count",
 ]

@@ -427,9 +427,15 @@ def test_lora_kernels_match_plain(cuda, dtype, m, k, n, r):
 @pytest.mark.parametrize("bh,s,d,window,causal", [
     (256, 512, 64, 0, True), (256, 300, 64, 0, True), (256, 512, 64, 128, True),
     (7, 45, 32, 0, True), (3, 70, 32, 9, True), (64, 300, 32, 128, True),
-    (256, 512, 64, 0, False)])
+    (256, 512, 64, 0, False),
+    # RecurrentGemma's prefill (80 head rows = 8 requests x 10 heads, window
+    # 2048 past S = 2560), a ragged S, non-causal; and D = 128.
+    (80, 2560, 256, 2048, True), (10, 700, 256, 300, True), (16, 333, 256, 0, True),
+    (16, 300, 256, 0, False), (64, 512, 128, 0, True), (8, 300, 128, 100, True),
+    (8, 300, 128, 0, False)])
 def test_local_attention_kernel_matches_plain(cuda, dtype, bh, s, d, window, causal):
-    """bf16 on the tensor route, float32 on the scalar one; causal and not."""
+    """bf16 on the tensor route, float32 on the scalar one; causal and not;
+    head widths 32 to 256."""
     from repro_torch.kernels import local_attention as la
 
     g = torch.Generator().manual_seed(s + window)
@@ -441,9 +447,28 @@ def test_local_attention_kernel_matches_plain(cuda, dtype, bh, s, d, window, cau
     assert (after[0] - before[0], after[1] - before[1]) == (
         (2, 0) if dtype == torch.bfloat16 else (0, 2))
     want = ref.local_attention_ref(q, k, v, window=window, causal=causal)
-    # float32: online vs materialized softmax; bf16: one ulp of the largest output.
-    tol = 2e-5 if dtype == torch.float32 else 2.0**-7 * float(want.float().abs().max())
-    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    if dtype == torch.float32:
+        # Online vs materialized softmax.
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+        return
+    # bf16: one ulp of the largest output, and entry by entry: the kernel's
+    # rounding of p to bf16 moves an output by at most 2^-8 sum_j p_j |v_j| / l
+    # (the plain version on |v|), the fp32 sums by 2^-12 of that, and each
+    # result rounds to bf16 (2^-8 of itself).  The plain version with each
+    # window cut or grown by one 32-key tile must fail the entry bound.
+    mass = ref.local_attention_ref(q.float(), k.float(), v.float().abs(), window=window,
+                                   causal=causal)
+
+    def within(x):
+        x, w = x.float(), want.float()
+        bound = (2.0**-8 + 2.0**-12) * mass + 2.0**-8 * (x.abs() + w.abs())
+        return bool(((x - w).abs() <= bound).all())
+
+    torch.testing.assert_close(got, want, atol=2.0**-7 * float(want.float().abs().max()), rtol=0)
+    assert within(got)
+    if window > 32:
+        for w in (window - 32, window + 32):
+            assert not within(ref.local_attention_ref(q, k, v, window=w, causal=causal))
 
 
 @pytest.mark.gpu
@@ -573,6 +598,54 @@ def test_reduced_mamba_serving_card_matches_cpu(cuda):
     got, _ = dec(base, pool.pooled, pool.acquire(ids), toks[:, -1:].to(cuda), caches, 69)
     want, _ = dec(cpu_base, cpu_pool.pooled, cpu_pool.acquire(ids), toks[:, -1:], cpu_caches, 69)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+def test_full_width_rglru_block_card_matches_cpu(cuda):
+    """One RecurrentGemma-2B RG-LRU block at full width (d_model and
+    lru_width 2560, GeGLU d_ff 7680) in float32 with a 2-D adapter on proj_x
+    and out_proj: a 300-token prefill (output, h and the conv window), then
+    3 decode steps written into the state in place, on the card
+    (``lora_matmul`` on the scalar route) against the same block on the
+    CPU; 1e-4 of the largest value (fp32 sums of 2560 and 7680 products and
+    the doubling scan, in other orders)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.models import blocks, layers, rglru
+
+    cfg = get_config("recurrentgemma-2b").replace(dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    blk = blocks.Block(cfg, "rglru", gen, dtype=torch.float32, device=cuda)
+    cpu_blk = copy.deepcopy(blk).cpu()
+    lora = {"mixer": {t: layers.init_lora(gen, d_in, d_out, 8, dtype=torch.float32, device=cuda)
+                      for t, (d_in, d_out) in rglru.lora_dims(cfg).items()}}
+    for node in lora["mixer"].values():
+        node["B"].normal_(0.0, 0.05, generator=gen)
+    cpu_lora = {"mixer": {t: {k: v.cpu() for k, v in node.items()}
+                          for t, node in lora["mixer"].items()}}
+    x = torch.randn((2, 303, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    pos = torch.zeros((2, 300), dtype=torch.int64)
+
+    def near(got, want):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
+
+    before = lm.lora_matmul.launches
+    out, cache = blk(x[:, :300].to(cuda), lora, cfg, positions=pos.to(cuda), mode="prefill")
+    assert lm.lora_matmul.launches - before == 2
+    want, cpu_cache = cpu_blk(x[:, :300], cpu_lora, cfg, positions=pos, mode="prefill")
+    near(out, want)
+    near(cache["self"].h, cpu_cache["self"].h)
+    near(cache["self"].conv, cpu_cache["self"].conv)
+    for i in range(300, 303):
+        out, new = blk(x[:, i:i + 1].to(cuda), lora, cfg, positions=pos[:, :1].to(cuda),
+                       mode="decode", cache=cache, cache_index=i)
+        want, cpu_cache = cpu_blk(x[:, i:i + 1], cpu_lora, cfg, positions=pos[:, :1],
+                                  mode="decode", cache=cpu_cache, cache_index=i)
+        assert new["self"] is cache["self"]
+        near(out, want)
+        near(cache["self"].h, cpu_cache["self"].h)
 
 
 # --- Training: the kernels' autograd Functions --------------------------------

@@ -214,13 +214,17 @@ def test_lora_route_refuses_other_dtypes():
 @pytest.mark.parametrize("d,dtype,want", [(64, torch.bfloat16, "tensor"),
                                           (32, torch.bfloat16, "tensor"),
                                           (64, torch.float32, "scalar"),
-                                          (32, torch.float32, "scalar")])
+                                          (32, torch.float32, "scalar"),
+                                          (256, torch.bfloat16, "tensor"),
+                                          (256, torch.float32, "scalar"),
+                                          (128, torch.bfloat16, "tensor"),
+                                          (128, torch.float32, "scalar")])
 def test_attention_route_rule(d, dtype, want):
     assert la.route(d, dtype) == want
 
 
 @pytest.mark.parametrize("d,dtype,exc", [(48, torch.bfloat16, ValueError),
-                                         (128, torch.float32, ValueError),
+                                         (512, torch.float32, ValueError),
                                          (16, torch.bfloat16, ValueError),
                                          (64, torch.float16, TypeError)])
 def test_attention_route_refuses(d, dtype, exc):
