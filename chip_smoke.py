@@ -32,7 +32,12 @@ Phases (any failed check raises and the script exits non-zero):
      beside ``F.scaled_dot_product_attention`` (timed only), and
      ``causal=False`` at (256, 512, 64); at D = 256, path J's prefill (80,
      2560, 256) with window 2048, timed beside SDPA with the same boolean
-     causal-window mask, and S = 2100.  Each checked
+     causal-window mask, S = 2100, and path L1's full-causal prefill (128,
+     512, 256) beside SDPA ``is_causal=True``; the gathered LoRA kernel also
+     at the q / v shapes of paths L and M (``LORA_LM``: K -> N of 3072 ->
+     4096, 5120 -> 5120, 5120 -> 1024, 8192 -> 8192, 8192 -> 1024, 1024 ->
+     1024 and 1024 -> 512), each at prefill (M = 4096) and decode (M =
+     8, K split).  Each checked
      shape prints its route (``lora_matmul.route``,
      ``local_attention.route``: bf16 on the tensor cores, float32 and the
      ragged bf16 LoRA shape on fp32 FMA) and its tensor-route launches must
@@ -145,18 +150,45 @@ Phases (any failed check raises and the script exits non-zero):
      8 decode steps; J5 depth 5 in float32 at the real window, prompt 2100,
      each of 4 decode steps against the train-mode forward (and a zeroed
      ring, which must miss).  Path J's wall time is printed.
+ 11d. Main path K, federated LoRA training through ``launch.train.main``
+     with path I1's flags: K1 ``configs/recurrentgemma_2b.py`` at full
+     width and depth (26 layers, the RG-LRU scan differentiated by its
+     reverse-scan Function, two recurrent tail layers), K2
+     ``configs/granite_moe_1b_a400m.py`` at full width and depth (24 layers
+     of 32 experts, top-8, routed per client); each prints its round times,
+     peak memory and eval loss before and after (it must fall); K3 one local
+     phase of each card vs CPU from the card's LoRA in float32
+     (RecurrentGemma at depth 5, Granite at depth 2; SGD held at
+     ``STATE_FRO_RTOL``, the experts chosen compared call by call).
+ 11e. Main path L, serving the dense configs of slice 11 as path C (8
+     requests of 4 tenants, prompt 512, 32 tokens, bf16): L1
+     ``configs/gemma_7b.py`` at full width and depth (28 layers, head width
+     256, full causal), L2 ``configs/qwen1_5_32b.py`` at 32 of 64 layers,
+     L3 ``configs/deepseek_67b.py`` at 24 of 95 (untied head); prefill s,
+     decode tokens/s and peak memory; each also card vs CPU at depth 2 in
+     float32, prompts 96 and 40, 8 decode steps.
+ 11f. Main path M, serving the MoE configs the same way: M1
+     ``configs/granite_moe_1b_a400m.py`` at full width and depth, a profiled
+     decode window and warm prefill with the MoE layers' host and device
+     time marked (``moe_spans``), card vs CPU at depth 4 with the routing compared first
+     (a flip fails with its probability gap); M2
+     ``configs/llama4_maverick_400b_a17b.py`` at full width and depth 1
+     (128 experts at d_ff 8192, 32 GB), its MoE layer against a float32
+     loop over the experts on the same routing (``M_LOOP_RTOL``).  Each
+     path's wall time is printed.
  12. The card tests: ``pytest -m gpu tests/test_torch_cuda.py`` in a
      subprocess with its own time limit; any failure, error or skip fails
      the script, and the counts and wall time go on a ``[card tests]``
      line.
  13. A ``[train fn]`` line (each Function's forward and backward ms with
      path I's launches), the ``kernels`` JSON line (each kernel's launches
-     on all paths and on path J, ``local_attention`` also at path J's
-     prefill shape), the wall time, then the result line.
+     on all paths and on paths J, K, L and M, ``local_attention`` also at
+     path J's and path L1's prefill shapes, ``gathered_lora_matmul`` at the
+     q / v shapes of paths L and M), the wall time, then the result line.
 
 Kernel launch counts are set to 0 just before phase 4 and read just after
 phase 5, and set to 0 again just before each of phases 6, 7, 8, 9, 10, 11,
-11b and 11c and read just after it; every kernel must have launched, and
+11b, 11c, 11d, 11e and 11f and read just after it; every kernel must have launched, and
 each phase exactly as often as its rounds, ADMM iterations, fallbacks,
 shards, buckets, layers and decode steps say.  Beside them the
 tensor-route launches of the subspace, LoRA and attention kernels are
@@ -166,6 +198,7 @@ one (the card-vs-CPU runs, the state handoff, J5) off it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -550,13 +583,26 @@ LORA_SHAPES = [(4096, 2048, 2048, 8, "prefill"), (8, 2048, 2048, 8, "decode"),
                (8, 768, 3352, 8, "mamba2 in_proj decode"),
                (4096, 1536, 768, 8, "mamba2 out_proj"),
                (8, 1536, 768, 8, "mamba2 out_proj decode")]
+# The q / v projections (K -> N) of paths L and M, each at prefill (8 x 512
+# rows, the tensor route in one K pass) and at decode (8 rows, K split):
+# Gemma-7B q and v; Qwen1.5-32B q and v and Llama-4-Maverick q; Llama-4 v;
+# DeepSeek-67B q; DeepSeek v; Granite q; Granite v.  Each gathered call's
+# times go into the kernels line under its label.
+LORA_LM = {"gemma_qv": (3072, 4096), "qwen_qv": (5120, 5120), "llama4_v": (5120, 1024),
+           "deepseek_q": (8192, 8192), "deepseek_v": (8192, 1024),
+           "granite_q": (1024, 1024), "granite_v": (1024, 512)}
+LORA_SLICE11 = [*LORA_LM, *(f"{key}_decode" for key in LORA_LM)]
+LORA_SHAPES += [(4096, k, n, 8, key) for key, (k, n) in LORA_LM.items()]
+LORA_SHAPES += [(8, k, n, 8, f"{key}_decode") for key, (k, n) in LORA_LM.items()]
 # (BH, S, D, window, causal, label); "bidirectional" is the encoder's call
 # (causal=False), checked and not timed.  "rg-prefill" is path J's prefill
 # (8 requests x 10 heads, S 2560 past the window of 2048, D 256), "rg ragged"
-# a length that is no multiple of the tiles (J5's prompt).
+# a length that is no multiple of the tiles (J5's prompt), "gemma-prefill"
+# path L1's (8 requests x 16 heads, S 512, D 256, full causal).
 ATTN_SHAPES = [(256, 512, 64, 0, True, "prefill"), (256, 300, 64, 0, True, "ragged"),
                (256, 512, 64, 128, True, "window"), (256, 512, 64, 0, False, "bidirectional"),
-               (80, 2560, 256, 2048, True, "rg-prefill"), (80, 2100, 256, 2048, True, "rg ragged")]
+               (80, 2560, 256, 2048, True, "rg-prefill"), (80, 2100, 256, 2048, True, "rg ragged"),
+               (128, 512, 256, 0, True, "gemma-prefill")]
 ATTN_UNTIMED = ("ragged", "bidirectional", "rg ragged")
 TENANT_SLOTS = (1, 3, 4, 6)  # 4 tenants resident in a pool of 8 slots
 
@@ -674,6 +720,8 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
                       f"cublas_x@W_ms={floor_ms:.4f} call_ms={call_ms:.4f}", flush=True)
                 if label == "prefill":
                     rec[name] = out
+                elif label in LORA_SLICE11 and name == "gathered_lora_matmul":
+                    rec[f"{name}_{label}"] = out
             # Where a call's device time goes: x @ A, the base product with its
             # epilogue, and the split-K finish.
             print(f"[kernels] gathered_lora_matmul {tag}: device ms by kernel "
@@ -786,6 +834,8 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
                 rec["local_attention"] = out
             elif label == "rg-prefill":
                 rec["local_attention_rg"] = out
+            elif label == "gemma-prefill":
+                rec["local_attention_gemma"] = out
     return rec
 
 
@@ -2228,12 +2278,13 @@ def decode_again(base, pool, cfg, rec, gen):
     return logits_out, torch.cat(toks, dim=1)
 
 
-def profiled(fn):
+def profiled(fn, spans: dict | None = None):
     """``fn()`` under ``torch.profiler``: (host seconds, device-busy seconds
     or None when the profiler sees no device time, the five kernels with the
     most device time as (name, ms, calls)).  Only device rows count: a CPU
     op's row carries the time of the kernels it launched, which have rows of
-    their own."""
+    their own.  For each key of ``spans``, a ``record_function`` range name,
+    ``spans[name]`` becomes ``span_times`` of its ranges."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2245,17 +2296,48 @@ def profiled(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    # A record_function range also leaves a device row spanning its
+    # kernels (a user annotation); it is not device time of its own.
     events = [e for e in prof.key_averages()
-              if e.device_type != DeviceType.CPU and dev(e) > 0]
+              if e.device_type != DeviceType.CPU and dev(e) > 0 and e.key not in (spans or ())
+              and not getattr(e, "is_user_annotation", False)]
     busy = sum(dev(e) for e in events) / 1e6
     top = sorted(events, key=dev, reverse=True)[:5]
+    for name in spans or ():
+        spans[name] = span_times([e for e in prof.events()
+                                  if e.name == name and e.device_type == DeviceType.CPU])
     return wall, (busy or None), [(e.key[:60], round(dev(e) / 1e3, 3), e.count) for e in top]
 
 
-def profile_decode(base, pool, cfg, rec, steps: int):
+# Kernels of a GEMM library or of a hand-written GEMM, by name.
+GEMM_KERNEL_TAGS = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
+
+
+def span_times(ranges) -> dict:
+    """The profiled ``record_function`` ranges ``ranges``: their calls, host
+    seconds (the ranges' own CPU time) and device seconds of the kernels
+    launched inside them (the launching ops' kernels, walked through the
+    ranges' children), split into GEMM kernels (``GEMM_KERNEL_TAGS``) and
+    the rest; the device numbers are None where the profiler links no
+    kernel to a range."""
+    def kernels(e):
+        out = list(getattr(e, "kernels", ()))
+        for ch in e.cpu_children:
+            out += kernels(ch)
+        return out
+
+    ks = [k for e in ranges for k in kernels(e)]
+    gemm = sum(k.duration for k in ks if any(t in k.name.lower() for t in GEMM_KERNEL_TAGS))
+    total = sum(k.duration for k in ks)
+    return dict(calls=len(ranges), host_s=sum(e.cpu_time_total for e in ranges) / 1e6,
+                device_s=total / 1e6 if ks else None,
+                gemm_device_s=gemm / 1e6 if ks else None)
+
+
+def profile_decode(base, pool, cfg, rec, steps: int, spans: dict | None = None):
     """``steps`` greedy decode steps under ``torch.profiler`` (see
-    ``profiled``), from a copy of the recorded caches (see ``serve_once``)
-    made before the profiled window."""
+    ``profiled``, which fills ``spans``), from a copy of the recorded caches
+    (see ``serve_once``) made before the profiled window."""
     from repro_torch.launch import serve
 
     _, decode = serve.make_serving_fns(cfg)
@@ -2268,7 +2350,7 @@ def profile_decode(base, pool, cfg, rec, steps: int):
                                rec["prompt_len"] + i)
             tok = serve.greedy(logits)
 
-    return profiled(run)
+    return profiled(run, spans)
 
 
 def launch_checker(counts, path: str):
@@ -2290,6 +2372,35 @@ def launch_checker(counts, path: str):
     return launched, expect, phase
 
 
+def check_routing(card_log, cpu_log, top_k: int, what: str, hold: bool = True) -> int:
+    """The MoE experts chosen on the card against the CPU's, call by call
+    (``moe.routing_log``; layer by layer in each forward): a flip moves
+    every later capacity slot of its expert, so outputs are compared only
+    where the routing agrees.  Returns the number of tokens whose experts
+    differ; with ``hold`` any flip raises, naming the CPU's probability gap
+    between the k-th and (k+1)-th expert at the flipped tokens."""
+    import torch
+
+    if len(card_log) != len(cpu_log):
+        raise AssertionError(f"{what}: {len(card_log)} routed calls on the card, "
+                             f"{len(cpu_log)} on the CPU")
+    flips = 0
+    for i, ((ce, _, _), (we, _, wprobs)) in enumerate(zip(card_log, cpu_log)):
+        diff = (ce.cpu() != we).any(dim=-1)
+        if not bool(diff.any()):
+            continue
+        flips += int(diff.sum())
+        srt = torch.sort(wprobs, dim=-1, descending=True).values
+        gap = (srt[..., top_k - 1] - srt[..., top_k])[diff] if srt.shape[-1] > top_k else srt[diff]
+        msg = (f"{what}: routed call {i}: {int(diff.sum())} tokens pick other experts on the "
+               f"card than on the CPU; the CPU's gap between expert {top_k} and {top_k + 1} "
+               f"there: {[f'{float(x):.3g}' for x in gap[:8]]}")
+        print(f"[routing] {msg}", flush=True)
+        if hold:
+            raise AssertionError(msg)
+    return flips
+
+
 def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
                 prefill_launches: dict, *, n_layers: int = 2, n_requests: int = 4,
                 prompt_lens=(64,), steps: int = 3):
@@ -2299,12 +2410,13 @@ def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
     ``steps`` decode steps of the card's greedy tokens on both devices;
     logits within ``C_CARD_CPU_RTOL`` of the largest.  The card's prefill
     launches ``prefill_launches`` and each decode step 2 gathered launches a
-    layer."""
+    layer.  With experts, each call's routing is compared first
+    (``check_routing``): a flip fails with its probability gap."""
     import copy
 
     import torch
     from repro_torch.launch import serve
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, moe
     from repro_torch.serve import AdapterPool
     from repro_torch.utils.pytree import tree_to
 
@@ -2323,10 +2435,14 @@ def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
     for prompt in prompt_lens:
         prompts2 = torch.as_tensor(rng.integers(0, cfg2.vocab_size, size=(n_requests, prompt)))
         logits_of, state = {"card": [], "cpu": []}, {}
+        routes = {"card": [], "cpu": []}
         before = counts()
         for key, (dev, b_) in runs.items():
             slots = pools[key].acquire(ids)
-            logits, caches = prefill(b_, pools[key].pooled, slots, {"tokens": prompts2.to(dev)})
+            with moe.routing_log() as log:
+                logits, caches = prefill(b_, pools[key].pooled, slots,
+                                         {"tokens": prompts2.to(dev)})
+            routes[key] += log
             logits_of[key].append(logits.cpu())
             state[key] = (slots, serve.extend_caches(caches, steps + 1, cfg2))
         expect(f"card vs CPU prefill {prompt}", launched(before), **prefill_launches)
@@ -2335,11 +2451,18 @@ def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
         for i in range(steps):  # both devices decode the card's greedy tokens
             for key, (dev, b_) in runs.items():
                 slots, caches = state[key]
-                logits, _ = decode(b_, pools[key].pooled, slots, tok.to(dev), caches, prompt + i)
+                with moe.routing_log() as log:
+                    logits, _ = decode(b_, pools[key].pooled, slots, tok.to(dev), caches,
+                                       prompt + i)
+                routes[key] += log
                 logits_of[key].append(logits.cpu())
             tok = serve.greedy(logits_of["card"][-1])
         expect(f"card vs CPU decode {prompt}", launched(before),
                gathered_lora_matmul=2 * n_layers * steps)
+        check_routing(routes["card"], routes["cpu"], cfg2.top_k, f"{path} card vs CPU "
+                      f"(prompt {prompt})")
+        routed = (f"routing equal in {len(routes['card'])} routed calls, " if routes["card"]
+                  else "")
         errs = []
         for g_, c_ in zip(logits_of["card"], logits_of["cpu"]):
             err, scale = max_abs(g_, c_), float(c_.abs().max())
@@ -2348,7 +2471,9 @@ def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
                                      f"{C_CARD_CPU_RTOL} * {scale}")
             errs.append(err)
         print(f"[{path}] {card} | card vs CPU, depth {n_layers} float32, {n_requests} requests "
-              f"x {prompt} prompt + {steps + 1} tokens: prefill and decode logits max|err| "
+              f"x {prompt} prompt + {steps + 1} tokens: "
+              f"{routed}"
+              f"prefill and decode logits max|err| "
               f"{[f'{e:.3g}' for e in errs]} (max|logit| "
               f"{float(logits_of['cpu'][0].abs().max()):.4g})", flush=True)
 
@@ -3057,7 +3182,7 @@ I2_EXTRA = ["--client-ranks", "8,4,2", "--pipeline", "--staleness", "1"]
 I3_UPLINK = "sketch:64:1.0"
 
 
-def run_train_cli(arch, extra, counts, launched, expect, card, label):
+def run_train_cli(arch, extra, counts, launched, expect, card, label, tag="path I"):
     """``launch.train.main`` at full width; prints the round times, hit rates,
     bytes and eval losses, checks finite state and a falling eval loss and
     the launch counts.  Returns the CLI's result."""
@@ -3073,10 +3198,13 @@ def run_train_cli(arch, extra, counts, launched, expect, card, label):
     out = train.main(["--arch", arch, *I_COMMON, *extra])
     wall = time.perf_counter() - t0
     n_l, steps_ = cfg.n_layers, I_ROUNDS * 2
-    attn = cfg.layer_pattern == ("attn",)
+    kinds = [cfg.layer_pattern[i % len(cfg.layer_pattern)] for i in range(n_l)]
+    n_attn = sum(k in ("attn", "local_attn") for k in kinds)
     # Local phase: one gathered launch per adapted projection per step; the
-    # two evaluations: lora_matmul; the mixer once a layer in both.
-    mixer = {"local_attention" if attn else "ssd_scan": n_l * (steps_ + 2)}
+    # two evaluations: lora_matmul; the attention and SSD mixers once a layer
+    # in both (the RG-LRU scan and the MoE are plain PyTorch).
+    mixer = {k: n * (steps_ + 2) for k, n in (("local_attention", n_attn),
+                                              ("ssd_scan", kinds.count("ssd"))) if n}
     got = launched(before)
     agg = got["admm_tail"] + got["subspace_apply"]
     expect(label, {k: v for k, v in got.items() if k not in ("admm_tail", "subspace_apply",
@@ -3095,9 +3223,9 @@ def run_train_cli(arch, extra, counts, launched, expect, card, label):
     keys = ("t_local_s", "t_agg_s", "t_overlap_s", "mean_local_loss", "uplink_hit_rate",
             "bytes_up", "bytes_down", "fallback_count", "carry_hit_rate")
     for r in rounds:
-        print(f"[path I] {card} | {label} round {r['round']}: "
+        print(f"[{tag}] {card} | {label} round {r['round']}: "
               + ", ".join(f"{k}={r[k]:.4g}" for k in keys if k in r), flush=True)
-    print(f"[path I] {card} | {label} {arch}: eval loss {out['initial_eval_loss']:.4f} -> "
+    print(f"[{tag}] {card} | {label} {arch}: eval loss {out['initial_eval_loss']:.4f} -> "
           f"{out['final_eval_loss']:.4f}; round_s median "
           f"{statistics.median(r['t_local_s'] + r['t_agg_s'] for r in rounds):.4f} "
           f"(t_local_s {[round(r['t_local_s'], 4) for r in rounds]}, t_agg_s "
@@ -3117,7 +3245,7 @@ def run_train_cli(arch, extra, counts, launched, expect, card, label):
 I3_PERTURB = 1e-7
 
 
-def i3_local_phase(arch, n_layers, lora, card, label):
+def i3_local_phase(arch, n_layers, lora, card, label, tag="path I"):
     """One local phase (2 steps, 2 clients x 1 x 64 tokens) of ``arch`` at
     full width and ``n_layers`` layers in float32 on the card and on the
     CPU, from the same weights and the card's global LoRA (its first
@@ -3129,21 +3257,32 @@ def i3_local_phase(arch, n_layers, lora, card, label):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, moe
     from repro_torch.utils.pytree import tree_map
 
     cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
     model = init_params(cfg, seed=0, device=DEVICE)
     cpu_model = copy.deepcopy(model).cpu()
-    lora = tree_map(lambda x: x[:n_layers].contiguous(), lora)
+    # The first pattern groups of the card's LoRA, and its tail layers
+    # (RecurrentGemma's two recurrent tail layers at every depth 3 g + 2).
+    lora = {"groups": tree_map(lambda x: x[:cfg.n_pattern_groups].contiguous(),
+                               lora["groups"]),
+            "tail": tree_map(lambda x: x.contiguous(), lora["tail"])}
     toks = torch.randint(0, 512, (2, 1, 65), generator=torch.Generator().manual_seed(19))
     batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
     res = {}
     for opt in ("sgd", "adam"):
         step = steps.make_local_step(cfg, local_lr=I_LR, local_steps=2, local_optimizer=opt,
                                      remat=False)
-        got, loss, _ = step(model, lora, tree_map(lambda t: t.to(DEVICE), batch))
-        want, cpu_loss, _ = step(cpu_model, to_cpu(lora), batch)
+        with moe.routing_log() as card_route:
+            got, loss, _ = step(model, lora, tree_map(lambda t: t.to(DEVICE), batch))
+        with moe.routing_log() as cpu_route:
+            want, cpu_loss, _ = step(cpu_model, to_cpu(lora), batch)
+        flips = check_routing(card_route, cpu_route, cfg.top_k, f"{label} {opt}",
+                              hold=opt == "sgd")
+        if flips:
+            print(f"[{tag}] {card} | {label} {opt}: {flips} routing flips card vs CPU (not "
+                  f"held under Adam)", flush=True)
         res[opt] = (rel_fro(got, want), abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss)))
         if opt == "adam":
             gen = torch.Generator().manual_seed(29)
@@ -3155,11 +3294,34 @@ def i3_local_phase(arch, n_layers, lora, card, label):
     if err > STATE_FRO_RTOL or max(lerr, res["adam"][1]) > 1e-5:
         raise AssertionError(f"{label}: SGD local phase card vs CPU {err:.3g} of the norm (bound "
                              f"{STATE_FRO_RTOL}), losses {lerr:.3g} / {res['adam'][1]:.3g}")
-    print(f"[path I] {card} | {label}: one local phase of {arch} ({n_layers} layers, float32, "
+    print(f"[{tag}] {card} | {label}: one local phase of {arch} ({n_layers} layers, float32, "
           f"2 clients x 64 tokens) card vs CPU from the card's LoRA: SGD deltas {err:.3g} of the "
           f"norm (bound {STATE_FRO_RTOL:g}), loss {lerr:.3g} relative; Adam deltas "
           f"{res['adam'][0]:.3g}, loss {res['adam'][1]:.3g} (not held; the CPU against itself "
           f"under a {I3_PERTURB:g} weight perturbation: {res['witness']:.3g})", flush=True)
+
+
+def profile_local_phase(cfg, lora, card, label, tag):
+    """Where a local phase's time goes: one of path I1's shape (8 clients x
+    2 x 256 tokens, 2 Adam steps) of ``cfg`` at full width from ``lora``,
+    after a warm-up call, under ``torch.profiler`` (device-busy share and
+    top kernels).  Returns the model it built."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+
+    model = init_params(cfg, seed=0, device=DEVICE)
+    toks = torch.randint(0, 512, (8, 2, 257), generator=torch.Generator().manual_seed(21))
+    big = {"tokens": toks[..., :-1].to(DEVICE), "labels": toks[..., 1:].to(DEVICE)}
+    phase = steps.make_local_step(cfg, local_lr=I_LR, local_steps=2, local_optimizer="adam",
+                                  remat=False)
+    phase(model, lora, big)
+    wall, busy, top = profiled(lambda: phase(model, lora, big))
+    share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
+    print(f"[{tag}] {card} | one {label} local phase (8 x 2 x 256 tokens, 2 Adam steps) under "
+          f"torch.profiler: host {wall:.4f} s, device {share} of it; top kernels by device ms "
+          f"(name, ms, calls): {top}", flush=True)
+    return model
 
 
 def i3_warm_sketch_round(out, card):
@@ -3175,24 +3337,10 @@ def i3_warm_sketch_round(out, card):
     from repro_torch.core import engine as engine_lib
     from repro_torch.core.aggregators import rpca_diag_summary
     from repro_torch.launch import steps
-    from repro_torch.models import init_params
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
     cfg = get_config("stablelm-1.6b")
-    model = init_params(cfg, seed=0, device=DEVICE)
-    # Where a local phase's time goes: one of I1's shape (8 clients x 2 x 256
-    # tokens, 2 Adam steps) from I1's global, after a warm-up call.
-    toks = torch.randint(0, 512, (8, 2, 257), generator=torch.Generator().manual_seed(21))
-    big = {"tokens": toks[..., :-1].to(DEVICE), "labels": toks[..., 1:].to(DEVICE)}
-    phase = steps.make_local_step(cfg, local_lr=I_LR, local_steps=2, local_optimizer="adam",
-                                  remat=False)
-    phase(model, out["lora"], big)
-    wall, busy, top = profiled(lambda: phase(model, out["lora"], big))
-    share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
-    print(f"[path I] {card} | one I1 local phase (8 x 2 x 256 tokens, 2 Adam steps) under "
-          f"torch.profiler: host {wall:.4f} s, device {share} of it; top kernels by device ms "
-          f"(name, ms, calls): {top}", flush=True)
-    del big
+    model = profile_local_phase(cfg, out["lora"], card, "I1", "path I")
     toks = torch.randint(0, 512, (8, 1, 65), generator=torch.Generator().manual_seed(23))
     batch = {"tokens": toks[..., :-1].to(DEVICE), "labels": toks[..., 1:].to(DEVICE)}
     step = steps.make_local_step(cfg, local_lr=I_LR, local_steps=1, local_optimizer="adam",
@@ -3252,6 +3400,277 @@ def main_path_i(counts, card: str) -> dict:
     phase["I3"] = got
     total = launched(start)
     print(f"[path I] {card} | launches {total} by phase {phase}", flush=True)
+    return total
+
+
+# --- Path K: federated LoRA training of RecurrentGemma and Granite-MoE ---------
+# K3's depths: RecurrentGemma one pattern unit plus its two recurrent tail
+# layers (as J4), Granite-MoE two layers.
+K_ARCHS = (("recurrentgemma-2b", "K1", 5), ("granite-moe-1b-a400m", "K2", 2))
+
+
+def main_path_k(counts, card: str) -> dict:
+    """K1 ``launch.train.main`` on RecurrentGemma-2B and K2 on
+    Granite-3.0-1B-A400M at full width and depth (bf16, LoRA r 8), with path
+    I1's flags (8 clients x 2 x 256 tokens, 2 Adam steps, 3 rounds of FedRPCA
+    with subspace SVT and carry, the fused tail, the sketch uplink): round
+    times, peak memory, eval loss before and after (it must fall); K3 one
+    local phase of each, card vs CPU from the card's LoRA in float32 (SGD
+    held at ``STATE_FRO_RTOL``, the MoE's routing compared call by call).
+    Returns the launch counts."""
+    import torch
+
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path K")
+    from repro_torch.configs import get_config
+
+    for arch, label, depth in K_ARCHS:
+        t0 = time.perf_counter()
+        out = run_train_cli(arch, [], counts, launched, expect, card, label, tag="path K")
+        profile_local_phase(get_config(arch), out["lora"], card, label, "path K")
+        torch.cuda.empty_cache()
+        before = counts()
+        i3_local_phase(arch, depth, out["lora"], card, f"K3 {arch}", tag="path K")
+        phase[f"K3 {arch}"] = launched(before)
+        del out
+        torch.cuda.empty_cache()
+        print(f"[path K] {card} | {label} {arch} with its K3 check: wall "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    total = launched(start)
+    print(f"[path K] {card} | launches {total} by phase {phase}", flush=True)
+    return total
+
+
+# --- Paths L and M: serving the dense and MoE configs of slice 11 --------------
+# (arch, label, depth or None for the full depth).  Depths of L2 and L3 are
+# cut so that each fits about 33 GB of bf16 weights beside its activations;
+# M2's one layer holds 128 experts at d_ff 8192, 32 GB.
+L_CELLS = (("gemma-7b", "L1", None), ("qwen1.5-32b", "L2", 32), ("deepseek-67b", "L3", 24))
+M_CELLS = (("granite-moe-1b-a400m", "M1", None), ("llama4-maverick-400b-a17b", "M2", 1))
+# Card vs CPU in float32 (``card_vs_cpu``): depth 2 for L, 4 for M1, prompts
+# of 96 and 40 tokens, 8 decode steps; M2 takes the expert loop below.
+LM_CPU_PROMPTS, LM_CPU_STEPS = (96, 40), 8
+# M2's MoE layer against a plain float32 loop over the experts on the same
+# routing: the bf16 path rounds x W_gate, x W_up, their SiLU product, h W_down
+# and each weighted term to bf16 (2^-9 relative each); the rounding of h
+# enters a d_ff-long sum of random-signed terms, so the output moves by about
+# 2^-8 of its scale.  Held at 2^-6 of the largest output, 4x that.
+M_LOOP_RTOL = 2.0**-6
+
+
+def serve_cell(arch, label, depth, counts, launched, expect, card, path):
+    """Serve ``arch`` at full width (``depth`` layers, or all) in bf16 to 8
+    requests of 4 tenants through the pool (prompt 512, 32 greedy tokens, as
+    path C); prints prefill s, decode tokens/s and peak memory, and returns
+    (base, pool, rec, cfg)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import param_count
+    from repro_torch.serve import AdapterPool
+
+    cfg = get_config(arch)
+    if depth:
+        cfg = cfg.replace(n_layers=depth)
+    n_l = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = init_params(cfg, seed=0, device=DEVICE)
+    pool = AdapterPool(tenant_adapter(cfg, 99), C_SLOTS)
+    for i in range(C_TENANTS):
+        pool.publish(f"tenant-{i}", tenant_adapter(cfg, 100 + i))
+    torch.cuda.synchronize()
+    n_par = param_count(base)
+    print(f"[{path}] {card} | {label} {arch}: {n_par / 1e9:.3f} B parameters ({cfg.dtype}, "
+          f"{2 * n_par / 1e9:.1f} GB), {n_l} of {get_config(arch).n_layers} layers, pool "
+          f"{len(pool)}/{pool.n_slots} slots, init {time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(C_BATCH, C_PROMPT))
+    ids = [f"tenant-{i % C_TENANTS}" for i in range(C_BATCH)]
+    before = counts()
+    rec = serve_once(base, pool, cfg, ids, prompts, C_GEN)
+    rec["prompts"] = prompts
+    expect(label, launched(before), gathered_lora_matmul=2 * n_l * C_GEN,
+           gathered_lora_matmul_tc=2 * n_l * C_GEN, local_attention=n_l,
+           local_attention_tc=n_l)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(bool(torch.isfinite(x).all()) for x in [rec["prefill_logits"]]
+               + rec["decode_logits"]):
+        raise AssertionError(f"{path} {label}: non-finite logits")
+    t = rec["t"]
+    tok_s = C_BATCH * (C_GEN - 1) / t["decode_s"]
+    print(f"[{path}] {card} | {label} {arch} pool: prefill {C_BATCH}x{C_PROMPT} tokens "
+          f"{t['prefill_s']:.4f} s, decode {C_GEN - 1} steps {t['decode_s']:.4f} s = "
+          f"{tok_s:.1f} tokens/s, peak memory {peak_gb:.2f} GB", flush=True)
+    return base, pool, rec, cfg
+
+
+def main_path_l(counts, card: str) -> dict:
+    """L1 Gemma-7B at full width and depth, L2 Qwen1.5-32B at 32 of 64
+    layers, L3 DeepSeek-67B at 24 of 95 (with its untied head), each served
+    as ``serve_cell`` and then card vs CPU at depth 2 in float32.  Returns
+    the launch counts."""
+    import numpy as np
+    import torch
+
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path L")
+    for arch, label, depth in L_CELLS:
+        t0 = time.perf_counter()
+        base, pool, rec, cfg = serve_cell(arch, label, depth, counts, launched, expect, card,
+                                          "path L")
+        del base, pool, rec
+        torch.cuda.empty_cache()
+        card_vs_cpu(cfg, np.random.default_rng(1), f"path L {label}", card, counts, launched,
+                    expect, dict(gathered_lora_matmul=4, local_attention=2),
+                    prompt_lens=LM_CPU_PROMPTS, steps=LM_CPU_STEPS)
+        torch.cuda.empty_cache()
+        print(f"[path L] {card} | {label} {arch}: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    total = launched(start)
+    print(f"[path L] {card} | launches {total} by phase {phase}", flush=True)
+    return total
+
+
+def moe_expert_loop(params, x, top_k, capacity_factor):
+    """The MoE layer as a plain float32 loop over the experts: each expert's
+    kept entries (its first ``capacity`` in token-major order) through its
+    own SwiGLU, weighted and added to their tokens; the routing from
+    ``moe.route``.  Returns (output, number of dropped entries)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+
+    b, s, d = x.shape
+    xt = x.reshape(-1, d).float()
+    _, top_e, top_p = moe.route(params, x.reshape(1, -1, d), top_k)
+    flat_e, flat_p = top_e.reshape(-1), top_p.reshape(-1)
+    cap = moe._capacity(xt.shape[0], top_k, params["gate"].shape[0], capacity_factor)
+    out = torch.zeros_like(xt)
+    dropped = 0
+    for e in range(params["gate"].shape[0]):
+        entries = torch.nonzero(flat_e == e).flatten()
+        dropped += max(0, entries.numel() - cap)
+        entries = entries[:cap]
+        tok = entries // top_k
+        h = xt[tok]
+        y = (F.silu(h @ params["gate"][e].float()) * (h @ params["up"][e].float())
+             ) @ params["down"][e].float()
+        out[tok] += y * flat_p[entries, None]  # an expert's tokens are distinct
+    return out.reshape(b, s, d), dropped
+
+
+MOE_SPAN = "moe.apply_moe"
+
+
+@contextlib.contextmanager
+def moe_spans():
+    """While active, every ``moe.apply_moe`` call runs inside a
+    ``record_function(MOE_SPAN)`` range (``Block.forward`` calls it through
+    the module)."""
+    from torch.profiler import record_function
+    from repro_torch.models import moe
+
+    inner = moe.apply_moe
+
+    def spanned(*args, **kw):
+        with record_function(MOE_SPAN):
+            return inner(*args, **kw)
+
+    moe.apply_moe = spanned
+    try:
+        yield
+    finally:
+        moe.apply_moe = inner
+
+
+def moe_share(spans, wall, busy) -> str:
+    """The MoE layers' share of a profiled window (see ``span_times``)."""
+    m = spans[MOE_SPAN]
+    if m["device_s"] is None or busy is None:
+        dev = "device not measured (no kernel linked to the ranges)"
+    else:
+        dev = (f"device {m['device_s']:.4f} s of {busy:.4f} s busy = "
+               f"{m['device_s'] / busy:.3f}, of it GEMM kernels {m['gemm_device_s']:.4f} s "
+               f"and routing, dispatch and combine {m['device_s'] - m['gemm_device_s']:.4f} s")
+    return (f"MoE layers ({m['calls']} apply_moe calls): host {m['host_s']:.4f} s of "
+            f"{wall:.4f} s = {m['host_s'] / wall:.3f}; {dev}")
+
+
+def main_path_m(counts, card: str) -> dict:
+    """M1 Granite-3.0-1B-A400M at full width and depth served as
+    ``serve_cell``, a profiled decode window and warm prefill (the MoE
+    layers' share of each, ``moe_share``), and
+    card vs CPU at depth 4 in float32 with the routing compared first; M2
+    Llama-4-Maverick at full width and depth 1 served the same, and its MoE
+    layer on the card against ``moe_expert_loop`` at ``M_LOOP_RTOL``.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, moe
+
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path M")
+    for arch, label, depth in M_CELLS:
+        t0 = time.perf_counter()
+        base, pool, rec, cfg = serve_cell(arch, label, depth, counts, launched, expect, card,
+                                          "path M")
+        if label == "M1":
+            # A decode window and a warm prefill (the pool run's was the
+            # model's first) with the MoE layers' ranges marked.
+            prefill = serve.make_serving_fns(cfg)[0]
+            toks = torch.as_tensor(rec["prompts"], device=DEVICE)
+            n_l, before = cfg.n_layers, counts()
+            dec, pre = {MOE_SPAN: None}, {MOE_SPAN: None}
+            with moe_spans():
+                windows = (
+                    (f"{C_PROFILE_STEPS} decode steps", dec,
+                     profile_decode(base, pool, cfg, rec, C_PROFILE_STEPS, dec)),
+                    ("one warm prefill", pre, profiled(
+                        lambda: prefill(base, pool.pooled, rec["slots"], {"tokens": toks}), pre)))
+            expect("M1 profile", launched(before),
+                   gathered_lora_matmul=2 * n_l * (C_PROFILE_STEPS + 1),
+                   gathered_lora_matmul_tc=2 * n_l * (C_PROFILE_STEPS + 1),
+                   local_attention=n_l, local_attention_tc=n_l)
+            for what, spans, (wall, busy, top) in windows:
+                share = ("not measured" if busy is None
+                         else f"{busy:.4f} s busy = {busy / wall:.3f}")
+                print(f"[path M] {card} | M1 {what} under torch.profiler: host {wall:.4f} s, "
+                      f"device {share} of it; {moe_share(spans, wall, busy)}; top kernels by "
+                      f"device ms (name, ms, calls): {top}", flush=True)
+            del base, pool, rec
+            torch.cuda.empty_cache()
+            card_vs_cpu(cfg, np.random.default_rng(2), "path M M1", card, counts, launched,
+                        expect, dict(gathered_lora_matmul=8, local_attention=4), n_layers=4,
+                        prompt_lens=LM_CPU_PROMPTS, steps=LM_CPU_STEPS)
+        else:
+            blk = base.layers[0]
+            x = layers.apply_norm(blk.norm2, torch.randn(
+                (C_BATCH, C_PROMPT, cfg.d_model), generator=torch.Generator(
+                    device=DEVICE).manual_seed(3), device=DEVICE).to(torch.bfloat16),
+                cfg.norm_eps)
+            with torch.no_grad():
+                got, aux = moe.apply_moe(blk.moe, x, top_k=cfg.top_k,
+                                         capacity_factor=cfg.capacity_factor)
+                want, dropped = moe_expert_loop(blk.moe, x, cfg.top_k, cfg.capacity_factor)
+            err, scale = max_abs(got.float(), want), float(want.abs().max())
+            if not bool(torch.isfinite(got).all()) or err > M_LOOP_RTOL * scale:
+                raise AssertionError(f"path M M2: the MoE layer against the expert loop {err} > "
+                                     f"{M_LOOP_RTOL} * {scale}")
+            print(f"[path M] {card} | M2 MoE layer ({C_BATCH}x{C_PROMPT} tokens, "
+                  f"{cfg.n_experts} experts, top-{cfg.top_k}, capacity "
+                  f"{moe._capacity(C_BATCH * C_PROMPT, cfg.top_k, cfg.n_experts, cfg.capacity_factor)}"
+                  f", {dropped} entries dropped) bf16 on the card vs a float32 loop over the "
+                  f"experts: max|err| {err:.4g} (bound {M_LOOP_RTOL:g} x max|out| {scale:.4g}); "
+                  f"aux {float(aux):.4g}", flush=True)
+            del base, pool, rec, x, got, want
+        torch.cuda.empty_cache()
+        print(f"[path M] {card} | {label} {arch}: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    total = launched(start)
+    print(f"[path M] {card} | launches {total} by phase {phase}", flush=True)
     return total
 
 
@@ -3345,6 +3764,9 @@ def main() -> int:
     _, paths["H"] = run_path("H", main_path_h, counts, smi, finals_a)
     _, paths["I"] = run_path("I", main_path_i, counts, smi)
     _, paths["J"] = run_path("J", main_path_j, counts, smi)
+    _, paths["K"] = run_path("K", main_path_k, counts, smi)
+    _, paths["L"] = run_path("L", main_path_l, counts, smi)
+    _, paths["M"] = run_path("M", main_path_m, counts, smi)
     launches = {k: sum(p[k] for p in paths.values()) for k in wrappers}
     for name, n in launches.items():
         if n == 0:
@@ -3374,10 +3796,17 @@ def main() -> int:
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             **{k: r[k] for k in timed}, "launches_path_j": paths["J"][name],
+            **{f"launches_path_{p.lower()}": paths[p][name] for p in "KLM"},
         })
         if name == "local_attention":
-            # The same kernel at path J's prefill shape (D = 256, window 2048).
+            # The same kernel at path J's prefill shape (D = 256, window 2048)
+            # and at path L1's (D = 256, full causal).
             kernels[-1]["rg_prefill"] = {k: rec["local_attention_rg"][k] for k in timed}
+            kernels[-1]["gemma_prefill"] = {k: rec["local_attention_gemma"][k] for k in timed}
+        if name == "gathered_lora_matmul":
+            # At the q / v shapes of paths L and M, prefill and decode (LORA_LM).
+            for key in LORA_SLICE11:
+                kernels[-1][key] = {k: rec[f"{name}_{key}"][k] for k in timed}
     print(f"[train fn] {smi} | forward (kernel) and backward (plain) per Function, with "
           f"path I's launches: " + json.dumps(
               {k: {**v, "launches_path_i": paths["I"][v["kernel"]]}

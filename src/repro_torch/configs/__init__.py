@@ -1,10 +1,13 @@
 """Architecture registry of the port: the configs the slices so far run.
 
-``get_config(arch_id)`` returns the config of ``stablelm-1.6b``,
-``mamba2-130m`` or ``recurrentgemma-2b`` (served by
-``repro_torch.launch.serve``) or ``paper-vit-b32`` (the LoRA geometry of
-the aggregation paths).  The reference's other architecture ids are known
-but not ported: they raise ``NotImplementedError``.
+``get_config(arch_id)`` returns the config of a served and trained LM
+(``repro_torch.launch.serve``, ``repro_torch.launch.train``): the dense
+``stablelm-1.6b``, ``gemma-7b``, ``qwen1.5-32b`` and ``deepseek-67b``, the
+MoE ``granite-moe-1b-a400m`` and ``llama4-maverick-400b-a17b``, the SSM
+``mamba2-130m`` and the hybrid ``recurrentgemma-2b``; or of
+``paper-vit-b32`` (the LoRA geometry of the aggregation paths).  The
+reference's other architecture ids are known but not ported: they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,18 +19,18 @@ _ARCH_MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "mamba2-130m": "mamba2_130m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "gemma-7b": "gemma_7b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "deepseek-67b": "deepseek_67b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "paper-vit-b32": "paper_vit_b32",
 }
 
 #: Architecture ids of the reference that the port does not run yet.
 NOT_PORTED = (
-    "llama4-maverick-400b-a17b",
     "qwen2-vl-2b",
-    "qwen1.5-32b",
-    "deepseek-67b",
     "whisper-medium",
-    "granite-moe-1b-a400m",
-    "gemma-7b",
 )
 
 

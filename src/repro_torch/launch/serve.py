@@ -8,9 +8,11 @@ adapted projection is one launch of the gathered LoRA kernel reading the
 pool in place.  ``--merged`` serves the mean of all adapters instead
 (``lora_matmul`` with one 2-D adapter).  ``--arch`` is ``stablelm-1.6b``
 (attention blocks), ``mamba2-130m`` (SSD blocks, prefill through the
-``ssd_scan`` kernel) or ``recurrentgemma-2b`` (RG-LRU and sliding-window
+``ssd_scan`` kernel), ``recurrentgemma-2b`` (RG-LRU and sliding-window
 attention blocks with a ring cache, two tail layers, GeGLU, MQA at head
-width 256).
+width 256), the dense ``gemma-7b``, ``qwen1.5-32b`` and ``deepseek-67b``
+(untied head), or the MoE ``granite-moe-1b-a400m`` and
+``llama4-maverick-400b-a17b`` (the whole batch routed as one group).
 
 On a card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
@@ -144,7 +146,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="stablelm-1.6b",
-                    help="stablelm-1.6b (default), mamba2-130m or recurrentgemma-2b")
+                    help="stablelm-1.6b (default) or any id of repro_torch.configs")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")

@@ -27,7 +27,11 @@ PyTorch backward passes); ``--device cpu`` runs the plain versions.
 On the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --reduced \\
       --device cpu --rounds 2 --clients 4
-On a card, at full width:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b --reduced \\
+      --device cpu --rounds 2 --clients 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m --reduced \\
+      --device cpu --rounds 2 --clients 4
+On a card, at full width (any ``--arch`` of ``repro_torch.configs``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
       --clients 8 --per-client-batch 2 --seq 256 --rounds 3 --svt-mode subspace \\
       --carry-mode subspace --rpca-fused-tail --uplink sketch

@@ -1,14 +1,15 @@
-"""Decoder block: pre-norm mixer and optional FFN with residuals (port of
-``repro/models/blocks.py``).  This slice runs the ``"attn"`` mixer (full
-causal attention), ``"local_attn"`` (sliding-window attention, a ring cache
-at decode), ``"ssd"`` (Mamba-2) and ``"rglru"`` (Griffin's RG-LRU), each
-with a SwiGLU or GeGLU FFN when ``d_ff > 0`` and none when ``d_ff == 0``;
-MoE, cross-attention and the plain GELU FFN raise."""
+"""Decoder block: pre-norm mixer and optional FFN or MoE with residuals
+(port of ``repro/models/blocks.py``).  This slice runs the ``"attn"`` mixer
+(full causal attention), ``"local_attn"`` (sliding-window attention, a ring
+cache at decode), ``"ssd"`` (Mamba-2) and ``"rglru"`` (Griffin's RG-LRU),
+each with a SwiGLU or GeGLU FFN when ``d_ff > 0`` (a mixture of SwiGLU
+experts when ``n_experts > 0``) and none when ``d_ff == 0``;
+cross-attention and the plain GELU FFN raise."""
 from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models import attention, ffn, layers, rglru, ssd
+from repro_torch.models import attention, ffn, layers, moe, rglru, ssd
 
 ATTN_KINDS = ("attn", "local_attn")
 PORTED_MIXERS = ATTN_KINDS + ("ssd", "rglru")
@@ -19,8 +20,6 @@ def check_ported(cfg) -> None:
     missing = []
     if any(k not in PORTED_MIXERS for k in cfg.layer_pattern):
         missing.append(f"mixers {cfg.layer_pattern}")
-    if cfg.n_experts:
-        missing.append("MoE")
     if cfg.encoder_decoder:
         missing.append("cross-attention")
     if cfg.frontend:
@@ -29,9 +28,7 @@ def check_ported(cfg) -> None:
         missing.append("M-RoPE")
     if cfg.kv_quant:
         missing.append("the int8 KV cache")
-    if not cfg.tie_embeddings:
-        missing.append("an untied output head")
-    if cfg.d_ff and cfg.ffn_kind not in ffn.GATED:
+    if cfg.d_ff and not cfg.n_experts and cfg.ffn_kind not in ffn.GATED:
         missing.append(f"ffn {cfg.ffn_kind!r}")
     if missing:
         raise NotImplementedError(
@@ -55,7 +52,8 @@ def lora_dims(cfg, kind: str) -> dict:
 class Block(nn.Module):
     """One layer: ``norm1``, ``mixer`` (attention q, k, v, o, the SSD mixer
     or the RG-LRU block) and, when ``d_ff > 0``, ``norm2`` and ``ffn``
-    (gate, up, down), keyed as the reference's block pytree."""
+    (gate, up, down) or, when ``n_experts > 0``, ``moe`` (router and the
+    stacked experts), keyed as the reference's block pytree."""
 
     def __init__(self, cfg, kind: str, gen, *, dtype, device):
         super().__init__()
@@ -71,13 +69,20 @@ class Block(nn.Module):
             raise ValueError(kind)
         if cfg.d_ff > 0:
             self.norm2 = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
-            self.ffn = ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dtype=dtype,
-                                    device=device)
+            if cfg.n_experts > 0:
+                self.moe = moe.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, dtype=dtype,
+                                        device=device)
+            else:
+                self.ffn = ffn.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dtype=dtype,
+                                        device=device)
 
-    def forward(self, x, lora, cfg, *, positions, mode: str, cache=None, cache_index=None):
-        """Returns (x, new_cache); ``new_cache`` is ``{"self": KVCache}``,
+    def forward(self, x, lora, cfg, *, positions, mode: str, cache=None, cache_index=None,
+                groups: int = 1):
+        """Returns (x, new_cache, aux); ``new_cache`` is ``{"self": KVCache}``,
         ``{"self": SSMState}`` or ``{"self": LRUState}`` in prefill and
-        decode, None otherwise."""
+        decode, None otherwise; ``aux`` (groups,) is the MoE's load-balance
+        loss of each of ``groups`` contiguous row groups (``moe.apply_moe``),
+        None without experts."""
         lora = lora or {}
         h = layers.apply_norm(self.norm1, x, cfg.norm_eps)
         self_cache = None if cache is None else cache["self"]
@@ -99,7 +104,13 @@ class Block(nn.Module):
                 lora_scale=cfg.lora.scale, return_state=prefill,
             )
         x = x + out
+        aux = None
         if cfg.d_ff > 0:
             h2 = layers.apply_norm(self.norm2, x, cfg.norm_eps)
-            x = x + ffn.apply_ffn(self.ffn, h2, cfg.ffn_kind)
-        return x, ({"self": new_self} if mode in ("prefill", "decode") else None)
+            if cfg.n_experts > 0:
+                out, aux = moe.apply_moe(self.moe, h2, top_k=cfg.top_k,
+                                         capacity_factor=cfg.capacity_factor, groups=groups)
+                x = x + out
+            else:
+                x = x + ffn.apply_ffn(self.ffn, h2, cfg.ffn_kind)
+        return x, ({"self": new_self} if mode in ("prefill", "decode") else None), aux

@@ -42,9 +42,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 class DecoderLM(nn.Module):
     """Token embedding, ``cfg.n_layers`` blocks (layer ``i`` of mixer
-    ``cfg.layer_pattern[i % unit]``), final norm, and the
-    embedding as the (tied) output head.  ``gen=None`` allocates the weights
-    unfilled, for the converter to write."""
+    ``cfg.layer_pattern[i % unit]``), final norm, and the output head: the
+    embedding (tied) or, when ``not cfg.tie_embeddings``, ``lm_head``
+    (d_model, vocab), N(0, 0.02) as the reference draws it.  ``gen=None``
+    allocates the weights unfilled, for the converter to write."""
 
     def __init__(self, cfg, gen: Optional[torch.Generator], *, device):
         super().__init__()
@@ -54,6 +55,11 @@ class DecoderLM(nn.Module):
         if gen is not None:
             embed.normal_(0.0, 0.02, generator=gen)
         self.embed = layers._param(embed)
+        if not cfg.tie_embeddings:
+            head = torch.empty((cfg.d_model, cfg.vocab_size), dtype=dtype, device=device)
+            if gen is not None:
+                head.normal_(0.0, 0.02, generator=gen)
+            self.lm_head = layers._param(head)
         self.final_norm = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
         unit = len(cfg.layer_pattern)
         self.layers = nn.ModuleList(
@@ -147,8 +153,15 @@ def embed_tokens(model: DecoderLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
 
 def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: str = "prefill",
             caches: Optional[Tree] = None, cache_index: Optional[int] = None,
-            remat: bool = False):
+            remat: bool = False, groups: int = 1):
     """Returns (logits, new_caches, moe_aux_loss).
+
+    ``moe_aux_loss`` is the MoE load-balance loss summed over the layers,
+    tail layers included (0 without experts): a scalar, or with ``groups``
+    > 1 a (groups,) vector, one entry for each of ``groups`` equal,
+    contiguous blocks of the batch rows, each routed on its own
+    (``moe.apply_moe``; a local training phase passes one group a client,
+    as the reference routes each client's own batch).
 
     ``train`` returns float32 logits at every position (B, S, V) and no
     caches; with ``remat`` each block's activations are recomputed in the
@@ -171,22 +184,25 @@ def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: s
     else:
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     new = []
+    aux = torch.zeros((groups,), dtype=torch.float32, device=x.device)
     for blk, lo, c in zip(model.layers, _layer_trees(lora, cfg), _layer_caches(caches, cfg)):
         if remat and mode == "train":
-            x = checkpoint(lambda h, lo_, blk_=blk: blk_(h, lo_, cfg, positions=positions,
-                                                         mode=mode)[0],
-                           x, lo, use_reentrant=False)
+            x, a = checkpoint(lambda h, lo_, blk_=blk: blk_(h, lo_, cfg, positions=positions,
+                                                            mode=mode, groups=groups)[::2],
+                              x, lo, use_reentrant=False)
             nc = None
         else:
-            x, nc = blk(x, lo, cfg, positions=positions, mode=mode, cache=c,
-                        cache_index=cache_index)
+            x, nc, a = blk(x, lo, cfg, positions=positions, mode=mode, cache=c,
+                           cache_index=cache_index, groups=groups)
+        if a is not None:
+            aux = aux + a
         new.append(nc)
     x = layers.apply_norm(model.final_norm, x, cfg.norm_eps)
     if mode == "prefill":
         # Serving needs next-token logits only.
         x = x[:, -1:]
-    logits = layers.softcap(torch.matmul(x, model.embed.T.to(x.dtype)).float(),
-                            cfg.logit_softcap)
+    head = model.lm_head if hasattr(model, "lm_head") else model.embed.T
+    logits = layers.softcap(torch.matmul(x, head.to(x.dtype)).float(), cfg.logit_softcap)
     if mode == "prefill":
         unit = len(cfg.layer_pattern)
         n_grouped = cfg.n_pattern_groups * unit
@@ -194,7 +210,7 @@ def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: s
             {"self": _stack_states([c["self"] for c in new[slot:n_grouped:unit]])}
             for slot in range(unit)
         ), "tail": tuple(new[n_grouped:])}
-    return logits, caches, torch.zeros((), device=x.device)
+    return logits, caches, (aux if groups > 1 else aux.reshape(()))
 
 
 def _token_nll(logits: torch.Tensor, labels: torch.Tensor):
@@ -210,7 +226,9 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor):
 def loss_fn(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, remat: bool = False):
     """Next-token cross-entropy over float32 logits; labels < 0 are masked.
     Returns ``(total, {"ce", "aux"})`` with total = ce +
-    ``cfg.router_aux_weight`` * aux (aux is 0: no ported model routes)."""
+    ``cfg.router_aux_weight`` * aux, aux the MoE load-balance loss summed
+    over the layers with the whole batch routed as one group (0 without
+    experts)."""
     logits, _, aux = forward(model, lora, batch, cfg, mode="train", remat=remat)
     nll, mask = _token_nll(logits, batch["labels"])
     loss = torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
@@ -221,10 +239,14 @@ def client_losses(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, n_cl
                   remat: bool = False) -> torch.Tensor:
     """``loss_fn``'s total for each of ``n_clients`` equal, contiguous blocks
     of the batch rows, as a (n_clients,) vector: client c's mean over its
-    own counted tokens.  With client-stacked adapters (one slot per
-    client's rows), the gradient of the vector's sum gives each client's
-    adapter exactly the gradient of its own loss."""
-    logits, _, aux = forward(model, lora, batch, cfg, mode="train", remat=remat)
+    own counted tokens, plus ``cfg.router_aux_weight`` times its own MoE
+    aux: each client's rows are routed as a group of their own, with their
+    own capacity, as ``loss_fn`` on that client's rows alone routes them.
+    With client-stacked adapters (one slot per client's rows), the gradient
+    of the vector's sum gives each client's adapter exactly the gradient of
+    its own loss."""
+    logits, _, aux = forward(model, lora, batch, cfg, mode="train", remat=remat,
+                             groups=n_clients)
     nll, mask = _token_nll(logits, batch["labels"])
     per = nll.reshape(n_clients, -1).sum(dim=1)
     count = mask.reshape(n_clients, -1).sum(dim=1)

@@ -16,6 +16,8 @@ gating, and an output projection.  LoRA attaches to ``proj_x`` ("q") and
 * Prefill and training evaluate the linear recurrence with ``rglru_scan``,
   log-depth doubling passes in plain PyTorch: the reference evaluates it
   with ``lax.associative_scan``, an XLA primitive and not a Pallas kernel.
+  Training differentiates it through ``_Scan``, whose backward is the
+  reverse scan in the same passes.
 * Decode advances one token and writes the new state and conv window into
   the ``LRUState`` tensors in place, as the SSD mixer writes its state.
 """
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import backend
 from repro_torch.models import layers
 from repro_torch.models.kvcache import LRUState
 
@@ -92,20 +95,14 @@ def _gates(params, y: torch.Tensor):
     return a, beta * (i * y.float())
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t h_{t-1} + b_t over the sequence axis of (B, S, W) inputs,
-    from a zero state, in ceil(log2 S) doubling passes: pass k
-    combines each position with the one 2^k before it, (a, b) o (a', b') =
-    (a a', b a' + b'), the reference's associative combine.  The sums come
-    in another order than a sequential loop's or ``lax.associative_scan``'s,
-    so they agree to rounding.
-
-    The passes run sequence-major, (S, B, W), so each shifted operand is one
-    contiguous block, and write their results into fresh buffers with
-    ``out=`` (no concatenation); the (B, S, W) result is a transposed view."""
-    s = a.shape[1]
-    a = a.transpose(0, 1).contiguous()
-    b = b.transpose(0, 1).contiguous()
+def _doubling(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over the leading axis of sequence-major
+    (S, ...) inputs, from a zero state, in ceil(log2 S) doubling passes:
+    pass k combines each position with the one 2^k before it, (a, b) o
+    (a', b') = (a a', b a' + b'), the reference's associative combine.  Each
+    shifted operand is one contiguous block, and each pass writes fresh
+    buffers with ``out=`` (no concatenation).  Returns h, sequence-major."""
+    s = a.shape[0]
     shift = 1
     while shift < s:
         na, nb = torch.empty_like(a), torch.empty_like(b)
@@ -115,7 +112,50 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.mul(a[shift:], a[:-shift], out=na[shift:])
         a, b = na, nb
         shift *= 2
-    return b.transpose(0, 1)
+    return b
+
+
+class _Scan(torch.autograd.Function):
+    """The doubling scan with the reverse scan as its backward:
+    g_t = dL/dh_t + a_{t+1} g_{t+1} (a_S = 0 past the end), dL/db_t = g_t,
+    dL/da_t = g_t h_{t-1} (h_{-1} = 0).  The reverse scan runs as doubling
+    passes too, on the flipped sequence; every step is elementwise, so the
+    gradients are deterministic.  It keeps two sequence-major tensors, a and
+    h, where out-of-place passes would keep two a pass."""
+
+    @staticmethod
+    def forward(ctx, a_sm, b_sm):
+        h = _doubling(a_sm, b_sm)
+        ctx.save_for_backward(a_sm, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, gh):
+        a, h = ctx.saved_tensors
+        a_next = torch.zeros_like(a)
+        a_next[:-1] = a[1:]
+        g = _doubling(a_next.flip(0), gh.flip(0)).flip(0)
+        da = torch.zeros_like(a)
+        torch.mul(g[1:], h[:-1], out=da[1:])
+        return da, g
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over the sequence axis of (B, S, W) inputs,
+    from a zero state, by ``_doubling``'s passes.  The sums come in another
+    order than a sequential loop's or ``lax.associative_scan``'s, so they
+    agree to rounding.
+
+    The passes run sequence-major, (S, B, W); the (B, S, W) result is a
+    transposed view.  When autograd records the call
+    (``backend.needs_grad``) the same passes run inside ``_Scan``, whose
+    backward is the reverse scan; the forward's bits are the no-grad
+    path's."""
+    a_sm = a.transpose(0, 1).contiguous()
+    b_sm = b.transpose(0, 1).contiguous()
+    if backend.needs_grad(a, b):
+        return _Scan.apply(a_sm, b_sm).transpose(0, 1)
+    return _doubling(a_sm, b_sm).transpose(0, 1)
 
 
 def _causal_conv(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

@@ -376,11 +376,17 @@ def lora_case(cuda, m, k, n, r, dtype, n_slots=8, seed=0):
 
 
 # The serving path's shapes (StableLM q / v, Mamba-2's in_proj and out_proj,
-# each at prefill and decode) take the tensor route in bf16, K split at
-# decode; float32 and the ragged (129, 513, 130) take the scalar route.
+# and the q / v projections (K -> N) of Gemma-7B 3072 -> 4096, Qwen1.5-32B
+# and Llama-4-Maverick 5120 -> 5120 and 5120 -> 1024, DeepSeek-67B 8192 ->
+# 8192 and 8192 -> 1024, Granite-MoE 1024 -> 1024 and 1024 -> 512, each at
+# prefill and decode) take the tensor route in bf16, K split at decode;
+# float32 and the ragged (129, 513, 130) take the scalar route.
+LM_QV = [(3072, 4096), (5120, 5120), (5120, 1024), (8192, 8192), (8192, 1024), (1024, 1024),
+         (1024, 512)]
 LORA_SHAPES = [(4096, 2048, 2048, 8), (8, 2048, 2048, 8), (4096, 768, 3352, 8),
                (8, 768, 3352, 8), (4096, 1536, 768, 8), (8, 1536, 768, 8),
-               (129, 513, 130, 8), (5, 64, 40, 33)]
+               (129, 513, 130, 8), (5, 64, 40, 33),
+               *((m, k, n, 8) for k, n in LM_QV for m in (4096, 8))]
 
 
 def route_counts(fn):
@@ -632,17 +638,17 @@ def test_full_width_rglru_block_card_matches_cpu(cuda):
         torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
 
     before = lm.lora_matmul.launches
-    out, cache = blk(x[:, :300].to(cuda), lora, cfg, positions=pos.to(cuda), mode="prefill")
+    out, cache, _ = blk(x[:, :300].to(cuda), lora, cfg, positions=pos.to(cuda), mode="prefill")
     assert lm.lora_matmul.launches - before == 2
-    want, cpu_cache = cpu_blk(x[:, :300], cpu_lora, cfg, positions=pos, mode="prefill")
+    want, cpu_cache, _ = cpu_blk(x[:, :300], cpu_lora, cfg, positions=pos, mode="prefill")
     near(out, want)
     near(cache["self"].h, cpu_cache["self"].h)
     near(cache["self"].conv, cpu_cache["self"].conv)
     for i in range(300, 303):
-        out, new = blk(x[:, i:i + 1].to(cuda), lora, cfg, positions=pos[:, :1].to(cuda),
-                       mode="decode", cache=cache, cache_index=i)
-        want, cpu_cache = cpu_blk(x[:, i:i + 1], cpu_lora, cfg, positions=pos[:, :1],
-                                  mode="decode", cache=cpu_cache, cache_index=i)
+        out, new, _ = blk(x[:, i:i + 1].to(cuda), lora, cfg, positions=pos[:, :1].to(cuda),
+                          mode="decode", cache=cache, cache_index=i)
+        want, cpu_cache, _ = cpu_blk(x[:, i:i + 1], cpu_lora, cfg, positions=pos[:, :1],
+                                     mode="decode", cache=cpu_cache, cache_index=i)
         assert new["self"] is cache["self"]
         near(out, want)
         near(cache["self"].h, cpu_cache["self"].h)
@@ -786,3 +792,29 @@ def test_reduced_local_step_card_matches_cpu(cuda, arch):
     torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
         assert float((g.cpu() - w).norm()) <= 1e-4 * float(w.norm())
+
+
+@pytest.mark.gpu
+def test_apply_moe_gradient_is_deterministic_on_the_card(cuda):
+    """The MoE layer's backward on the card (an indexed set's, a gather's and
+    a sum over k) at Granite-MoE's width in bf16, with drops (capacity
+    factor 0.6) and two routing groups: two passes give x's and every
+    expert weight's gradient bit for bit."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.init_moe(gen, 1024, 512, 32, dtype=torch.bfloat16, device=cuda)
+    for name in ("gate", "up", "down"):
+        p[name].requires_grad_(True)
+    x = torch.randn((4, 256, 1024), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((4, 256, 1024), generator=gen, device=cuda).to(torch.bfloat16)
+
+    def grads():
+        live = x.clone().requires_grad_()
+        out, aux = moe.apply_moe(p, live, top_k=8, capacity_factor=0.6, groups=2)
+        return torch.autograd.grad((out.float() * g).sum() + aux.sum(),
+                                   [live, p["gate"], p["up"], p["down"]])
+
+    first, second = grads(), grads()
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)

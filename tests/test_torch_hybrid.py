@@ -38,6 +38,7 @@ from repro import configs as jconfigs
 from repro.core import AggregatorConfig as JAggConfig
 from repro.core import aggregate as jaggregate
 from repro.launch import serve as jserve
+from repro.launch import steps as jsteps
 from repro.models import attention as jattention
 from repro.models import decode_step as jdecode
 from repro.models import extend_caches as jextend
@@ -55,7 +56,7 @@ from repro_torch import models
 from repro_torch.configs import get_config
 from repro_torch.convert import from_jax_tree, model_from_jax
 from repro_torch.core import AggregatorConfig, aggregate
-from repro_torch.launch import serve
+from repro_torch.launch import serve, steps
 from repro_torch.models import attention, blocks, ffn, kvcache, layers, rglru
 from repro_torch.serve import AdapterPool
 from repro_torch.utils.pytree import tree_leaves, tree_map
@@ -65,6 +66,7 @@ SCAN_RTOL_PER_PASS = 1e-6
 BLOCK_RTOL = 1e-5
 LOGIT_RTOL = 5e-5
 LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-4
 
 
 def T(a):
@@ -125,12 +127,14 @@ def test_config_matches_reference_and_builds_at_full_width():
         int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(want))
 
 
-@pytest.mark.parametrize("change", [dict(n_experts=4), dict(encoder_decoder=True),
+@pytest.mark.parametrize("change", [dict(frontend="audio"), dict(encoder_decoder=True),
                                     dict(mrope=True), dict(kv_quant=True),
-                                    dict(ffn_kind="gelu"), dict(tie_embeddings=False)])
+                                    dict(ffn_kind="gelu"), dict(frontend="vision")])
 def test_check_ported_still_refuses(change):
-    """MoE, cross-attention, M-RoPE, the int8 cache, the GELU MLP and an
-    untied head stay refused on the RecurrentGemma config."""
+    """The audio and vision frontends, cross-attention, M-RoPE, the int8
+    cache and the GELU MLP stay refused on the RecurrentGemma config (MoE and
+    the untied head are ported: ``tests/test_torch_moe.py``,
+    ``tests/test_torch_dense.py``)."""
     with pytest.raises(NotImplementedError, match="item 8"):
         blocks.check_ported(get_config(ARCH).reduced().replace(**change))
 
@@ -152,6 +156,65 @@ def test_rglru_scan_matches_jax_and_a_loop(s):
     passes = max(1, math.ceil(math.log2(s)))
     close(got, want, SCAN_RTOL_PER_PASS * passes, "vs reference")
     close(got, np.stack(loop, axis=1), SCAN_RTOL_PER_PASS * passes, "vs loop")
+
+
+def old_doubling_scan(a, b):
+    """The serving scan as slice 10 shipped it, kept here verbatim so that
+    its bits stay pinned."""
+    s = a.shape[1]
+    a = a.transpose(0, 1).contiguous()
+    b = b.transpose(0, 1).contiguous()
+    shift = 1
+    while shift < s:
+        na, nb = torch.empty_like(a), torch.empty_like(b)
+        nb[:shift] = b[:shift]
+        torch.addcmul(b[shift:], a[shift:], b[:-shift], out=nb[shift:])
+        na[:shift] = a[:shift]
+        torch.mul(a[shift:], a[:-shift], out=na[shift:])
+        a, b = na, nb
+        shift *= 2
+    return b.transpose(0, 1)
+
+
+@pytest.mark.parametrize("s", [1, 2, 7, 33])
+def test_rglru_scan_gradients_are_the_reverse_scan(s):
+    """The scan's Function in float64: ``gradcheck`` against finite
+    differences, and its gradients against autograd through a sequential
+    loop (1e-12 of the largest: the same products summed in another
+    order)."""
+    gen = torch.Generator().manual_seed(s)
+    a = (0.4 + 0.55 * torch.rand((2, s, 5), generator=gen, dtype=torch.float64))
+    b = torch.randn((2, s, 5), generator=gen, dtype=torch.float64)
+    a.requires_grad_()
+    b.requires_grad_()
+    assert torch.autograd.gradcheck(rglru.rglru_scan, (a, b))
+
+    def loop(a_, b_):
+        h, out = torch.zeros_like(a_[:, 0]), []
+        for t in range(s):
+            h = a_[:, t] * h + b_[:, t]
+            out.append(h)
+        return torch.stack(out, dim=1)
+
+    g = torch.randn((2, s, 5), generator=gen, dtype=torch.float64)
+    got = torch.autograd.grad(rglru.rglru_scan(a, b), (a, b), g)
+    want = torch.autograd.grad(loop(a, b), (a, b), g)
+    for x, y in zip(got, want):
+        assert float((x - y).abs().max()) <= 1e-12 * float(y.abs().max())
+
+
+@pytest.mark.parametrize("s", [1, 100, 300])
+def test_rglru_scan_keeps_the_serving_bits(s):
+    """No grad: the doubling passes' bits, as slice 10 shipped them; with
+    grad: the Function's forward gives the same bits."""
+    rng = np.random.default_rng(s + 7)
+    a = T(rng.uniform(0.8, 0.999, size=(3, s, 16)).astype(np.float32))
+    b = T(rng.normal(size=(3, s, 16)).astype(np.float32))
+    want = old_doubling_scan(a, b)
+    with torch.no_grad():
+        assert torch.equal(rglru.rglru_scan(a, b), want)
+    live = rglru.rglru_scan(a.clone().requires_grad_(), b)
+    assert live.requires_grad and torch.equal(live.detach(), want)
 
 
 @pytest.fixture(scope="module")
@@ -360,6 +423,54 @@ def test_train_logits_and_loss_match_jax(pair):
     jtotal, _ = jloss(pair["jp"], pair["jl"], jb, jcfg, remat=False)
     total, _ = models.loss_fn(pair["model"], pair["tl"], tb, cfg)
     assert abs(float(total) - float(jtotal)) <= LOSS_RTOL * abs(float(jtotal))
+
+
+def test_lora_grads_with_tail_leaves_match_jax_and_remat():
+    """Training through the hybrid family's tail layers: the LoRA gradients
+    of ``loss_fn`` (group and tail leaves) against ``jax.value_and_grad``
+    within ``GRAD_RTOL`` of each leaf's largest entry (fp32 sums through 5
+    layers and the scan's passes), and ``remat=True`` giving the gradients
+    of ``remat=False`` (the same operations replayed)."""
+    pair = make_pair("hybrid")
+    cfg, jcfg = pair["cfg"], pair["jcfg"]
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cfg.vocab_size, size=(3, 24))
+    labels = rng.integers(0, cfg.vocab_size, size=(3, 24))
+    (_, _), jg = jax.value_and_grad(
+        lambda l: jloss(pair["jp"], l, {"tokens": jnp.asarray(toks),
+                                        "labels": jnp.asarray(labels)}, jcfg, remat=False),
+        has_aux=True)(pair["jl"])
+    tb = {"tokens": T(toks).long(), "labels": T(labels).long()}
+    grads = []
+    for remat in (False, True):
+        live = tree_map(lambda t: t.clone().requires_grad_(), pair["tl"])
+        total, _ = models.loss_fn(pair["model"], live, tb, cfg, remat=remat)
+        grads.append(torch.autograd.grad(total, tree_leaves(live)))
+    assert len(pair["tl"]["tail"]) == 2
+    for g, w in zip(grads[0], jax.tree_util.tree_leaves(jg)):
+        close(g.numpy(), w, GRAD_RTOL, "LoRA gradient")
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
+
+
+def test_local_step_with_tail_leaves_matches_jax():
+    """One SGD local phase (3 clients x 2 x 12 tokens, 2 steps) of the hybrid
+    family, tail leaves included, against the reference's vmapped phase:
+    the loss within 1e-5 and every delta within 1e-4 of its leaf's
+    largest."""
+    pair = make_pair("hybrid")
+    cfg, jcfg = pair["cfg"], pair["jcfg"]
+    toks = np.random.default_rng(13).integers(0, cfg.vocab_size, size=(3, 2, 13))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:].copy()}
+    kw = dict(local_lr=1e-1, local_steps=2, local_optimizer="sgd", remat=False)
+    jd, jl_, _ = jax.jit(jsteps.make_local_step(jcfg, **kw))(
+        pair["jp"], pair["jl"], {k: jnp.asarray(v) for k, v in batch.items()})
+    td, tl_, _ = steps.make_local_step(cfg, **kw)(
+        pair["model"], pair["tl"], {k: T(v).long() for k, v in batch.items()})
+    assert abs(float(tl_) - float(jl_)) <= 1e-5 * abs(float(jl_))
+    assert td["tail"][0]["mixer"]["q"]["A"].shape[0] == 3
+    for g, w in zip(tree_leaves(td), jax.tree_util.tree_leaves(jd)):
+        close(g.numpy(), w, 1e-4, "delta")
 
 
 def decode_run(pair, toks, steps, package):

@@ -13,7 +13,19 @@ LoRA trees via ``from_jax_tree``.  Tolerances:
   per-client state bound of ``chip_smoke.py``'s ``STATE_FRO_RTOL``): Adam
   moves elements whose gradient sits near eps with the gradient's last
   bits (measured 4e-5 with Adam, 6e-6 with SGD); with SGD also
-  elementwise within 1e-4 x max|delta|.
+  elementwise within 1e-4 x max|delta|.  Reduced RecurrentGemma's Adam
+  phase is ill-conditioned in the reference itself: its own deltas move
+  3.9e-3 of the norm when the base weights move by 1e-7 relative (the
+  port's differ by 1.9e-3, with gradients within 2e-6 of the largest), so
+  there the bound is that witness, measured in the test, and never more
+  than ADAM_WITNESS_CAP = 5e-3; SGD keeps 1e-4.  The spread sits in one
+  leaf, the A factor of the attention layer's value projection
+  (``groups[2].mixer.v.A``: 1.9e-3; every other leaf 3e-4 or less), whose
+  Adam moves are near eps; with two of four clients active the witness
+  reads 3.1e-6.  Its microbatched SGD deltas are at most 7.7e-5, so 1e-4 of them is
+  below one fp32 ulp of the LoRA entries (up to 0.4) whose difference a
+  delta is: there each element also gets one ulp of its leaf's largest
+  entry.
 * Functions on the CPU run the plain forward; their hand-written backward
   passes equal the plain version's autograd: LoRA and attention to 1e-6
   (the same fp32 operations), bf16 LoRA dx within two bf16 ulps of its
@@ -62,7 +74,14 @@ from repro_torch.launch import train as train_cli
 from repro_torch.optim import schedules
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
-ARCHS = ["stablelm-1.6b", "mamba2-130m"]
+ARCHS = ["stablelm-1.6b", "mamba2-130m", "recurrentgemma-2b"]
+# Architectures whose Adam local phase is held to the reference's own spread
+# under a WITNESS_PERTURB relative perturbation of the base weights.
+ADAM_WITNESS_ARCHS = ("recurrentgemma-2b",)
+WITNESS_PERTURB = 1e-7
+ADAM_WITNESS_CAP = 5e-3
+# Architectures whose microbatched deltas sit below the LoRA entries' ulp.
+ULP_FLOOR_ARCHS = ("recurrentgemma-2b",)
 GRAD_RTOL = 1e-4
 STATE_FRO_RTOL = 1e-4
 AGG_RTOL = 1e-4
@@ -250,6 +269,18 @@ def test_ssd_chunked_ref_matches_the_sequential_scan():
 # ---------------------------------------------------------------------------
 
 
+def reference_witness(jstep, pair, jbatch, key, want):
+    """The largest per-leaf ||d - want|| / ||want|| of the reference's own
+    deltas ``d`` from base weights perturbed by ``WITNESS_PERTURB``."""
+    rng = np.random.default_rng(9)
+    jp = jax.tree_util.tree_map(
+        lambda a: (a * (1 + WITNESS_PERTURB * rng.normal(size=a.shape))).astype(a.dtype)
+        if a.dtype == jnp.float32 else a, pair["jp"])
+    got = jstep(jp, pair["jl"], jbatch, key)[0]
+    return max(float(np.linalg.norm(np.array(g) - np.array(w)) / np.linalg.norm(np.array(w)))
+               for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)))
+
+
 @pytest.mark.parametrize("optimizer", ["sgd", "adam"])
 @pytest.mark.parametrize("clients_per_round", [0, 2])
 def test_local_step_matches_jax(pair, optimizer, clients_per_round):
@@ -257,9 +288,13 @@ def test_local_step_matches_jax(pair, optimizer, clients_per_round):
     batch = lm_batch(cfg, (4, 2, 16))
     kw = dict(local_lr=1e-2, local_steps=2, local_optimizer=optimizer, remat=False,
               clients_per_round=clients_per_round)
-    jd, jl_, jmask = jax.jit(jsteps.make_local_step(jcfg, **kw))(
-        pair["jp"], pair["jl"], {k: jnp.asarray(v) for k, v in batch.items()},
-        jax.random.PRNGKey(5))
+    jstep = jax.jit(jsteps.make_local_step(jcfg, **kw))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jd, jl_, jmask = jstep(pair["jp"], pair["jl"], jbatch, jax.random.PRNGKey(5))
+    bound = STATE_FRO_RTOL
+    if optimizer == "adam" and pair["arch"] in ADAM_WITNESS_ARCHS:
+        bound = min(ADAM_WITNESS_CAP,
+                    max(bound, reference_witness(jstep, pair, jbatch, jax.random.PRNGKey(5), jd)))
     mask = None if jmask is None else np.array(jmask)
     td, tl_, tmask = steps.make_local_step(cfg, **kw)(
         pair["model"], pair["tl"], {k: torch.as_tensor(v) for k, v in batch.items()}, (0, 5),
@@ -271,7 +306,7 @@ def test_local_step_matches_jax(pair, optimizer, clients_per_round):
             assert not d[torch.from_numpy(mask) == 0].any()
     np.testing.assert_allclose(float(tl_), float(jl_), rtol=1e-5)
     for err, scale, fro in leaf_errs(td, jd):
-        assert fro <= STATE_FRO_RTOL, fro
+        assert fro <= bound, (fro, bound)
         if optimizer == "sgd":
             assert err <= 1e-4 * scale, (err, scale)
 
@@ -285,8 +320,10 @@ def test_microbatched_local_step_matches_jax(pair):
     td, tl_, _ = steps.make_local_step(cfg, **kw)(
         pair["model"], pair["tl"], {k: torch.as_tensor(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(tl_), float(jl_), rtol=1e-5)
-    for err, scale, fro in leaf_errs(td, jd):
-        assert err <= 1e-4 * scale and fro <= STATE_FRO_RTOL
+    floors = [float(np.spacing(np.float32(x.abs().max()))) if pair["arch"] in ULP_FLOOR_ARCHS
+              else 0.0 for x in tree_leaves(pair["tl"])]
+    for (err, scale, fro), floor in zip(leaf_errs(td, jd), floors):
+        assert err <= 1e-4 * scale + floor and fro <= STATE_FRO_RTOL
 
 
 def test_cohort_mask_is_a_pure_function_of_the_key():
