@@ -33,11 +33,15 @@ Phases (any failed check raises and the script exits non-zero):
      ``causal=False`` at (256, 512, 64); at D = 256, path J's prefill (80,
      2560, 256) with window 2048, timed beside SDPA with the same boolean
      causal-window mask, S = 2100, and path L1's full-causal prefill (128,
-     512, 256) beside SDPA ``is_causal=True``; the gathered LoRA kernel also
-     at the q / v shapes of paths L and M (``LORA_LM``: K -> N of 3072 ->
-     4096, 5120 -> 5120, 5120 -> 1024, 8192 -> 8192, 8192 -> 1024, 1024 ->
-     1024 and 1024 -> 512), each at prefill (M = 4096) and decode (M =
-     8, K split).  Each checked
+     512, 256) beside SDPA ``is_causal=True``; path N's encoder (128, 1500,
+     64) bidirectional beside SDPA ``is_causal=False`` and its decoder
+     prefill (128, 416, 64), path O's prefill (96, 512, 128); the gathered
+     LoRA kernel also at the q / v shapes of paths L and M (``LORA_LM``: K
+     -> N of 3072 -> 4096, 5120 -> 5120, 5120 -> 1024, 8192 -> 8192, 8192
+     -> 1024, 1024 -> 1024 and 1024 -> 512), each at prefill (M = 4096) and
+     decode (M = 8, K split), and at those of paths N and O (``LORA_NO``:
+     (M, K, N) = (3328, 1024, 1024), (12000, 1024, 1024), (4096, 1536,
+     1536), (4096, 1536, 256), and each at M = 8).  Each checked
      shape prints its route (``lora_matmul.route``,
      ``local_attention.route``: bf16 on the tensor cores, float32 and the
      ragged bf16 LoRA shape on fp32 FMA) and its tensor-route launches must
@@ -176,19 +180,38 @@ Phases (any failed check raises and the script exits non-zero):
      (128 experts at d_ff 8192, 32 GB), its MoE layer against a float32
      loop over the experts on the same routing (``M_LOOP_RTOL``).  Each
      path's wall time is printed.
+ 11g. Main path N, serving ``configs/whisper_medium.py`` at full width
+     and depth (24 encoder and 24 decoder layers, bf16, LoRA r 8 on the
+     self- and cross-attention q and v): N1 8 requests of 4 tenants over
+     stub frames (8, 1500, 1024), prompt 416, 32 tokens, prefill s, decode
+     tokens/s, peak memory, the cross caches' bytes, a profiled decode
+     window and warm prefill; N2 card vs CPU in float32 at encoder and
+     decoder depth 2, prompt 96, 8 decode steps.
+ 11h. Main path O, serving ``configs/qwen2_vl_2b.py`` at full width and
+     depth (28 layers, bf16): O1 path C's traffic with the first 256 of the
+     512 prompt positions the vision stub's, a profiled decode window, card
+     vs CPU at depth 2 (prompt 320) and a train-mode forward with explicit
+     M-RoPE positions (a 16 x 16 grid, then text) card vs CPU; O2 the same
+     traffic with the int8 KV cache (decode tokens/s, the cache's bytes
+     against O1's, prefill logits equal to O1's, top-1 against O1's logits
+     with O1's tokens fed, card vs CPU at depth 2 with the int8 values at
+     most one step apart in at most ``KV_FLIP_SHARE`` of them); O3 one
+     local phase of Whisper and of Qwen2-VL with the stubs through
+     ``launch/steps.py`` at depth 2, card vs CPU as path K3.
  12. The card tests: ``pytest -m gpu tests/test_torch_cuda.py`` in a
      subprocess with its own time limit; any failure, error or skip fails
      the script, and the counts and wall time go on a ``[card tests]``
      line.
  13. A ``[train fn]`` line (each Function's forward and backward ms with
      path I's launches), the ``kernels`` JSON line (each kernel's launches
-     on all paths and on paths J, K, L and M, ``local_attention`` also at
-     path J's and path L1's prefill shapes, ``gathered_lora_matmul`` at the
-     q / v shapes of paths L and M), the wall time, then the result line.
+     on all paths and on paths J, K, L, M, N and O, ``local_attention``
+     also at path J's, path L1's and path N's encoder prefill shapes,
+     ``gathered_lora_matmul`` at the q / v shapes of paths L, M, N and O),
+     the wall time, then the result line.
 
 Kernel launch counts are set to 0 just before phase 4 and read just after
 phase 5, and set to 0 again just before each of phases 6, 7, 8, 9, 10, 11,
-11b, 11c, 11d, 11e and 11f and read just after it; every kernel must have launched, and
+11b, 11c, 11d, 11e, 11f, 11g and 11h and read just after it; every kernel must have launched, and
 each phase exactly as often as its rounds, ADMM iterations, fallbacks,
 shards, buckets, layers and decode steps say.  Beside them the
 tensor-route launches of the subspace, LoRA and attention kernels are
@@ -594,6 +617,15 @@ LORA_LM = {"gemma_qv": (3072, 4096), "qwen_qv": (5120, 5120), "llama4_v": (5120,
 LORA_SLICE11 = [*LORA_LM, *(f"{key}_decode" for key in LORA_LM)]
 LORA_SHAPES += [(4096, k, n, 8, key) for key, (k, n) in LORA_LM.items()]
 LORA_SHAPES += [(8, k, n, 8, f"{key}_decode") for key, (k, n) in LORA_LM.items()]
+# The adapted projections (M, K, N) of paths N and O at prefill, each also at
+# decode (M = 8, K split): Whisper's self and cross q and v on the decoder's
+# 8 x 416 rows, its cross v on the encoder's 8 x 1500 rows; Qwen2-VL's q and
+# its v (N = 256, two kv heads of 128).
+LORA_NO = {"whisper_qv": (3328, 1024, 1024), "whisper_cross_v": (12000, 1024, 1024),
+           "qwen2vl_q": (4096, 1536, 1536), "qwen2vl_v": (4096, 1536, 256)}
+LORA_SLICE12 = [*LORA_NO, *(f"{key}_decode" for key in LORA_NO)]
+LORA_SHAPES += [(m, k, n, 8, key) for key, (m, k, n) in LORA_NO.items()]
+LORA_SHAPES += [(8, k, n, 8, f"{key}_decode") for key, (m, k, n) in LORA_NO.items()]
 # (BH, S, D, window, causal, label); "bidirectional" is the encoder's call
 # (causal=False), checked and not timed.  "rg-prefill" is path J's prefill
 # (8 requests x 10 heads, S 2560 past the window of 2048, D 256), "rg ragged"
@@ -602,7 +634,14 @@ LORA_SHAPES += [(8, k, n, 8, f"{key}_decode") for key, (k, n) in LORA_LM.items()
 ATTN_SHAPES = [(256, 512, 64, 0, True, "prefill"), (256, 300, 64, 0, True, "ragged"),
                (256, 512, 64, 128, True, "window"), (256, 512, 64, 0, False, "bidirectional"),
                (80, 2560, 256, 2048, True, "rg-prefill"), (80, 2100, 256, 2048, True, "rg ragged"),
-               (128, 512, 256, 0, True, "gemma-prefill")]
+               (128, 512, 256, 0, True, "gemma-prefill"),
+               # Path N's encoder (8 requests x 16 heads over 1500 frames, no
+               # mask, no multiple of the tiles) and decoder prefill (416
+               # positions); path O's prefill (8 x 12 heads, K and V repeated
+               # 6x for the 2 kv heads, D 128).
+               (128, 1500, 64, 0, False, "whisper-encoder"),
+               (128, 416, 64, 0, True, "whisper-decoder"),
+               (96, 512, 128, 0, True, "qwen2vl-prefill")]
 ATTN_UNTIMED = ("ragged", "bidirectional", "rg ragged")
 TENANT_SLOTS = (1, 3, 4, 6)  # 4 tenants resident in a pool of 8 slots
 
@@ -720,7 +759,7 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
                       f"cublas_x@W_ms={floor_ms:.4f} call_ms={call_ms:.4f}", flush=True)
                 if label == "prefill":
                     rec[name] = out
-                elif label in LORA_SLICE11 and name == "gathered_lora_matmul":
+                elif label in LORA_SLICE11 + LORA_SLICE12 and name == "gathered_lora_matmul":
                     rec[f"{name}_{label}"] = out
             # Where a call's device time goes: x @ A, the base product with its
             # epilogue, and the split-K finish.
@@ -820,7 +859,7 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
                 mask = (i[:, None] >= i[None, :]) & (i[None, :] > i[:, None] - window)
                 lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
             else:
-                lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+                lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
             lib_ms = device_ms(lib)
             out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -836,6 +875,8 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
                 rec["local_attention_rg"] = out
             elif label == "gemma-prefill":
                 rec["local_attention_gemma"] = out
+            elif label == "whisper-encoder":
+                rec["local_attention_encoder"] = out
     return rec
 
 
@@ -2179,7 +2220,8 @@ C_CARD_CPU_RTOL = 2e-4
 
 def tenant_adapter(cfg, seed: int, device=None):
     """A trained-looking adapter: the init's A, and B drawn from ``seed``,
-    pattern slot by pattern slot, then the tail layers."""
+    pattern slot by pattern slot (the mixer's adapters, then the
+    cross-attention's where there are any), then the tail layers."""
     import torch
     from repro_torch.models import init_lora_params
 
@@ -2187,8 +2229,9 @@ def tenant_adapter(cfg, seed: int, device=None):
     tree = init_lora_params(cfg, seed=seed, device=device)
     g = torch.Generator(device=device).manual_seed(seed)
     for layer in (*tree["groups"], *tree["tail"]):
-        for node in layer["mixer"].values():
-            node["B"].normal_(0.0, C_B_STD, generator=g)
+        for sub in layer.values():
+            for node in sub.values():
+                node["B"].normal_(0.0, C_B_STD, generator=g)
     return tree
 
 
@@ -2204,10 +2247,13 @@ def client_deltas(cfg, seed: int, n_clients: int = 4):
         x.shape, generator=g, device=DEVICE) for _ in range(n_clients)]), shared)
 
 
-def serve_once(base, pool, cfg, adapter_ids, prompts, gen, keep_caches: bool = False):
+def serve_once(base, pool, cfg, adapter_ids, prompts, gen, keep_caches: bool = False,
+               rng=None):
     """``serve_batch`` through a ``RequestScheduler``, recording the prefill
-    and decode logits, the extended caches and the first token; prefill
-    time and decode time on the host clock, each ending in a synchronise.
+    and decode logits, the extended caches, the first token and the prefill
+    batch (with the frontend stubs ``serve_batch`` draws from the numpy
+    generator ``rng``); prefill time (the stubs drawn before it) and decode
+    time on the host clock, each ending in a synchronise.
 
     Decode writes the caches in place.  With ``keep_caches`` the record
     holds a copy of them as the prefill left them, taken before the decode
@@ -2225,6 +2271,7 @@ def serve_once(base, pool, cfg, adapter_ids, prompts, gen, keep_caches: bool = F
     rec = {"decode_logits": [], "t": {}, "prompt_len": len(prompts[0])}
 
     def timed_prefill(*args):
+        rec["batch"] = args[-1]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, caches = prefill(*args)
@@ -2246,17 +2293,19 @@ def serve_once(base, pool, cfg, adapter_ids, prompts, gen, keep_caches: bool = F
         return logits, caches
 
     _, tokens = serve.serve_batch(base, pool, sched, cfg, gen=gen, prefill_fn=timed_prefill,
-                                  decode_fn=recorded_decode)
+                                  decode_fn=recorded_decode, rng=rng)
     torch.cuda.synchronize()
     rec["t"]["decode_s"] = time.perf_counter() - rec["t"].pop("decode_t0")
     rec["tokens"] = tokens
     return rec
 
 
-def clone_caches(caches):
+def clone_caches(caches, device=None):
     """A copy of a cache tree (decode writes KV rings and recurrent states in
-    place)."""
-    one = lambda c: {"self": type(c["self"])(*(x.clone() for x in c["self"]))}
+    place), self and cross caches alike, on ``device`` (default where it
+    is)."""
+    one = lambda c: {k: type(st)(*(x.to(device or x.device, copy=True) for x in st))
+                     for k, st in c.items()}
     return {"groups": tuple(map(one, caches["groups"])), "tail": tuple(map(one, caches["tail"]))}
 
 
@@ -2401,26 +2450,68 @@ def check_routing(card_log, cpu_log, top_k: int, what: str, hold: bool = True) -
     return flips
 
 
+# Card vs CPU with an int8 cache: the two devices' float32 K and V round
+# apart, so a value that sits within rounding of a half int8 step may land one
+# step apart; at most this share of the int8 values may, each by one step.
+KV_FLIP_SHARE = 1e-3
+
+
+def int8_flips(got, want, what: str) -> str:
+    """The int8 caches (``QuantKVCache``) of ``got`` against ``want``: values
+    at most one step apart and at most ``KV_FLIP_SHARE`` of them apart,
+    float16 scales within one ulp.  Returns a summary."""
+    from repro_torch.models.kvcache import QuantKVCache
+
+    nodes = lambda t: [c["self"] for c in (*t["groups"], *t["tail"])
+                       if isinstance(c["self"], QuantKVCache)]
+    flipped = total = 0
+    worst_scale = 0.0
+    for a, b in zip(nodes(got), nodes(want)):
+        for x, y in zip(a[:2], b[:2]):
+            diff = (x.cpu().int() - y.cpu().int()).abs()
+            if int(diff.max()) > 1:
+                raise AssertionError(f"{what}: int8 cache values {int(diff.max())} steps apart")
+            flipped, total = flipped + int((diff > 0).sum()), total + diff.numel()
+        for x, y in zip(a[2:], b[2:]):
+            rel = ((x.cpu().float() - y.cpu().float()).abs()
+                   / y.cpu().float().abs().clamp_min(2.0**-24)).max()
+            worst_scale = max(worst_scale, float(rel))
+    if not total or flipped > KV_FLIP_SHARE * total or worst_scale > 2.0**-10:
+        raise AssertionError(f"{what}: {flipped} of {total} int8 cache values one step apart "
+                             f"(bound {KV_FLIP_SHARE:g}), float16 scales {worst_scale:.3g} "
+                             f"apart (bound 2^-10)")
+    return (f"int8 caches: {flipped} of {total} values one step apart, scales within "
+            f"{worst_scale:.3g}")
+
+
 def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
                 prefill_launches: dict, *, n_layers: int = 2, n_requests: int = 4,
-                prompt_lens=(64,), steps: int = 3):
+                prompt_lens=(64,), steps: int = 3, decode_per_layer: int = 2):
     """The serving run at full width, depth ``n_layers``, in float32, on the
     card and on the CPU from the same weights and adapters: ``n_requests``
     requests of as many tenants, for each prompt length a prefill, then
     ``steps`` decode steps of the card's greedy tokens on both devices;
     logits within ``C_CARD_CPU_RTOL`` of the largest.  The card's prefill
-    launches ``prefill_launches`` and each decode step 2 gathered launches a
-    layer.  With experts, each call's routing is compared first
-    (``check_routing``): a flip fails with its probability gap."""
+    launches ``prefill_launches`` and each decode step ``decode_per_layer``
+    gathered launches a layer.  A config with a frontend takes its stubs,
+    drawn once on the host for each prompt (``serve._make_batch``), on both
+    devices.  With experts, each call's routing is compared first
+    (``check_routing``): a flip fails with its probability gap.  With an
+    int8 cache the card's prefill caches are held to the CPU's
+    (``int8_flips``), and the card then decodes from a copy of the CPU's
+    cache bits: one value a step apart moves the logits by more than float32
+    rounding does."""
     import copy
 
+    import numpy as np
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import init_params, moe
     from repro_torch.serve import AdapterPool
     from repro_torch.utils.pytree import tree_to
 
-    cfg2 = cfg.replace(n_layers=n_layers, dtype="float32")
+    cfg2 = cfg.replace(n_layers=n_layers, n_encoder_layers=min(cfg.n_encoder_layers, n_layers),
+                       dtype="float32")
     base2 = init_params(cfg2, seed=5, device=DEVICE)
     cpu_base = copy.deepcopy(base2).cpu()
     pools = {"card": AdapterPool(tenant_adapter(cfg2, 98), n_requests),
@@ -2434,6 +2525,7 @@ def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
     runs = {"card": (DEVICE, base2), "cpu": ("cpu", cpu_base)}
     for prompt in prompt_lens:
         prompts2 = torch.as_tensor(rng.integers(0, cfg2.vocab_size, size=(n_requests, prompt)))
+        batch = serve._make_batch(cfg2, prompts2, np.random.default_rng(prompt))
         logits_of, state = {"card": [], "cpu": []}, {}
         routes = {"card": [], "cpu": []}
         before = counts()
@@ -2441,11 +2533,17 @@ def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
             slots = pools[key].acquire(ids)
             with moe.routing_log() as log:
                 logits, caches = prefill(b_, pools[key].pooled, slots,
-                                         {"tokens": prompts2.to(dev)})
+                                         {k: v.to(dev) for k, v in batch.items()})
             routes[key] += log
             logits_of[key].append(logits.cpu())
             state[key] = (slots, serve.extend_caches(caches, steps + 1, cfg2))
         expect(f"card vs CPU prefill {prompt}", launched(before), **prefill_launches)
+        quant = ""
+        if cfg2.kv_quant:
+            quant = int8_flips(state["card"][1], state["cpu"][1],
+                               f"{path} card vs CPU (prompt {prompt})") + (
+                "; the card decodes from the CPU's cache bits, ")
+            state["card"] = (state["card"][0], clone_caches(state["cpu"][1], DEVICE))
         before = counts()
         tok = serve.greedy(logits_of["card"][0])
         for i in range(steps):  # both devices decode the card's greedy tokens
@@ -2458,7 +2556,7 @@ def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
                 logits_of[key].append(logits.cpu())
             tok = serve.greedy(logits_of["card"][-1])
         expect(f"card vs CPU decode {prompt}", launched(before),
-               gathered_lora_matmul=2 * n_layers * steps)
+               gathered_lora_matmul=decode_per_layer * n_layers * steps)
         check_routing(routes["card"], routes["cpu"], cfg2.top_k, f"{path} card vs CPU "
                       f"(prompt {prompt})")
         routed = (f"routing equal in {len(routes['card'])} routed calls, " if routes["card"]
@@ -2472,7 +2570,7 @@ def card_vs_cpu(cfg, rng, path: str, card: str, counts, launched, expect,
             errs.append(err)
         print(f"[{path}] {card} | card vs CPU, depth {n_layers} float32, {n_requests} requests "
               f"x {prompt} prompt + {steps + 1} tokens: "
-              f"{routed}"
+              f"{routed}{quant}"
               f"prefill and decode logits max|err| "
               f"{[f'{e:.3g}' for e in errs]} (max|logit| "
               f"{float(logits_of['cpu'][0].abs().max()):.4g})", flush=True)
@@ -3245,13 +3343,49 @@ def run_train_cli(arch, extra, counts, launched, expect, card, label, tag="path 
 I3_PERTURB = 1e-7
 
 
-def i3_local_phase(arch, n_layers, lora, card, label, tag="path I"):
-    """One local phase (2 steps, 2 clients x 1 x 64 tokens) of ``arch`` at
-    full width and ``n_layers`` layers in float32 on the card and on the
-    CPU, from the same weights and the card's global LoRA (its first
-    layers): with SGD the per-client deltas within ``STATE_FRO_RTOL`` of
-    each leaf's norm and the loss within 1e-5; with Adam printed beside the
-    CPU's own difference under an ``I3_PERTURB`` perturbation."""
+def vision_grid_positions(b: int, s: int, rows: int, cols: int):
+    """(3, B, S) M-RoPE positions of a ``rows x cols`` vision grid followed
+    by text: the grid at temporal 0, height its row, width its column; each
+    text token one past the largest position so far on all three streams."""
+    import torch
+
+    pos = torch.zeros((3, b, s), dtype=torch.int64)
+    n = rows * cols
+    pos[1, :, :n] = torch.arange(rows).repeat_interleave(cols)
+    pos[2, :, :n] = torch.arange(cols).repeat(rows)
+    pos[:, :, n:] = max(rows, cols) + torch.arange(s - n)
+    return pos
+
+
+def client_stubs(cfg, m: int, per: int, seq: int, seed: int = 23) -> dict:
+    """The frontend inputs of a federated batch of ``m`` clients x ``per``
+    sequences of ``seq`` tokens, on the host: ``encoder_frames`` (m, per,
+    S_enc, D) for an audio config; ``vision_embeds`` (m, per, n_vision, D)
+    and M-RoPE ``positions`` (m, 3, per, seq), a square vision grid then
+    text, for a VLM; nothing otherwise."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.frontend == "audio":
+        return {"encoder_frames": torch.randn((m, per, cfg.encoder_seq, cfg.d_model),
+                                              generator=gen)}
+    if cfg.frontend == "vision":
+        side = int(cfg.n_vision_tokens**0.5)
+        pos = vision_grid_positions(per, seq, side, cfg.n_vision_tokens // side)
+        return {"vision_embeds": torch.randn((m, per, cfg.n_vision_tokens, cfg.d_model),
+                                             generator=gen),
+                "positions": torch.stack([pos + c for c in range(m)])}
+    return {}
+
+
+def i3_local_phase(arch, n_layers, lora, card, label, tag="path I", seq=64):
+    """One local phase (2 steps, 2 clients x 1 x ``seq`` tokens, with the
+    config's frontend stubs, ``client_stubs``) of ``arch`` at full width and
+    ``n_layers`` layers in float32 on the card and on the CPU, from the same
+    weights and the card's global LoRA (its first layers): with SGD the
+    per-client deltas within ``STATE_FRO_RTOL`` of each leaf's norm and the
+    loss within 1e-5; with Adam printed beside the CPU's own difference
+    under an ``I3_PERTURB`` perturbation."""
     import copy
 
     import torch
@@ -3260,7 +3394,9 @@ def i3_local_phase(arch, n_layers, lora, card, label, tag="path I"):
     from repro_torch.models import init_params, moe
     from repro_torch.utils.pytree import tree_map
 
-    cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
+    full = get_config(arch)
+    cfg = full.replace(n_layers=n_layers, n_encoder_layers=min(full.n_encoder_layers, n_layers),
+                       dtype="float32")
     model = init_params(cfg, seed=0, device=DEVICE)
     cpu_model = copy.deepcopy(model).cpu()
     # The first pattern groups of the card's LoRA, and its tail layers
@@ -3268,8 +3404,9 @@ def i3_local_phase(arch, n_layers, lora, card, label, tag="path I"):
     lora = {"groups": tree_map(lambda x: x[:cfg.n_pattern_groups].contiguous(),
                                lora["groups"]),
             "tail": tree_map(lambda x: x.contiguous(), lora["tail"])}
-    toks = torch.randint(0, 512, (2, 1, 65), generator=torch.Generator().manual_seed(19))
-    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    toks = torch.randint(0, 512, (2, 1, seq + 1), generator=torch.Generator().manual_seed(19))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             **client_stubs(cfg, 2, 1, seq)}
     res = {}
     for opt in ("sgd", "adam"):
         step = steps.make_local_step(cfg, local_lr=I_LR, local_steps=2, local_optimizer=opt,
@@ -3294,8 +3431,11 @@ def i3_local_phase(arch, n_layers, lora, card, label, tag="path I"):
     if err > STATE_FRO_RTOL or max(lerr, res["adam"][1]) > 1e-5:
         raise AssertionError(f"{label}: SGD local phase card vs CPU {err:.3g} of the norm (bound "
                              f"{STATE_FRO_RTOL}), losses {lerr:.3g} / {res['adam'][1]:.3g}")
+    stubs = "".join(f", {k} {tuple(v.shape)}" for k, v in batch.items()
+                    if k not in ("tokens", "labels"))
     print(f"[{tag}] {card} | {label}: one local phase of {arch} ({n_layers} layers, float32, "
-          f"2 clients x 64 tokens) card vs CPU from the card's LoRA: SGD deltas {err:.3g} of the "
+          f"2 clients x {seq} tokens{stubs}) card vs CPU from the card's LoRA: SGD deltas "
+          f"{err:.3g} of the "
           f"norm (bound {STATE_FRO_RTOL:g}), loss {lerr:.3g} relative; Adam deltas "
           f"{res['adam'][0]:.3g}, loss {res['adam'][1]:.3g} (not held; the CPU against itself "
           f"under a {I3_PERTURB:g} weight perturbation: {res['witness']:.3g})", flush=True)
@@ -3458,11 +3598,16 @@ LM_CPU_PROMPTS, LM_CPU_STEPS = (96, 40), 8
 M_LOOP_RTOL = 2.0**-6
 
 
-def serve_cell(arch, label, depth, counts, launched, expect, card, path):
-    """Serve ``arch`` at full width (``depth`` layers, or all) in bf16 to 8
-    requests of 4 tenants through the pool (prompt 512, 32 greedy tokens, as
-    path C); prints prefill s, decode tokens/s and peak memory, and returns
-    (base, pool, rec, cfg)."""
+def serve_cell(arch, label, depth, counts, launched, expect, card, path, *, prompt=C_PROMPT,
+               launches=None, **change):
+    """Serve ``arch`` at full width (``depth`` layers, or all; ``change``
+    replaces config fields, e.g. ``kv_quant=True``) in bf16 to 8 requests of
+    4 tenants through the pool (prompt ``prompt``, 512 as path C, 32 greedy
+    tokens), the frontend stubs drawn after the prompts from the same numpy
+    generator; expects ``launches`` (by default 2 gathered launches a layer
+    and step, one attention launch a layer, all on the tensor route); prints
+    prefill s, decode tokens/s and peak memory, and returns (base, pool,
+    rec, cfg)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3470,7 +3615,7 @@ def serve_cell(arch, label, depth, counts, launched, expect, card, path):
     from repro_torch.models.model import param_count
     from repro_torch.serve import AdapterPool
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**change)
     if depth:
         cfg = cfg.replace(n_layers=depth)
     n_l = cfg.n_layers
@@ -3486,23 +3631,24 @@ def serve_cell(arch, label, depth, counts, launched, expect, card, path):
           f"{2 * n_par / 1e9:.1f} GB), {n_l} of {get_config(arch).n_layers} layers, pool "
           f"{len(pool)}/{pool.n_slots} slots, init {time.perf_counter() - t0:.2f} s", flush=True)
     rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab_size, size=(C_BATCH, C_PROMPT))
+    prompts = rng.integers(0, cfg.vocab_size, size=(C_BATCH, prompt))
     ids = [f"tenant-{i % C_TENANTS}" for i in range(C_BATCH)]
     before = counts()
-    rec = serve_once(base, pool, cfg, ids, prompts, C_GEN)
+    rec = serve_once(base, pool, cfg, ids, prompts, C_GEN, rng=rng)
     rec["prompts"] = prompts
-    expect(label, launched(before), gathered_lora_matmul=2 * n_l * C_GEN,
-           gathered_lora_matmul_tc=2 * n_l * C_GEN, local_attention=n_l,
-           local_attention_tc=n_l)
+    expect(label, launched(before), **(launches or dict(
+        gathered_lora_matmul=2 * n_l * C_GEN, gathered_lora_matmul_tc=2 * n_l * C_GEN,
+        local_attention=n_l, local_attention_tc=n_l)))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(bool(torch.isfinite(x).all()) for x in [rec["prefill_logits"]]
                + rec["decode_logits"]):
         raise AssertionError(f"{path} {label}: non-finite logits")
     t = rec["t"]
     tok_s = C_BATCH * (C_GEN - 1) / t["decode_s"]
-    print(f"[{path}] {card} | {label} {arch} pool: prefill {C_BATCH}x{C_PROMPT} tokens "
+    print(f"[{path}] {card} | {label} {arch} pool: prefill {C_BATCH}x{prompt} tokens "
           f"{t['prefill_s']:.4f} s, decode {C_GEN - 1} steps {t['decode_s']:.4f} s = "
           f"{tok_s:.1f} tokens/s, peak memory {peak_gb:.2f} GB", flush=True)
+    rec.update(peak_gb=peak_gb, tok_s=tok_s)
     return base, pool, rec, cfg
 
 
@@ -3674,6 +3820,242 @@ def main_path_m(counts, card: str) -> dict:
     return total
 
 
+# --- Paths N and O: Whisper-medium and Qwen2-VL-2B (slice 12) ------------------
+N_ARCH, O_ARCH = "whisper-medium", "qwen2-vl-2b"
+# Whisper's decoder context is 448 positions (``max_target_positions`` of the
+# published config): a prompt of 416 and 32 generated tokens fill it.
+N_PROMPT = 416
+# Card vs CPU in float32 at encoder and decoder depth 2 (the 1500 stub frames
+# at full width): prompt 96, 8 decode steps.  Qwen2-VL at depth 2: a prompt of
+# 320, the 256 vision positions and 64 of text, 8 decode steps.
+N_CPU_PROMPTS, O_CPU_PROMPTS, NO_CPU_STEPS = (96,), (320,), 8
+# O1's train-mode forward with explicit M-RoPE positions: a 16 x 16 grid for
+# the 256 vision positions, then 64 of text, 2 requests, depth 2, float32.
+O_GRID, O_POS_SEQ = 16, 320
+# O3: one local phase card vs CPU at depth 2 and full width, 2 clients x one
+# sequence of 64 tokens (Whisper, over its 1500 stub frames) or 320 (Qwen2-VL).
+O3_CASES = ((N_ARCH, 64), (O_ARCH, O_POS_SEQ))
+
+
+def cache_bytes(caches, key: str = "self") -> int:
+    """Bytes of the ``key`` caches of a cache tree (every tensor of them)."""
+    return sum(t.numel() * t.element_size() for c in (*caches["groups"], *caches["tail"])
+               if key in c for t in c[key])
+
+
+def busy_line(what, wall, busy, top) -> str:
+    share = "not measured" if busy is None else f"{busy:.4f} s busy = {busy / wall:.3f}"
+    return (f"{what} under torch.profiler: host {wall:.4f} s, device {share} of it; top kernels "
+            f"by device ms (name, ms, calls): {top}")
+
+
+def forced_decode(base, pool, cfg, rec, tokens):
+    """Decode logits from a copy of the recorded caches (``serve_once``),
+    fed ``tokens`` (B, gen) one step at a time instead of the greedy ones:
+    step i reads ``tokens[:, i]`` at position prompt + i."""
+    from repro_torch.launch import serve
+
+    _, decode = serve.make_serving_fns(cfg)
+    caches = clone_caches(rec["caches"])
+    out = []
+    for i in range(tokens.shape[1] - 1):
+        logits, _ = decode(base, pool.pooled, rec["slots"], tokens[:, i:i + 1], caches,
+                           rec["prompt_len"] + i)
+        out.append(logits)
+    return out
+
+
+def main_path_n(counts, card: str) -> dict:
+    """N1: serve Whisper-medium at full width and depth (24 encoder and 24
+    decoder layers, bf16, LoRA r 8 on q and v of self- and cross-attention)
+    to 8 requests of 4 tenants over stub frames (8, 1500, 1024): prompt 416,
+    32 greedy tokens; prefill s, decode tokens/s, peak memory and the cross
+    caches' bytes; a profiled decode window and warm prefill.  N2: card vs
+    CPU in float32 at encoder and decoder depth 2.  Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path N")
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+
+    full = get_config(N_ARCH)
+    n_l, n_enc = full.n_layers, full.n_encoder_layers
+    # Prefill: self q, v, cross q, v (on the encoder's rows) a layer; the
+    # cross k and the encoder are plain products (no adapter).  Decode: self
+    # q, v and cross q; the cross K and V come from the cache.
+    pre, dec = 4 * n_l, 3 * n_l
+    base, pool, rec, cfg = serve_cell(
+        N_ARCH, "N1", None, counts, launched, expect, card, "path N", prompt=N_PROMPT,
+        launches=dict(gathered_lora_matmul=pre + dec * (C_GEN - 1),
+                      gathered_lora_matmul_tc=pre + dec * (C_GEN - 1),
+                      local_attention=n_enc + n_l, local_attention_tc=n_enc + n_l))
+    cross, own = cache_bytes(rec["caches"], "cross"), cache_bytes(rec["caches"], "self")
+    print(f"[path N] {card} | N1 caches: cross {cross / 1e9:.4f} GB ({n_l} layers x K and V "
+          f"of {C_BATCH} x {cfg.encoder_seq} x {cfg.kv_dim}, bf16, projected once at prefill), "
+          f"self {own / 1e9:.4f} GB ({N_PROMPT} + {C_GEN} positions)", flush=True)
+    before = counts()
+    window = profile_decode(base, pool, cfg, rec, C_PROFILE_STEPS)
+    expect("N1 profile decode", launched(before), gathered_lora_matmul=dec * C_PROFILE_STEPS,
+           gathered_lora_matmul_tc=dec * C_PROFILE_STEPS)
+    print(f"[path N] {card} | N1 {busy_line(f'{C_PROFILE_STEPS} decode steps', *window)}",
+          flush=True)
+    prefill = serve.make_serving_fns(cfg)[0]
+    before = counts()
+    window = profiled(lambda: prefill(base, pool.pooled, rec["slots"], rec["batch"]))
+    expect("N1 profile prefill", launched(before), gathered_lora_matmul=pre,
+           gathered_lora_matmul_tc=pre, local_attention=n_enc + n_l,
+           local_attention_tc=n_enc + n_l)
+    print(f"[path N] {card} | N1 {busy_line('one warm prefill (encoder included)', *window)}",
+          flush=True)
+    del base, pool, rec
+    torch.cuda.empty_cache()
+    card_vs_cpu(cfg, np.random.default_rng(3), "path N N2", card, counts, launched, expect,
+                dict(gathered_lora_matmul=8, local_attention=4), prompt_lens=N_CPU_PROMPTS,
+                steps=NO_CPU_STEPS, decode_per_layer=3)
+    torch.cuda.empty_cache()
+    total = launched(start)
+    print(f"[path N] {card} | wall {time.perf_counter() - t0:.1f} s, launches {total} by phase "
+          f"{phase}", flush=True)
+    return total
+
+
+def o1_positions_card_vs_cpu(cfg, card, counts, launched, expect) -> None:
+    """A train-mode forward of Qwen2-VL at full width and depth 2 in float32
+    with explicit (3, B, S) M-RoPE positions (``vision_grid_positions``: a
+    16 x 16 grid for the vision stub, then text) and a 2-D adapter, card vs
+    CPU within ``C_CARD_CPU_RTOL`` of the largest logit; the same forward
+    with the default positions (three equal streams) must move the vision
+    prefix's logits by far more than that bound, or the sections would not
+    be exercised."""
+    import copy
+
+    import torch
+    from repro_torch.models import forward, init_params
+
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    base2 = init_params(cfg2, seed=6, device=DEVICE)
+    cpu_base = copy.deepcopy(base2).cpu()
+    lora = tenant_adapter(cfg2, 301)
+    gen = torch.Generator().manual_seed(31)
+    batch = {"tokens": torch.randint(0, cfg2.vocab_size, (2, O_POS_SEQ), generator=gen),
+             "vision_embeds": torch.randn((2, cfg2.n_vision_tokens, cfg2.d_model),
+                                          generator=gen),
+             "positions": vision_grid_positions(2, O_POS_SEQ, O_GRID, O_GRID)}
+    with torch.no_grad():
+        before = counts()
+        got = forward(base2, lora, {k: v.to(DEVICE) for k, v in batch.items()}, cfg2,
+                      mode="train")[0]
+        expect("O1 positions", launched(before), lora_matmul=4, local_attention=2)
+        want = forward(cpu_base, to_cpu(lora), batch, cfg2, mode="train")[0]
+        plain = forward(base2, lora, {k: v.to(DEVICE) for k, v in batch.items()
+                                      if k != "positions"}, cfg2, mode="train")[0]
+    err, scale = max_abs(got.cpu(), want), float(want.abs().max())
+    moved = float((plain - got)[:, :cfg2.n_vision_tokens].abs().max())
+    if not bool(torch.isfinite(got).all()) or err > C_CARD_CPU_RTOL * scale:
+        raise AssertionError(f"path O O1 positions: card vs CPU {err} > {C_CARD_CPU_RTOL} * "
+                             f"{scale}")
+    if not moved > 100 * C_CARD_CPU_RTOL * scale:
+        raise AssertionError(f"path O O1 positions: the grid moves the vision logits by only "
+                             f"{moved}")
+    print(f"[path O] {card} | O1 train-mode forward, depth 2 float32, 2 x {O_POS_SEQ} tokens "
+          f"with a {O_GRID} x {O_GRID} vision grid of M-RoPE positions: card vs CPU max|err| "
+          f"{err:.3g} (max|logit| {scale:.4g}); the default positions move the vision logits by "
+          f"{moved:.4g}", flush=True)
+
+
+def main_path_o(counts, card: str) -> dict:
+    """O1: serve Qwen2-VL-2B at full width and depth (28 layers, bf16, tied
+    head) with path C's traffic, the first 256 of the 512 prompt positions
+    the vision stub's; card vs CPU at depth 2 serving and a train-mode
+    forward with explicit M-RoPE positions.  O2: O1's traffic with the int8
+    KV cache: decode tokens/s, the cache's bytes against O1's, the prefill
+    logits equal to O1's and O2's top-1 against O1's logits with O1's
+    tokens fed; card vs CPU at depth 2.  O3: one local phase of Whisper and
+    of Qwen2-VL with the stubs through ``launch/steps.py`` at depth 2, card
+    vs CPU.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path O")
+    t0 = time.perf_counter()
+    base, pool, rec, cfg = serve_cell(O_ARCH, "O1", None, counts, launched, expect, card,
+                                      "path O")
+    n_l = cfg.n_layers
+    o1 = dict(prefill=rec["prefill_logits"], decode=rec["decode_logits"], tokens=rec["tokens"],
+              bytes=cache_bytes(rec["caches"]))
+    before = counts()
+    window = profile_decode(base, pool, cfg, rec, C_PROFILE_STEPS)
+    expect("O1 profile decode", launched(before), gathered_lora_matmul=2 * n_l * C_PROFILE_STEPS,
+           gathered_lora_matmul_tc=2 * n_l * C_PROFILE_STEPS)
+    print(f"[path O] {card} | O1 {busy_line(f'{C_PROFILE_STEPS} decode steps', *window)}",
+          flush=True)
+    del base, pool, rec
+    torch.cuda.empty_cache()
+    card_vs_cpu(cfg, np.random.default_rng(4), "path O O1", card, counts, launched, expect,
+                dict(gathered_lora_matmul=4, local_attention=2), prompt_lens=O_CPU_PROMPTS,
+                steps=NO_CPU_STEPS)
+    o1_positions_card_vs_cpu(cfg, card, counts, launched, expect)
+    torch.cuda.empty_cache()
+
+    base, pool, rec, cfg_q = serve_cell(O_ARCH, "O2", None, counts, launched, expect, card,
+                                        "path O", kv_quant=True)
+    ratio = cache_bytes(rec["caches"]) / o1["bytes"]
+    if not torch.equal(rec["prefill_logits"], o1["prefill"]):
+        raise AssertionError("path O O2: prefill logits differ from O1's (the int8 cache enters "
+                             "only at decode)")
+    before = counts()
+    forced = forced_decode(base, pool, cfg_q, rec, o1["tokens"])
+    expect("O2 forced decode", launched(before), gathered_lora_matmul=2 * n_l * (C_GEN - 1),
+           gathered_lora_matmul_tc=2 * n_l * (C_GEN - 1))
+    agree = [float((torch.argmax(a[:, -1], -1) == torch.argmax(b[:, -1], -1)).float().mean())
+             for a, b in zip(forced, o1["decode"])]
+    gap = max(float((a - b).abs().max()) for a, b in zip(forced, o1["decode"]))
+    same_tokens = int((rec["tokens"] == o1["tokens"]).all(dim=1).sum())
+    print(f"[path O] {card} | O2 int8 KV cache: {rec['tok_s']:.1f} tokens/s against O1's bf16 "
+          f"cache; cache {cache_bytes(rec['caches']) / 1e6:.2f} MB = {ratio:.4f} x O1's "
+          f"{o1['bytes'] / 1e6:.2f} MB; prefill logits equal to O1's; with O1's tokens fed, top-1 "
+          f"equal to O1's at {sum(agree) / len(agree):.4f} of {C_BATCH} x {C_GEN - 1} decode "
+          f"positions (max |logit - O1's| {gap:.4g}); greedy continuations equal to O1's "
+          f"{same_tokens}/{C_BATCH}", flush=True)
+    before = counts()
+    window = profile_decode(base, pool, cfg_q, rec, C_PROFILE_STEPS)
+    expect("O2 profile decode", launched(before), gathered_lora_matmul=2 * n_l * C_PROFILE_STEPS,
+           gathered_lora_matmul_tc=2 * n_l * C_PROFILE_STEPS)
+    print(f"[path O] {card} | O2 {busy_line(f'{C_PROFILE_STEPS} decode steps', *window)}",
+          flush=True)
+    del base, pool, rec, forced, o1
+    torch.cuda.empty_cache()
+    card_vs_cpu(cfg_q, np.random.default_rng(5), "path O O2", card, counts, launched, expect,
+                dict(gathered_lora_matmul=4, local_attention=2), prompt_lens=O_CPU_PROMPTS,
+                steps=NO_CPU_STEPS)
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs import get_config
+
+    for arch, seq in O3_CASES:
+        full = get_config(arch)
+        cfg3 = full.replace(n_layers=2, n_encoder_layers=min(full.n_encoder_layers, 2),
+                            dtype="float32")
+        lora = tenant_adapter(cfg3, 302)
+        # Two phases on the card (SGD, then Adam), 2 steps each.
+        per = 4 if full.encoder_decoder else 2
+        attn = 4 if full.encoder_decoder else 2
+        before = counts()
+        i3_local_phase(arch, 2, lora, card, f"O3 {arch}", tag="path O", seq=seq)
+        expect(f"O3 {arch}", launched(before), gathered_lora_matmul=4 * 2 * per,
+               local_attention=4 * attn)
+        torch.cuda.empty_cache()
+    total = launched(start)
+    print(f"[path O] {card} | wall {time.perf_counter() - t0:.1f} s, launches {total} by phase "
+          f"{phase}", flush=True)
+    return total
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repro_torch package is not beside this script", file=sys.stderr)
@@ -3767,6 +4149,8 @@ def main() -> int:
     _, paths["K"] = run_path("K", main_path_k, counts, smi)
     _, paths["L"] = run_path("L", main_path_l, counts, smi)
     _, paths["M"] = run_path("M", main_path_m, counts, smi)
+    _, paths["N"] = run_path("N", main_path_n, counts, smi)
+    _, paths["O"] = run_path("O", main_path_o, counts, smi)
     launches = {k: sum(p[k] for p in paths.values()) for k in wrappers}
     for name, n in launches.items():
         if n == 0:
@@ -3796,16 +4180,20 @@ def main() -> int:
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             **{k: r[k] for k in timed}, "launches_path_j": paths["J"][name],
-            **{f"launches_path_{p.lower()}": paths[p][name] for p in "KLM"},
+            **{f"launches_path_{p.lower()}": paths[p][name] for p in "KLMNO"},
         })
         if name == "local_attention":
             # The same kernel at path J's prefill shape (D = 256, window 2048)
             # and at path L1's (D = 256, full causal).
             kernels[-1]["rg_prefill"] = {k: rec["local_attention_rg"][k] for k in timed}
             kernels[-1]["gemma_prefill"] = {k: rec["local_attention_gemma"][k] for k in timed}
+            # Path N's encoder: bidirectional over 1500 frames (row 7d).
+            kernels[-1]["encoder_prefill"] = {k: rec["local_attention_encoder"][k]
+                                              for k in timed}
         if name == "gathered_lora_matmul":
-            # At the q / v shapes of paths L and M, prefill and decode (LORA_LM).
-            for key in LORA_SLICE11:
+            # At the q / v shapes of paths L, M, N and O, prefill and decode
+            # (LORA_LM, LORA_NO).
+            for key in LORA_SLICE11 + LORA_SLICE12:
                 kernels[-1][key] = {k: rec[f"{name}_{key}"][k] for k in timed}
     print(f"[train fn] {smi} | forward (kernel) and backward (plain) per Function, with "
           f"path I's launches: " + json.dumps(

@@ -30,7 +30,11 @@ def model_from_jax(params: Any, cfg, device="cpu"):
     stacks layer ``i`` at group ``i // unit`` of pattern slot ``i % unit``
     and keeps the layers past the last whole unit unstacked in ``tail``
     (layer ``n_groups * unit + j`` is ``params["tail"][j]``); here each
-    layer is its own ``Block``.  Bits are kept."""
+    layer is its own ``Block``.  An encoder-decoder config's encoder stacks
+    its layers in one group (``params["encoder"]["groups"][0]``, layer ``i``
+    at index ``i``) beside its ``final_norm`` and ``pos_embed``; the
+    decoder's ``pos_embed``, cross sub-blocks and biases sit where the
+    module names say.  Bits are kept."""
     from repro_torch.models.model import DecoderLM
 
     model = DecoderLM(cfg, None, device=device)
@@ -39,7 +43,9 @@ def model_from_jax(params: Any, cfg, device="cpu"):
     with torch.no_grad():
         for name, p in model.named_parameters():
             path = name.split(".")
-            if path[0] == "layers" and int(path[1]) >= n_grouped:
+            if path[:2] == ["encoder", "layers"]:
+                node, index, path = params["encoder"]["groups"][0], int(path[2]), path[3:]
+            elif path[0] == "layers" and int(path[1]) >= n_grouped:
                 node, path, index = params["tail"][int(path[1]) - n_grouped], path[2:], None
             elif path[0] == "layers":
                 i = int(path[1])

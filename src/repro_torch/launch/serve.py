@@ -11,19 +11,33 @@ pool in place.  ``--merged`` serves the mean of all adapters instead
 ``ssd_scan`` kernel), ``recurrentgemma-2b`` (RG-LRU and sliding-window
 attention blocks with a ring cache, two tail layers, GeGLU, MQA at head
 width 256), the dense ``gemma-7b``, ``qwen1.5-32b`` and ``deepseek-67b``
-(untied head), or the MoE ``granite-moe-1b-a400m`` and
-``llama4-maverick-400b-a17b`` (the whole batch routed as one group).
+(untied head), the MoE ``granite-moe-1b-a400m`` and
+``llama4-maverick-400b-a17b`` (the whole batch routed as one group), the
+encoder-decoder ``whisper-medium`` (prompts are decoder prefixes over stub
+audio frames; the encoder runs once at prefill and each decoder layer
+attends to its cross cache at decode) or ``qwen2-vl-2b`` (M-RoPE; stub
+vision embeddings over the first 256 positions).  The stubs come from the
+CLI's numpy generator after the prompts (``_make_batch``), so one
+``--seed`` gives both packages the same inputs.  Any config serves with an
+int8 KV cache when its ``kv_quant`` is set (``cfg.replace(kv_quant=True)``
+for the serving functions).
 
 On a card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --batch 8 --prompt-len 512 --gen 32 --n-adapters 4 --pool-slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
       --batch 8 --prompt-len 2560 --gen 32 --n-adapters 4 --pool-slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+      --batch 8 --prompt-len 416 --gen 32 --n-adapters 4 --pool-slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b \\
+      --batch 8 --prompt-len 512 --gen 32 --n-adapters 4 --pool-slots 8
 On the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduced \\
       --device cpu --batch 4 --prompt-len 16 --gen 8 --n-adapters 3 --pool-slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced \\
       --device cpu --prompt-len 40
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --reduced \\
+      --device cpu --batch 4 --prompt-len 16 --gen 8 --n-adapters 3
 """
 from __future__ import annotations
 
@@ -43,6 +57,15 @@ from repro_torch.serve import AdapterPool, adapter_view
 from repro_torch.utils.pytree import tree_map
 
 log = logging.getLogger("repro_torch.serve")
+
+
+def gather_adapters(stacked_lora, request_ids):
+    """Per-request adapters materialized by a gather over the stacked
+    adapters' leading axis: (n_adapters, ...) -> (B, ...).  Serving does
+    not take this path: the pool and ``adapter_view`` read each request's
+    slot in place.  Kept as the reference keeps it, as a baseline."""
+    ids = torch.as_tensor(request_ids, dtype=torch.int64)
+    return tree_map(lambda leaf: leaf.index_select(0, ids.to(leaf.device)), stacked_lora)
 
 
 @dataclass
@@ -90,14 +113,35 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1:], dim=-1)
 
 
-def serve_batch(base, pool, scheduler, cfg, *, gen: int, prefill_fn, decode_fn):
+def _make_batch(cfg, tokens: torch.Tensor, rng) -> dict:
+    """The prefill batch of ``tokens`` (B, S) with the config's frontend
+    stub, drawn from the numpy generator ``rng`` in the reference's order
+    and dtype: ``vision_embeds`` (B, n_vision_tokens, d_model) for a VLM,
+    ``encoder_frames`` (B, encoder_seq, d_model) for an audio model, each
+    N(0, 1) in float64 cast to ``cfg.dtype``."""
+    batch = {"tokens": tokens}
+    b = tokens.shape[0]
+    stub = lambda n: torch.as_tensor(rng.normal(size=(b, n, cfg.d_model))).to(
+        device=tokens.device, dtype=getattr(torch, cfg.dtype))
+    if cfg.frontend in ("vision", "audio") and rng is None:
+        raise ValueError(f"{cfg.name}: the {cfg.frontend} stub needs a numpy generator (rng)")
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = stub(cfg.n_vision_tokens)
+    if cfg.frontend == "audio":
+        batch["encoder_frames"] = stub(cfg.encoder_seq)
+    return batch
+
+
+def serve_batch(base, pool, scheduler, cfg, *, gen: int, prefill_fn, decode_fn, rng=None):
     """Drain one batch from the scheduler: prefill + greedy decode of
-    ``gen`` tokens.  Returns (requests, tokens (B, gen)) or None."""
+    ``gen`` tokens.  Returns (requests, tokens (B, gen)) or None.  ``rng``
+    (a numpy generator) draws the frontend stubs (``_make_batch``); configs
+    without a frontend take none."""
     item = scheduler.next_batch()
     if item is None:
         return None
     requests, tokens, slots = item
-    logits, caches = prefill_fn(base, pool.pooled, slots, {"tokens": tokens})
+    logits, caches = prefill_fn(base, pool.pooled, slots, _make_batch(cfg, tokens, rng))
     caches = extend_caches(caches, gen, cfg)
     tok = greedy(logits)
     generated = [tok]
@@ -128,10 +172,11 @@ def merge_adapter_means(adapters):
     return tree_map(lambda *xs: torch.stack(xs).mean(dim=0), *adapters)
 
 
-def serve_merged(base, lora, tokens, cfg, *, gen: int):
+def serve_merged(base, lora, tokens, cfg, *, gen: int, rng=None):
     """Prefill + greedy decode with one 2-D adapter for every request (the
-    ``--merged`` path).  Returns tokens (B, gen)."""
-    logits, caches, _ = forward(base, lora, {"tokens": tokens}, cfg, mode="prefill")
+    ``--merged`` path), the frontend stubs drawn from ``rng``
+    (``_make_batch``).  Returns tokens (B, gen)."""
+    logits, caches, _ = forward(base, lora, _make_batch(cfg, tokens, rng), cfg, mode="prefill")
     caches = extend_caches(caches, gen, cfg)
     tok = greedy(logits)
     generated = [tok]
@@ -167,6 +212,8 @@ def main(argv=None):
     cfg = cfglib.get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.encoder_decoder:
+        log.info("enc-dec arch: prompts are decoder prefixes over stub audio frames")
     base = init_params(cfg, seed=args.seed, device=device)
     adapters = [init_lora_params(cfg, seed=args.seed + 10 + i, device=device)
                 for i in range(args.n_adapters)]
@@ -184,7 +231,7 @@ def main(argv=None):
                     args.n_adapters)
         t0 = synced()
         out = serve_merged(base, merge_adapter_means(adapters),
-                           torch.as_tensor(prompts, device=device), cfg, gen=args.gen)
+                           torch.as_tensor(prompts, device=device), cfg, gen=args.gen, rng=rng)
         dt = synced() - t0
         log.info("served %d requests (merged): %d tokens/req in %.2fs", args.batch,
                  args.gen, dt)
@@ -201,7 +248,7 @@ def main(argv=None):
     prefill_fn, decode_fn = make_serving_fns(cfg)
     t0 = synced()
     requests, out = serve_batch(base, pool, scheduler, cfg, gen=args.gen,
-                                prefill_fn=prefill_fn, decode_fn=decode_fn)
+                                prefill_fn=prefill_fn, decode_fn=decode_fn, rng=rng)
     dt = synced() - t0
     log.info("served %d requests across %d tenants: %d tokens/req in %.2fs "
              "(%.1f tok/s aggregate)", len(requests), min(args.n_adapters, args.batch),

@@ -38,6 +38,22 @@ Tree = Any
 #: Salt of the cohort draw (the reference folds 0x5EED into its key).
 COHORT_SALT = 0x5EED
 
+#: Frontend inputs that ride along the client axis beside tokens and labels:
+#: ``vision_embeds`` (M, per_client, n_vision, D), ``encoder_frames``
+#: (M, per_client, S_enc, D) and M-RoPE ``positions`` (M, 3, per_client, S),
+#: each client's slice being what the reference's vmapped client sees.
+_EXTRA_KEYS = ("vision_embeds", "encoder_frames", "positions")
+
+
+def _client_rows(key: str, x: torch.Tensor, sl: slice) -> torch.Tensor:
+    """The rows ``sl`` of every client's batch as one batch: (n * width, ...)
+    for tokens, labels and the stubs, (3, n * width, S) for positions."""
+    if key == "positions":
+        part = x[:, :, sl]
+        return part.transpose(0, 1).reshape(3, -1, part.shape[-1])
+    part = x[:, sl]
+    return part.reshape(-1, *part.shape[2:])
+
 
 def cohort_mask(agg_key, n_slots: int, clients_per_round: int) -> torch.Tensor:
     """The (n_slots,) float32 CPU validity mask of a partial-participation
@@ -66,7 +82,8 @@ def make_local_step(
 
     ``(model, lora_global, batch, agg_key=None, mask=None) -> (deltas,
     loss, mask)``: ``batch`` holds ``tokens`` and ``labels`` of shape
-    (M, per_client, S) on the model's device.  Every client starts from
+    (M, per_client, S) on the model's device, and the config's frontend
+    inputs when it has any (``_EXTRA_KEYS``).  Every client starts from
     ``lora_global`` and takes ``local_steps`` steps of SGD or Adam
     (``local_optimizer``); ``deltas`` are the stacked (M, ...) differences,
     ``loss`` the (masked) mean over clients of each client's last-step loss.
@@ -84,18 +101,17 @@ def make_local_step(
     if local_optimizer not in ("sgd", "adam"):
         raise ValueError(f"unknown local optimizer {local_optimizer!r}")
 
-    def per_client_loss(model, params, tokens, labels, n):
-        rows = tokens.shape[0]
-        slots = torch.arange(n, dtype=torch.int32, device=tokens.device).repeat_interleave(
-            rows // n)
+    def per_client_loss(model, params, rows_batch, n):
+        rows = rows_batch["tokens"].shape[0]
+        slots = torch.arange(n, dtype=torch.int32,
+                             device=rows_batch["tokens"].device).repeat_interleave(rows // n)
         view = adapter_view(params, slots)
-        return model_lib.client_losses(model, view, {"tokens": tokens, "labels": labels}, cfg,
-                                       n, remat=remat)
+        return model_lib.client_losses(model, view, rows_batch, cfg, n, remat=remat)
 
-    def loss_and_grads(model, params, tokens, labels):
+    def loss_and_grads(model, params, batch):
         """Per-client losses (n,) and the gradients of their sum, averaged
         over the microbatch slices."""
-        n, per = tokens.shape[0], tokens.shape[1]
+        n, per = batch["tokens"].shape[0], batch["tokens"].shape[1]
         if per % microbatch:
             raise ValueError(f"per-client batch {per} is not divisible by microbatch "
                              f"{microbatch}")
@@ -105,9 +121,8 @@ def make_local_step(
         loss, grads = 0.0, None
         for i in range(microbatch):
             sl = slice(i * width, (i + 1) * width)
-            t = tokens[:, sl].reshape(n * width, -1)
-            y = labels[:, sl].reshape(n * width, -1)
-            li = per_client_loss(model, live, t, y, n)
+            li = per_client_loss(model, live, {k: _client_rows(k, x, sl)
+                                               for k, x in batch.items()}, n)
             gi = torch.autograd.grad(li.sum(), leaves)
             loss = loss + li.detach()
             grads = list(gi) if grads is None else [a + b for a, b in zip(grads, gi)]
@@ -117,8 +132,8 @@ def make_local_step(
         return loss, tree_unflatten(params, grads)
 
     def local_step(model, lora_global, batch, agg_key=None, mask=None):
-        tokens, labels = batch["tokens"], batch["labels"]
-        m = tokens.shape[0]
+        batch = {k: batch[k] for k in ("tokens", "labels", *_EXTRA_KEYS) if k in batch}
+        m = batch["tokens"].shape[0]
         if clients_per_round > m:
             raise ValueError(f"clients_per_round={clients_per_round} exceeds the batch's "
                              f"{m} client slots")
@@ -127,20 +142,20 @@ def make_local_step(
                 raise ValueError("clients_per_round > 0 requires an agg_key per round")
             mask = cohort_mask(agg_key, m, clients_per_round)
         mask_cpu = None if mask is None else torch.as_tensor(mask, dtype=torch.float32).cpu()
-        dev = tokens.device
+        dev = batch["tokens"].device
         if mask_cpu is None:
             act = None
         else:
             act = torch.nonzero(mask_cpu > 0).flatten().to(dev)
-            tokens, labels = tokens.index_select(0, act), labels.index_select(0, act)
-        n = tokens.shape[0]
+            batch = {k: x.index_select(0, act) for k, x in batch.items()}
+        n = batch["tokens"].shape[0]
         start = tree_map(lambda x: x.detach().unsqueeze(0).expand(n, *x.shape).clone(),
                          lora_global)
         opt = adam(local_lr) if local_optimizer == "adam" else sgd(local_lr)
         params, state = start, opt.init(start)
         loss = None
         for _ in range(local_steps):
-            loss, grads = loss_and_grads(model, params, tokens, labels)
+            loss, grads = loss_and_grads(model, params, batch)
             upd, state = opt.update(grads, state, params)
             params = apply_updates(params, upd)
         deltas = tree_map(lambda a, b: (a - b).detach(), params, start)

@@ -1,10 +1,12 @@
-"""Decoder block: pre-norm mixer and optional FFN or MoE with residuals
-(port of ``repro/models/blocks.py``).  This slice runs the ``"attn"`` mixer
-(full causal attention), ``"local_attn"`` (sliding-window attention, a ring
-cache at decode), ``"ssd"`` (Mamba-2) and ``"rglru"`` (Griffin's RG-LRU),
-each with a SwiGLU or GeGLU FFN when ``d_ff > 0`` (a mixture of SwiGLU
-experts when ``n_experts > 0``) and none when ``d_ff == 0``;
-cross-attention and the plain GELU FFN raise."""
+"""Transformer block: pre-norm mixer, optional cross-attention and optional
+FFN or MoE, with residuals (port of ``repro/models/blocks.py``).  The mixer
+is ``"attn"`` (full attention, causal or, in an encoder, bidirectional),
+``"local_attn"`` (sliding-window attention, a ring cache at decode),
+``"ssd"`` (Mamba-2) or ``"rglru"`` (Griffin's RG-LRU); decoder blocks of an
+encoder-decoder config (Whisper) add cross-attention over the encoder's
+output (``norm_cross``, ``cross``); the FFN is SwiGLU, GeGLU or the plain
+GELU MLP when ``d_ff > 0`` (a mixture of SwiGLU experts when
+``n_experts > 0``) and none when ``d_ff == 0``."""
 from __future__ import annotations
 
 from torch import nn
@@ -12,35 +14,15 @@ from torch import nn
 from repro_torch.models import attention, ffn, layers, moe, rglru, ssd
 
 ATTN_KINDS = ("attn", "local_attn")
-PORTED_MIXERS = ATTN_KINDS + ("ssd", "rglru")
-
-
-def check_ported(cfg) -> None:
-    """Raise for any part of ``cfg`` this slice does not run."""
-    missing = []
-    if any(k not in PORTED_MIXERS for k in cfg.layer_pattern):
-        missing.append(f"mixers {cfg.layer_pattern}")
-    if cfg.encoder_decoder:
-        missing.append("cross-attention")
-    if cfg.frontend:
-        missing.append(f"the {cfg.frontend} frontend")
-    if cfg.mrope:
-        missing.append("M-RoPE")
-    if cfg.kv_quant:
-        missing.append("the int8 KV cache")
-    if cfg.d_ff and not cfg.n_experts and cfg.ffn_kind not in ffn.GATED:
-        missing.append(f"ffn {cfg.ffn_kind!r}")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md queue 1, item 8)"
-        )
 
 
 def lora_dims(cfg, kind: str) -> dict:
-    """{target: (d_in, d_out)} of the adapters of a ``kind`` block: the
-    attention projections in ``cfg.lora.targets``, or the recurrent mixers'
-    input ("q": SSD ``in_proj``, RG-LRU ``proj_x``) and output ("v":
-    ``out_proj``) projections."""
+    """{target: (d_in, d_out)} of the adapters of a ``kind`` block's mixer:
+    the attention projections in ``cfg.lora.targets``, or the recurrent
+    mixers' input ("q": SSD ``in_proj``, RG-LRU ``proj_x``) and output ("v":
+    ``out_proj``) projections; ``kind="cross"`` gives those of the
+    cross-attention sub-block (the attention projections in
+    ``cfg.lora.targets``)."""
     if kind == "ssd":
         return ssd.lora_dims(cfg)
     if kind == "rglru":
@@ -51,11 +33,13 @@ def lora_dims(cfg, kind: str) -> dict:
 
 class Block(nn.Module):
     """One layer: ``norm1``, ``mixer`` (attention q, k, v, o, the SSD mixer
-    or the RG-LRU block) and, when ``d_ff > 0``, ``norm2`` and ``ffn``
-    (gate, up, down) or, when ``n_experts > 0``, ``moe`` (router and the
-    stacked experts), keyed as the reference's block pytree."""
+    or the RG-LRU block), with ``cross=True`` ``norm_cross`` and ``cross``
+    (cross-attention q, k, v, o), and, when ``d_ff > 0``, ``norm2`` and
+    ``ffn`` (gate, up, down; up and down with biases for the GELU MLP) or,
+    when ``n_experts > 0``, ``moe`` (router and the stacked experts), keyed
+    as the reference's block pytree."""
 
-    def __init__(self, cfg, kind: str, gen, *, dtype, device):
+    def __init__(self, cfg, kind: str, gen, *, dtype, device, cross: bool = False):
         super().__init__()
         self.kind = kind
         self.norm1 = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
@@ -67,6 +51,9 @@ class Block(nn.Module):
             self.mixer = rglru.init_rglru(gen, cfg, dtype=dtype, device=device)
         else:
             raise ValueError(kind)
+        if cross:
+            self.norm_cross = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
+            self.cross = attention.init_attention(gen, cfg, dtype=dtype, device=device)
         if cfg.d_ff > 0:
             self.norm2 = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
             if cfg.n_experts > 0:
@@ -77,12 +64,16 @@ class Block(nn.Module):
                                         device=device)
 
     def forward(self, x, lora, cfg, *, positions, mode: str, cache=None, cache_index=None,
-                groups: int = 1):
-        """Returns (x, new_cache, aux); ``new_cache`` is ``{"self": KVCache}``,
-        ``{"self": SSMState}`` or ``{"self": LRUState}`` in prefill and
-        decode, None otherwise; ``aux`` (groups,) is the MoE's load-balance
-        loss of each of ``groups`` contiguous row groups (``moe.apply_moe``),
-        None without experts."""
+                groups: int = 1, encoder_out=None, use_rope: bool = True, causal: bool = True):
+        """Returns (x, new_cache, aux); ``new_cache`` is ``{"self": KVCache}``
+        (a ``QuantKVCache`` with ``cfg.kv_quant``), ``{"self": SSMState}`` or
+        ``{"self": LRUState}`` in prefill and decode, with ``"cross"``, the
+        cross cache of the encoder's K and V, in a block with cross-attention;
+        None otherwise.  ``aux`` (groups,) is the MoE's load-balance loss of
+        each of ``groups`` contiguous row groups (``moe.apply_moe``), None
+        without experts.  ``encoder_out`` is the encoder's output, which
+        cross-attention reads outside decode; ``use_rope`` and ``causal``
+        reach the attention mixer (an encoder passes False for both)."""
         lora = lora or {}
         h = layers.apply_norm(self.norm1, x, cfg.norm_eps)
         self_cache = None if cache is None else cache["self"]
@@ -91,7 +82,8 @@ class Block(nn.Module):
             out, new_self = attention.apply_attention(
                 self.mixer, lora.get("mixer"), h, cfg, positions=positions,
                 window=cfg.window_size if self.kind == "local_attn" else 0, cache=self_cache,
-                cache_index=cache_index, return_cache=prefill,
+                cache_index=cache_index, use_rope=use_rope, causal=causal,
+                return_cache=prefill,
             )
         elif self.kind == "ssd":
             out, new_self = ssd.apply_ssd(
@@ -104,6 +96,15 @@ class Block(nn.Module):
                 lora_scale=cfg.lora.scale, return_state=prefill,
             )
         x = x + out
+        new_cache = {"self": new_self}
+        if hasattr(self, "cross"):
+            hc = layers.apply_norm(self.norm_cross, x, cfg.norm_eps)
+            out, new_cache["cross"] = attention.apply_attention(
+                self.cross, lora.get("cross"), hc, cfg, positions=positions,
+                cache=None if cache is None else cache["cross"], encoder_out=encoder_out,
+                use_rope=False, causal=False, return_cache=prefill, is_cross=True,
+            )
+            x = x + out
         aux = None
         if cfg.d_ff > 0:
             h2 = layers.apply_norm(self.norm2, x, cfg.norm_eps)
@@ -113,4 +114,4 @@ class Block(nn.Module):
                 x = x + out
             else:
                 x = x + ffn.apply_ffn(self.ffn, h2, cfg.ffn_kind)
-        return x, ({"self": new_self} if mode in ("prefill", "decode") else None), aux
+        return x, (new_cache if mode in ("prefill", "decode") else None), aux

@@ -124,8 +124,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([rotated, x_pass], dim=-1)
 
 
-def apply_mrope(x, positions_3d, theta, sections):
-    raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md queue 1, item 8)")
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x: (B, S, H, Dh); positions_3d: (3, B, S),
+    the temporal, height and width position streams.  ``sections`` counts
+    the frequency pairs each stream drives, in order (sum(sections) ==
+    Dh // 2); the rotation is ``apply_rope``'s, over the full head width in
+    non-interleaved halves.  Equal streams (text tokens) reduce it to
+    ``apply_rope`` at ``rope_pct = 1``."""
+    dh = x.shape[-1]
+    assert sum(sections) == dh // 2, (sections, dh)
+    inv_freq = rope_frequencies(dh, theta, device=x.device)  # (Dh/2,)
+    section_ids = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.as_tensor(sections, device=x.device))  # (Dh/2,) in {0, 1, 2}
+    pos = positions_3d.float()[section_ids].permute(1, 2, 0)  # (B, S, Dh/2)
+    angles = pos * inv_freq[None, None, :]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

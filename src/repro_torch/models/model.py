@@ -14,6 +14,15 @@ do not fill a whole unit (RecurrentGemma's 26 = 8 x 3 + 2) are the tail:
 layer ``n_groups * unit + j`` is ``tree["tail"][j]``, with no group axis,
 e.g. ``{"mixer": {"q": {"A": (d_in, r), ...}}}`` and ``{"self": LRUState(h=(B, W), ...)}``.
 
+An encoder-decoder config (Whisper) adds ``DecoderLM.encoder`` (its own
+stack of bidirectional attention blocks over the stub audio frames, with a
+sinusoidal position table) and the decoder's learned position table
+``pos_embed``; each decoder layer then carries a cross-attention
+sub-block, its adapters under ``"cross"`` beside ``"mixer"`` and its cache
+under ``"cross"`` beside ``"self"`` (the encoder's K and V, projected at
+prefill and never padded).  A VLM config (Qwen2-VL) takes the stub
+``vision_embeds`` over its first positions and rotates with M-RoPE.
+
 Modes: ``train`` (full sequence, logits at every position, for
 ``loss_fn``), ``prefill`` (full prompt, caches, last-position logits) and
 ``decode`` (one token against the caches, written in place).  Training
@@ -33,39 +42,82 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import backend
 from repro_torch.models import blocks, layers, rglru, ssd
-from repro_torch.models.kvcache import KVCache, attn_cache
+from repro_torch.models.kvcache import attn_cache
 
 Tree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _normal(shape, gen, *, dtype, device) -> nn.Parameter:
+    """A frozen N(0, 0.02) weight, as the reference draws embeddings and
+    heads; ``gen=None`` leaves it unfilled."""
+    t = torch.empty(shape, dtype=dtype, device=device)
+    if gen is not None:
+        t.normal_(0.0, 0.02, generator=gen)
+    return layers._param(t)
+
+
+def _sinusoidal(length: int, dim: int, device) -> torch.Tensor:
+    """The encoder's fixed position table (length, dim) in float32: sines of
+    position x 10000^(-i / (half - 1)), then cosines (the reference's
+    ``model._sinusoidal``)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    half = dim // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=device)
+                     / max(half - 1, 1))
+    ang = pos * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :dim]
+
+
+#: Rows of the decoder's learned position table (encoder-decoder configs),
+#: the reference's ``cfg_max_positions``.
+MAX_POSITIONS = 32768
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder: ``cfg.n_encoder_layers`` blocks of bidirectional
+    full attention (no cross-attention, no adapters), ``final_norm`` and the
+    sinusoidal ``pos_embed`` of ``cfg.encoder_seq`` rows in the model's
+    dtype, keyed as the reference's ``params["encoder"]``."""
+
+    def __init__(self, cfg, gen: Optional[torch.Generator], *, dtype, device):
+        super().__init__()
+        self.layers = nn.ModuleList(blocks.Block(cfg, "attn", gen, dtype=dtype, device=device)
+                                    for _ in range(cfg.n_encoder_layers))
+        self.final_norm = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
+        self.pos_embed = layers._param(
+            _sinusoidal(cfg.encoder_seq, cfg.d_model, device).to(dtype))
+
+
 class DecoderLM(nn.Module):
     """Token embedding, ``cfg.n_layers`` blocks (layer ``i`` of mixer
     ``cfg.layer_pattern[i % unit]``), final norm, and the output head: the
     embedding (tied) or, when ``not cfg.tie_embeddings``, ``lm_head``
-    (d_model, vocab), N(0, 0.02) as the reference draws it.  ``gen=None``
-    allocates the weights unfilled, for the converter to write."""
+    (d_model, vocab), N(0, 0.02) as the reference draws it.  An
+    encoder-decoder config adds ``encoder`` (``Encoder``), the learned
+    ``pos_embed`` (``MAX_POSITIONS``, d_model), N(0, 0.02), and a
+    cross-attention sub-block in every layer.  ``gen=None`` allocates the
+    weights unfilled, for the converter to write."""
 
     def __init__(self, cfg, gen: Optional[torch.Generator], *, device):
         super().__init__()
-        blocks.check_ported(cfg)
         dtype = _DTYPES[cfg.dtype]
-        embed = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype, device=device)
-        if gen is not None:
-            embed.normal_(0.0, 0.02, generator=gen)
-        self.embed = layers._param(embed)
+        self.embed = _normal((cfg.vocab_size, cfg.d_model), gen, dtype=dtype, device=device)
         if not cfg.tie_embeddings:
-            head = torch.empty((cfg.d_model, cfg.vocab_size), dtype=dtype, device=device)
-            if gen is not None:
-                head.normal_(0.0, 0.02, generator=gen)
-            self.lm_head = layers._param(head)
+            self.lm_head = _normal((cfg.d_model, cfg.vocab_size), gen, dtype=dtype,
+                                   device=device)
         self.final_norm = layers.init_norm(cfg.norm_kind, cfg.d_model, device)
         unit = len(cfg.layer_pattern)
         self.layers = nn.ModuleList(
-            blocks.Block(cfg, cfg.layer_pattern[i % unit], gen, dtype=dtype, device=device)
+            blocks.Block(cfg, cfg.layer_pattern[i % unit], gen, dtype=dtype, device=device,
+                         cross=cfg.encoder_decoder)
             for i in range(cfg.n_layers)
         )
+        if cfg.encoder_decoder:
+            self.encoder = Encoder(cfg, gen, dtype=dtype, device=device)
+            self.pos_embed = _normal((MAX_POSITIONS, cfg.d_model), gen, dtype=dtype,
+                                     device=device)
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda") -> DecoderLM:
@@ -81,16 +133,22 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> DecoderLM:
 def init_lora_params(cfg, *, seed: int = 0, device="cuda") -> Tree:
     """One adapter in the reference's tree layout, A ~ N(0, 1/d_in), B = 0,
     in ``cfg.lora.dtype`` on ``device``; each pattern slot carries the
-    adapters of its mixer (``blocks.lora_dims``)."""
-    blocks.check_ported(cfg)
+    adapters of its mixer and, in an encoder-decoder config, of its
+    cross-attention (``blocks.lora_dims``).  The encoder has none."""
     dev = backend.resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = _DTYPES[cfg.lora.dtype]
 
+    def sub(dims, lead):
+        return {t: layers.init_lora(gen, d_in, d_out, cfg.lora.rank, dtype=dtype, device=dev,
+                                    lead=lead)
+                for t, (d_in, d_out) in dims.items()}
+
     def one(kind, lead):
-        return {"mixer": {t: layers.init_lora(gen, d_in, d_out, cfg.lora.rank, dtype=dtype,
-                                              device=dev, lead=lead)
-                          for t, (d_in, d_out) in blocks.lora_dims(cfg, kind).items()}}
+        node = {"mixer": sub(blocks.lora_dims(cfg, kind), lead)}
+        if cfg.encoder_decoder:
+            node["cross"] = sub(blocks.lora_dims(cfg, "cross"), lead)
+        return node
 
     groups = tuple(one(kind, (cfg.n_pattern_groups,)) for kind in cfg.layer_pattern)
     return {"groups": groups, "tail": tuple(one(kind, ()) for kind in _tail_kinds(cfg))}
@@ -122,17 +180,18 @@ def _layer_trees(tree, cfg):
 
 
 def _layer_caches(caches, cfg):
-    """Per-layer views ``{"self": KVCache | SSMState | LRUState}`` of the
-    group-stacked caches, then the tail's caches; writes through a view land
-    in the stacked tensors."""
+    """Per-layer views ``{"self": KVCache | QuantKVCache | SSMState |
+    LRUState[, "cross": KVCache]}`` of the group-stacked caches, then the
+    tail's caches; writes through a view land in the stacked tensors."""
     unit = len(cfg.layer_pattern)
     if caches is None:
         return [None] * cfg.n_layers
     out = []
     for i in range(cfg.n_pattern_groups * unit):
-        state = caches["groups"][i % unit]["self"]
-        out.append({"self": type(state)(*(t[i // unit] for t in state))})
-    return out + [{"self": c["self"]} for c in caches["tail"]]
+        entry = caches["groups"][i % unit]
+        out.append({key: type(state)(*(t[i // unit] for t in state))
+                    for key, state in entry.items()})
+    return out + [dict(c) for c in caches["tail"]]
 
 
 def _stack_states(states):
@@ -149,6 +208,50 @@ def embed_tokens(model: DecoderLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
+
+
+def _embed_inputs(model: DecoderLM, batch: dict, cfg, mode: str, cache_index):
+    """(x, positions) of a batch: the token embeddings (``embed_tokens``),
+    with a VLM's ``batch["vision_embeds"]`` (B, n_vision, D) over the first
+    positions outside decode (after ``embed_scale``, as the reference
+    splices them) and the decoder's learned position at each position
+    (``cache_index`` when decoding) where the model has ``pos_embed``.
+    Positions are (B, S), or (3, B, S) for M-RoPE: ``batch["positions"]``
+    when given, else all three streams equal."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_tokens(model, tokens, cfg)
+    if cfg.frontend == "vision" and "vision_embeds" in batch and mode != "decode":
+        ve = batch["vision_embeds"].to(x.dtype)
+        x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+    if hasattr(model, "pos_embed"):
+        if mode == "decode":
+            x = x + model.pos_embed[cache_index][None, None, :]
+        else:
+            x = x + model.pos_embed[None, :s, :]
+    if mode == "decode":
+        positions = torch.full((b, s), cache_index, dtype=torch.int64, device=x.device)
+    else:
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    if cfg.mrope:
+        positions = batch["positions"] if "positions" in batch else positions.expand(3, b, s)
+    return x, positions
+
+
+def encode(model: DecoderLM, batch: dict, cfg) -> torch.Tensor:
+    """Whisper's encoder over the stub frame embeddings
+    ``batch["encoder_frames"]`` (B, S_enc, D): the frames plus the sinusoidal
+    positions, the encoder's blocks with bidirectional attention and no
+    RoPE, then its final norm."""
+    enc = model.encoder
+    frames = batch["encoder_frames"].to(_DTYPES[cfg.dtype])
+    b, s = frames.shape[0], frames.shape[1]
+    x = frames + enc.pos_embed[None, :s, :]
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    for blk in enc.layers:
+        x = blk(x, None, cfg, positions=positions, mode="train", use_rope=False,
+                causal=False)[0]
+    return layers.apply_norm(enc.final_norm, x, cfg.norm_eps)
 
 
 def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: str = "prefill",
@@ -170,30 +273,31 @@ def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: s
     position's float32 logits (B, 1, V) and caches sized to the prompt;
     ``decode`` takes one token per request (``batch["tokens"]`` (B, 1)) at
     position ``cache_index``, writes it into ``caches`` in place and
-    returns them.  ``lora`` is None, a 2-D adapter tree
+    returns them.  An encoder-decoder config runs ``encode`` on
+    ``batch["encoder_frames"]`` outside decode (decode reads the cross
+    caches) and no RoPE in the decoder; a VLM's ``batch`` may carry
+    ``vision_embeds`` and ``positions`` (``_embed_inputs``).  ``lora`` is
+    None, a 2-D adapter tree
     (``init_lora_params``, the merged path) or a view with a slot per
     request (``serve.pool.adapter_view``: a pool, or the client-stacked
     adapters of a local training step)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(model, tokens, cfg)
-    if mode == "decode":
-        positions = torch.full((b, s), cache_index, dtype=torch.int64, device=x.device)
-    else:
-        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    x, positions = _embed_inputs(model, batch, cfg, mode, cache_index)
+    encoder_out = None
+    if cfg.encoder_decoder and mode != "decode":
+        encoder_out = encode(model, batch, cfg)
+    kw = dict(positions=positions, mode=mode, groups=groups, encoder_out=encoder_out,
+              use_rope=not cfg.encoder_decoder)  # Whisper: learned positions, no RoPE
     new = []
     aux = torch.zeros((groups,), dtype=torch.float32, device=x.device)
     for blk, lo, c in zip(model.layers, _layer_trees(lora, cfg), _layer_caches(caches, cfg)):
         if remat and mode == "train":
-            x, a = checkpoint(lambda h, lo_, blk_=blk: blk_(h, lo_, cfg, positions=positions,
-                                                            mode=mode, groups=groups)[::2],
+            x, a = checkpoint(lambda h, lo_, blk_=blk: blk_(h, lo_, cfg, **kw)[::2],
                               x, lo, use_reentrant=False)
             nc = None
         else:
-            x, nc, a = blk(x, lo, cfg, positions=positions, mode=mode, cache=c,
-                           cache_index=cache_index, groups=groups)
+            x, nc, a = blk(x, lo, cfg, cache=c, cache_index=cache_index, **kw)
         if a is not None:
             aux = aux + a
         new.append(nc)
@@ -207,7 +311,7 @@ def forward(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, *, mode: s
         unit = len(cfg.layer_pattern)
         n_grouped = cfg.n_pattern_groups * unit
         caches = {"groups": tuple(
-            {"self": _stack_states([c["self"] for c in new[slot:n_grouped:unit]])}
+            {key: _stack_states([c[key] for c in new[slot:n_grouped:unit]]) for key in new[slot]}
             for slot in range(unit)
         ), "tail": tuple(new[n_grouped:])}
     return logits, caches, (aux if groups > 1 else aux.reshape(()))
@@ -255,8 +359,10 @@ def client_losses(model: DecoderLM, lora: Optional[Tree], batch: dict, cfg, n_cl
 
 def init_decode_caches(cfg, batch: int, cache_len: int, dtype=None, *, device="cuda") -> Tree:
     """Zeroed caches for ``cache_len`` positions, in the layout ``forward``
-    returns: a sliding-window ring holds ``min(window, cache_len)``."""
-    blocks.check_ported(cfg)
+    returns: a sliding-window ring holds ``min(window, cache_len)``; with
+    ``cfg.kv_quant`` the attention caches are int8 (``QuantKVCache``); an
+    encoder-decoder config adds a cross cache of ``cfg.encoder_seq``
+    positions to every layer."""
     dev = backend.resolve_device(device)
     dtype = dtype or _DTYPES[cfg.dtype]
     n = cfg.n_pattern_groups
@@ -264,14 +370,21 @@ def init_decode_caches(cfg, batch: int, cache_len: int, dtype=None, *, device="c
     def one(kind):
         if kind in blocks.ATTN_KINDS:
             length = min(cfg.window_size, cache_len) if kind == "local_attn" else cache_len
-            return attn_cache(batch, length, cfg.n_kv_heads, cfg.head_dim_, dtype, device=dev)
-        if kind == "rglru":
-            return rglru.init_lru_state(batch, cfg, dtype, device=dev)
-        return ssd.init_ssm_state(batch, cfg, dtype, device=dev)
+            c = {"self": attn_cache(batch, length, cfg.n_kv_heads, cfg.head_dim_, dtype,
+                                    quantized=cfg.kv_quant, device=dev)}
+        elif kind == "rglru":
+            c = {"self": rglru.init_lru_state(batch, cfg, dtype, device=dev)}
+        else:
+            c = {"self": ssd.init_ssm_state(batch, cfg, dtype, device=dev)}
+        if cfg.encoder_decoder:
+            c["cross"] = attn_cache(batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim_,
+                                    dtype, device=dev)
+        return c
 
     return {"groups": tuple(
-        {"self": _stack_states([one(kind)] * n)} for kind in cfg.layer_pattern
-    ), "tail": tuple({"self": one(kind)} for kind in _tail_kinds(cfg))}
+        {key: _stack_states([state] * n) for key, state in one(kind).items()}
+        for kind in cfg.layer_pattern
+    ), "tail": tuple(one(kind) for kind in _tail_kinds(cfg))}
 
 
 def extend_caches(caches: Tree, extra: int, cfg) -> Tree:
@@ -279,18 +392,20 @@ def extend_caches(caches: Tree, extra: int, cfg) -> Tree:
     prompt, decode writes one position per step in place.
 
     * Full-attention KV buffers gain ``extra`` zero positions on the
-      sequence axis.
+      sequence axis (all four tensors of an int8 ``QuantKVCache``).
     * A sliding-window ring shorter than the window (a prompt shorter than
       it) grows to ``min(window, length + extra)`` zero-padded slots, the
-      size ``init_decode_caches`` gives; a ring already ``window`` long is
-      kept.  Decode at position t then writes slot t % ring and evicts only
-      keys that have left the window, so decode equals the train-mode
-      forward at every prompt length.  The reference pads no ring: after a
-      prompt shorter than the window its decode writes slot t % prompt
-      length and evicts keys still inside the window, so there the port's
-      decode departs from the reference's by design (ROADMAP.md queue 3).
-    * Recurrent states (``"ssd"``, ``"rglru"``) are passed through: they
-      have no sequence axis.
+      size ``init_decode_caches`` gives, bf16 or int8; a ring already
+      ``window`` long is kept.  Decode at position t then writes slot
+      t % ring and evicts only keys that have left the window, so decode
+      equals the train-mode forward at every prompt length.  The reference
+      pads no ring: after a prompt shorter than the window its decode
+      writes slot t % prompt length and evicts keys still inside the
+      window, so there the port's decode departs from the reference's by
+      design (ROADMAP.md queue 3).
+    * Recurrent states (``"ssd"``, ``"rglru"``) and cross caches (the
+      encoder's K and V, every slot of which decode attends) are passed
+      through.
 
     Allocated once per batch, group slots and tail alike."""
     def pad(t, length):
@@ -303,13 +418,13 @@ def extend_caches(caches: Tree, extra: int, cfg) -> Tree:
     def fix(kind, cache):
         state = cache["self"]
         if kind == "attn":
-            length = state.k.shape[-3] + extra
+            length = state[0].shape[-3] + extra
         elif kind == "local_attn":
-            have = state.k.shape[-3]
+            have = state[0].shape[-3]
             length = have if have >= cfg.window_size else min(cfg.window_size, have + extra)
         else:
             return cache
-        return dict(cache, self=KVCache(*(pad(t, length) for t in state)))
+        return dict(cache, self=type(state)(*(pad(t, length) for t in state)))
 
     return {"groups": tuple(fix(kind, g) for kind, g in zip(cfg.layer_pattern, caches["groups"])),
             "tail": tuple(fix(kind, c) for kind, c in zip(_tail_kinds(cfg), caches["tail"]))}
@@ -327,6 +442,7 @@ def param_count(model: nn.Module) -> int:
 
 
 __all__ = [
-    "DecoderLM", "client_losses", "decode_step", "embed_tokens", "extend_caches", "forward",
+    "DecoderLM", "Encoder", "client_losses", "decode_step", "embed_tokens", "encode",
+    "extend_caches", "forward",
     "init_decode_caches", "init_lora_params", "init_params", "loss_fn", "param_count",
 ]

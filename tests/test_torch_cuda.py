@@ -379,14 +379,18 @@ def lora_case(cuda, m, k, n, r, dtype, n_slots=8, seed=0):
 # and the q / v projections (K -> N) of Gemma-7B 3072 -> 4096, Qwen1.5-32B
 # and Llama-4-Maverick 5120 -> 5120 and 5120 -> 1024, DeepSeek-67B 8192 ->
 # 8192 and 8192 -> 1024, Granite-MoE 1024 -> 1024 and 1024 -> 512, each at
-# prefill and decode) take the tensor route in bf16, K split at decode;
-# float32 and the ragged (129, 513, 130) take the scalar route.
+# prefill and decode; Whisper-medium's q and v on the decoder's 8 x 416 rows
+# and its cross v on the encoder's 8 x 1500, Qwen2-VL-2B's q 1536 -> 1536 and
+# v 1536 -> 256, each also at decode) take the tensor route in bf16, K split
+# at decode; float32 and the ragged (129, 513, 130) take the scalar route.
 LM_QV = [(3072, 4096), (5120, 5120), (5120, 1024), (8192, 8192), (8192, 1024), (1024, 1024),
          (1024, 512)]
+NO_QV = [(3328, 1024, 1024), (12000, 1024, 1024), (4096, 1536, 1536), (4096, 1536, 256)]
 LORA_SHAPES = [(4096, 2048, 2048, 8), (8, 2048, 2048, 8), (4096, 768, 3352, 8),
                (8, 768, 3352, 8), (4096, 1536, 768, 8), (8, 1536, 768, 8),
                (129, 513, 130, 8), (5, 64, 40, 33),
-               *((m, k, n, 8) for k, n in LM_QV for m in (4096, 8))]
+               *((m, k, n, 8) for k, n in LM_QV for m in (4096, 8)),
+               *((m_, k, n, 8) for m, k, n in NO_QV for m_ in (m, 8))]
 
 
 def route_counts(fn):
@@ -438,7 +442,11 @@ def test_lora_kernels_match_plain(cuda, dtype, m, k, n, r):
     # 2048 past S = 2560), a ragged S, non-causal; and D = 128.
     (80, 2560, 256, 2048, True), (10, 700, 256, 300, True), (16, 333, 256, 0, True),
     (16, 300, 256, 0, False), (64, 512, 128, 0, True), (8, 300, 128, 100, True),
-    (8, 300, 128, 0, False)])
+    (8, 300, 128, 0, False),
+    # Whisper-medium's encoder (8 requests x 16 heads over 1500 frames,
+    # bidirectional, no multiple of the tiles) and decoder prefill (416);
+    # Qwen2-VL-2B's prefill (8 x 12 heads, D 128).
+    (128, 1500, 64, 0, False), (128, 416, 64, 0, True), (96, 512, 128, 0, True)])
 def test_local_attention_kernel_matches_plain(cuda, dtype, bh, s, d, window, causal):
     """bf16 on the tensor route, float32 on the scalar one; causal and not;
     head widths 32 to 256."""
@@ -512,6 +520,93 @@ def test_reduced_serving_card_matches_cpu(cuda):
     want, _ = pre(cpu_base, cpu_pool.pooled, cpu_pool.acquire(["t0", "t1", "t2", "t0"]),
                   {"tokens": toks})
     torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-2b"])
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_reduced_frontend_serving_card_matches_cpu(cuda, arch, kv_quant):
+    """Reduced Whisper (encoder, cross-attention over stub frames) and
+    Qwen2-VL (M-RoPE, vision stub) in float32 through the pool on the card
+    against the CPU on the same weights, adapters and stubs: prefill logits,
+    then 3 decode steps of the CPU's greedy tokens (with ``kv_quant`` both
+    decode from the CPU's int8 cache bits, the card's own prefill caches at
+    most one step off in at most 1e-3 of the values); logits within 1e-4 of
+    the largest.  Launches: the gathered kernel at every adapted projection
+    (Whisper: self and cross q and v at prefill, cross v on the frames' rows;
+    self q, v and cross q at decode), attention at every encoder and decoder
+    layer at prefill."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import local_attention as la
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.launch import serve
+    from repro_torch.models import init_lora_params, init_params
+    from repro_torch.models.kvcache import QuantKVCache
+    from repro_torch.serve import AdapterPool
+    from repro_torch.utils.pytree import tree_map, tree_to
+
+    cfg = get_config(arch).reduced().replace(kv_quant=kv_quant)
+    base = init_params(cfg, seed=0, device=cuda)
+    cpu_base = copy.deepcopy(base).cpu()
+    pool = AdapterPool(init_lora_params(cfg, seed=1, device=cuda), 4)
+    cpu_pool = AdapterPool(tree_to(init_lora_params(cfg, seed=1, device=cuda), "cpu"), 4)
+    for i in range(3):
+        tree = init_lora_params(cfg, seed=2 + i, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(i)
+        for sub in tree["groups"][0].values():
+            for node in sub.values():
+                node["B"].normal_(0.0, 0.3, generator=g)
+        pool.publish(f"t{i}", tree)
+        cpu_pool.publish(f"t{i}", tree_to(tree, "cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (4, 40), generator=torch.Generator().manual_seed(0))
+    batch = serve._make_batch(cfg, toks, np.random.default_rng(0))
+    pre, dec = serve.make_serving_fns(cfg)
+    ids = ["t0", "t1", "t2", "t0"]
+    n_l, n_enc = cfg.n_layers, cfg.n_encoder_layers
+    before = (lm.gathered_lora_matmul.launches, la.local_attention.launches)
+    got, caches = pre(base, pool.pooled, pool.acquire(ids),
+                      {k: v.to(cuda) for k, v in batch.items()})
+    assert (lm.gathered_lora_matmul.launches - before[0], la.local_attention.launches - before[1]
+            ) == ((4 if cfg.encoder_decoder else 2) * n_l, n_l + n_enc)
+    want, cpu_caches = pre(cpu_base, cpu_pool.pooled, cpu_pool.acquire(ids), batch)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
+    caches = serve.extend_caches(caches, 4, cfg)
+    cpu_caches = serve.extend_caches(cpu_caches, 4, cfg)
+    if kv_quant:
+        for c, w in zip(caches["groups"], cpu_caches["groups"]):
+            assert isinstance(c["self"], QuantKVCache)
+            for x, y in zip(c["self"][:2], w["self"][:2]):
+                diff = (x.cpu().int() - y.int()).abs()
+                assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+        caches = tree_map(lambda t: t.to(cuda), cpu_caches)
+    tok = torch.argmax(want[:, -1:], -1)
+    slots, cpu_slots = pool.acquire(ids), cpu_pool.acquire(ids)
+    for i in range(3):
+        before = lm.gathered_lora_matmul.launches
+        got, caches = dec(base, pool.pooled, slots, tok.to(cuda), caches, 40 + i)
+        assert lm.gathered_lora_matmul.launches - before == (3 if cfg.encoder_decoder else 2) * n_l
+        want, cpu_caches = dec(cpu_base, cpu_pool.pooled, cpu_slots, tok, cpu_caches, 40 + i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
+        tok = torch.argmax(want[:, -1:], -1)
+
+
+@pytest.mark.gpu
+def test_quantize_kv_on_the_card_is_the_cpu_bits(cuda):
+    """``quantize_kv`` on the card gives the CPU's int8 values and float16
+    scales bit for bit on the same float32 and bf16 inputs."""
+    from repro_torch.models.kvcache import dequantize_kv, quantize_kv
+
+    x = torch.randn((8, 300, 2, 128), generator=torch.Generator().manual_seed(5)) * 4
+    for t in (x, x.to(torch.bfloat16)):
+        q, sc = quantize_kv(t.to(cuda))
+        wq, wsc = quantize_kv(t)
+        assert torch.equal(q.cpu(), wq) and torch.equal(sc.cpu(), wsc)
+        assert torch.equal(dequantize_kv(q, sc, torch.bfloat16).cpu(),
+                           dequantize_kv(wq, wsc, torch.bfloat16))
 
 
 # ssd_scan: the kernel sums each 64-position tile where the plain version

@@ -132,11 +132,21 @@ def test_config_matches_reference_and_builds_at_full_width():
                                     dict(ffn_kind="gelu"), dict(frontend="vision")])
 def test_check_ported_still_refuses(change):
     """The audio and vision frontends, cross-attention, M-RoPE, the int8
-    cache and the GELU MLP stay refused on the RecurrentGemma config (MoE and
-    the untied head are ported: ``tests/test_torch_moe.py``,
-    ``tests/test_torch_dense.py``)."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        blocks.check_ported(get_config(ARCH).reduced().replace(**change))
+    cache and the GELU MLP each build on the reduced RecurrentGemma config,
+    each leaf of the reference's tree
+    carried into the port's model (``model_from_jax`` checks every shape)
+    with the reference's parameter count, and its LoRA tree has the
+    reference's leaves."""
+    cfg = get_config(ARCH).reduced().replace(**change)
+    jcfg = jconfigs.get_config(ARCH).reduced().replace(**change)
+    jp = jinit(jax.random.PRNGKey(0), jcfg)
+    model = model_from_jax(jax.tree_util.tree_map(np.asarray, jp), cfg)
+    assert models.model.param_count(model) == sum(
+        int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(jp))
+    jl = jax.eval_shape(lambda k: jinit_lora(k, jcfg), jax.random.PRNGKey(1))
+    tl = models.init_lora_params(cfg, device="cpu")
+    assert [tuple(x.shape) for x in tree_leaves(tl)] == [
+        tuple(x.shape) for x in jax.tree_util.tree_leaves(jl)]
 
 
 # --- the RG-LRU block ---------------------------------------------------------------

@@ -300,14 +300,13 @@ def test_prefill_and_decode_match_jax(pair, adapter):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_matches_reference_and_builds_at_full_width(arch):
-    """Field for field, reduced too; ``check_ported`` takes it; the full
-    model built unfilled on the meta device has the reference's parameter
-    count, with ``moe`` in place of ``ffn`` in every block."""
+    """Field for field, reduced too; the full model built unfilled on the
+    meta device has the reference's parameter count, with ``moe`` in place
+    of ``ffn`` in every block."""
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jconfigs.get_config(arch))
     assert (dataclasses.asdict(get_config(arch).reduced())
             == dataclasses.asdict(jconfigs.get_config(arch).reduced()))
     cfg = get_config(arch)
-    blocks.check_ported(cfg)
     model = models.DecoderLM(cfg, None, device="meta")
     assert all(hasattr(b, "moe") and not hasattr(b, "ffn") for b in model.layers)
     want = jax.eval_shape(lambda k: jinit(k, jconfigs.get_config(arch)), jax.random.PRNGKey(0))
