@@ -972,6 +972,59 @@ def check_ssd_kernel(bw, fp32_flops, tf32_flops) -> dict:
     return rec
 
 
+# ssd_scan from a given state h0 (the model's h_init): row 8's shape and the
+# ragged S = 300, model decays, h0 ~ N(0, 1); the same bound as without it.
+SSD_H0_CASES = [(8, 24, 512, 64, 128, "prefill"), (8, 24, 300, 64, 128, "ragged")]
+
+
+def check_ssd_h0_kernel(bw, tf32_flops) -> dict:
+    """ssd_scan from a state h0 against the plain scan from h0 (y and the
+    final state), two launches bit for bit, h0 = 0 the bits of no h0; at
+    row 8's shape timed beside the same call without h0 (one more (N, P)
+    load a block: no time is claimed)."""
+    import torch
+    from repro_torch.kernels import ref, ssd_scan
+
+    rec = {}
+    for bsz, heads, s, p, n, label in SSD_H0_CASES:
+        x, da, b, c = ssd_inputs(bsz, heads, s, p, n, "model", s + p + n)
+        h0 = torch.randn((bsz * heads, n, p), generator=torch.Generator(device="cuda")
+                         .manual_seed(s), device="cuda")
+        run = lambda: ssd_scan.ssd_scan(x, da, b, c, chunk=256, return_state=True, h0=h0)
+        bare = lambda: ssd_scan.ssd_scan(x, da, b, c, chunk=256, return_state=True)
+        plain = lambda: ref.ssd_scan_ref(x, da, b, c, 256, h0=h0, return_state=True)
+        got, again, want = run(), run(), plain()
+        zero = ssd_scan.ssd_scan(x, da, b, c, chunk=256, return_state=True,
+                                 h0=torch.zeros_like(h0))
+        torch.cuda.synchronize()
+        tag = f"h0 {label} (BH, S, P, N)=({bsz * heads}, {s}, {p}, {n}) model decay"
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"ssd_scan {tag}: two launches differ")
+        if not all(torch.equal(u, v) for u, v in zip(zero, bare())):
+            raise AssertionError(f"ssd_scan {tag}: h0 = 0 differs from no h0")
+        errs = [check_close(g, w, SSD_RTOL * float(w.abs().max()), f"ssd_scan {tag} {what}")
+                for g, w, what in zip(got, want, ("y", "h"))]
+        print(f"[kernels] ssd_scan {tag}: y err={errs[0]:.3g}, h err={errs[1]:.3g} "
+              f"(bound {SSD_RTOL:g} of max), bitwise repeat, h0 = 0 the bits of no h0",
+              flush=True)
+        if label != "prefill":
+            continue
+        n_ops, n_bytes = ssd_work(bsz * heads, s, p, n, bsz)
+        n_bytes += 4 * bsz * heads * n * p  # h0 read
+        t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / (tf32_flops / 3) * 1e3
+        ms, bare_ms = device_ms(run), device_ms(bare)
+        ms2 = device_ms(run)
+        rec["ssd_scan_h0"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=device_ms(plain, reps=3),
+                                  bound_ms=max(t_bytes, t_ops),
+                                  bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                  library_ms=None, ms_without_h0=bare_ms)
+        print(f"[kernels] ssd_scan {tag}: kernel_ms={ms:.4f} (again {ms2:.4f}) without h0 "
+              f"{bare_ms:.4f} plain_ms={rec['ssd_scan_h0']['plain_ms']:.4f} "
+              f"bound_ms={rec['ssd_scan_h0']['bound_ms']:.4f} ({rec['ssd_scan_h0']['bound_by']})",
+              flush=True)
+    return rec
+
+
 def check_soft_threshold_kernel(bw, fp32_flops) -> dict:
     """soft_threshold against its plain version, bit for bit (both round the
     same fp32 difference once), with t a float and a 0-d tensor on the card;
@@ -1344,12 +1397,14 @@ def planted_vit_deltas(seed: int, nc: int, n_valid: int | None):
     return tree
 
 
-def main_path_b(counts) -> None:
+def main_path_b(counts) -> dict:
+    """Returns each call's seconds by (clients, live clients, mode)."""
     import torch
     from repro_torch.convert import from_jax_tree
     from repro_torch.core import AggregatorConfig, aggregate
     from repro_torch.utils.pytree import tree_leaves
 
+    calls = {}
     for nc, n_valid in ((40, None), (32, 20)):
         tree = planted_vit_deltas(5, nc, n_valid)
         mask = None if n_valid is None else (torch.arange(nc) < n_valid).float()
@@ -1380,6 +1435,7 @@ def main_path_b(counts) -> None:
             out = call()
             torch.cuda.synchronize()
             t_call = time.perf_counter() - t0
+            calls[(nc, n_valid or nc, mode)] = t_call
             t0 = time.perf_counter()
             with FallbackSpy("robust_pca_bucket") as cpu_spy:
                 cpu = aggregate(from_jax_tree(tree, "cpu"), cfg, engine="packed", mask=mask,
@@ -1397,6 +1453,7 @@ def main_path_b(counts) -> None:
                   f"cpu_call_s={t_cpu:.4f} card-vs-cpu max|err|={err:.3g} (max|delta|={scale:.3g}) "
                   f"fallbacks card {spy.falls} cpu {cpu_spy.falls} of 50 iterations "
                   f"launches={launched}", flush=True)
+    return calls
 
 # --- Path F: mesh-sharded aggregation -------------------------------------------
 # (svt_mode, clients, live clients): 40 dense, 30 padded to 32 on 4 shards, 20
@@ -4056,6 +4113,225 @@ def main_path_o(counts, card: str) -> dict:
     return total
 
 
+# --- Path P: the one-card dry run -------------------------------------------------
+def dry_record(rec: dict) -> dict:
+    """The fields of a dry-run record that path P prints."""
+    keep = ("arch", "shape", "mesh", "kv_quant", "variant", "status", "reason", "error", "step_s",
+            "mfu", "model_flops", "n_params", "n_active_params", "useful_flops_ratio")
+    out = {k: rec[k] for k in keep if k in rec}
+    if "roofline" in rec:
+        out["roofline"] = rec["roofline"]
+    if "memory" in rec:
+        out["memory_gib"] = {k: (None if v is None else round(v / 2**30, 3))
+                             for k, v in rec["memory"].items()}
+    return out
+
+
+def p_lora_launches(cfg) -> tuple[int, int]:
+    """(lora_matmul launches, those on the tensor route) of one decode
+    step with a 2-D adapter: each adapted projection of every layer (a
+    cross-attention sub-block projects only q at decode)."""
+    import torch
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.models import blocks
+
+    dims = []
+    unit = len(cfg.layer_pattern)
+    for i in range(cfg.n_layers):
+        dims += list(blocks.lora_dims(cfg, cfg.layer_pattern[i % unit]).values())
+        if cfg.encoder_decoder and "q" in cfg.lora.targets:
+            dims.append(blocks.lora_dims(cfg, "cross")["q"])
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    return len(dims), sum(lm.route(k, n, dtype) == "tensor" for k, n in dims)
+
+
+def main_path_p(counts, card: str) -> dict:
+    """The one-card dry run (``launch/dryrun.py``) of every arch x shape,
+    the decode shapes also with the int8 KV cache: one line per record.
+    Every case whose reckoned bytes fit in 90% of the card runs (twice,
+    the second timed) and must come back ``ok``, with one ``lora_matmul``
+    launch a decode step for each adapted projection; the rest are
+    ``skipped``; an ``error`` fails the path.  Then one line of the
+    analytic records of the (16, 16) production mesh.  Returns the launch
+    counts."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    start = counts()
+    launched, expect, phase = launch_checker(counts, "path P")
+    ran = []
+    for arch in configs.ARCH_IDS:
+        for name, shape in configs.SHAPES.items():
+            for kvq in ((False, True) if shape.kind == "decode" else (False,)):
+                before = counts()
+                rec = dryrun.run_case(arch, name, "card", kv_quant=kvq, device="cuda")
+                print(f"[path P] {card} | {json.dumps(dry_record(rec), default=str)}", flush=True)
+                label = f"{arch} x {name}{' kv int8' if kvq else ''}"
+                if rec["status"] == "error":
+                    raise AssertionError(f"path P {label}: {rec['error']}\n{rec['trace']}")
+                mem = rec.get("memory", {})
+                admitted = "reckoned_bytes" in mem and mem["reckoned_bytes"] <= mem["budget_bytes"]
+                if admitted != (rec["status"] == "ok"):
+                    raise AssertionError(f"path P {label}: admitted={admitted} but status "
+                                         f"{rec['status']}")
+                if rec["status"] != "ok":
+                    continue
+                ran.append((label, rec))
+                if shape.kind == "decode":
+                    cfg = configs.config_for_shape(configs.get_config(arch), shape)
+                    n_lora, n_tc = p_lora_launches(cfg.replace(kv_quant=kvq))
+                    expect(label, launched(before), lora_matmul=2 * n_lora,
+                           lora_matmul_tc=2 * n_tc)
+    if not ran:
+        raise AssertionError("path P: no case ran on the card")
+    for label, rec in ran:
+        mem = rec["memory"]
+        print(f"[path P] {card} | ran {label}: peak {mem['peak_bytes'] / 2**30:.3f} GiB "
+              f"(reckoned {mem['reckoned_bytes'] / 2**30:.3f}), step_s {rec['step_s']:.6f}, "
+              f"mfu {rec['mfu']:.3e}", flush=True)
+    single = []
+    for arch in configs.ARCH_IDS:
+        for name in configs.SHAPES:
+            rec = dryrun.run_case(arch, name, "single")
+            if rec["status"] == "error":
+                raise AssertionError(f"path P single {arch} x {name}: {rec['error']}")
+            if rec["status"] == "analytic":
+                r = rec["roofline"]
+                single.append(f"{arch}/{name}: {r['dominant']} "
+                              f"{max(r['compute_s'], r['memory_s'], r['collective_s']):.3e}s "
+                              f"{rec['memory']['argument_size_in_bytes'] / 2**30:.2f}GiB/chip")
+    print(f"[path P] single 16x16 (analytic, tp): {'; '.join(single)}", flush=True)
+    torch.cuda.empty_cache()
+    total = launched(start)
+    print(f"[path P] {card} | launches {total}", flush=True)
+    return total
+
+
+# --- Path Q: the examples ---------------------------------------------------------
+def main_path_q(counts, card: str) -> dict:
+    """The port's four examples at their defaults on the card, each with
+    its output and the kernels it must launch: quickstart and
+    compare_aggregators (FedRPCA's ADMM tail), fed_finetune_lm (the
+    client-stacked LoRA projections, attention and the ADMM tail) and
+    serve_lora (the pool's gathered projections, the merged adapter's and
+    attention; its own assertions hold the merged-baseline gap and that
+    only tenant 0 moves after the hot swap).  Returns the launch counts."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import compare_aggregators, fed_finetune_lm, quickstart, serve_lora
+
+    start = counts()
+    launched, _, _ = launch_checker(counts, "path Q")
+    runs = (("quickstart", lambda: quickstart.main(), ("admm_tail",)),
+            ("compare_aggregators", lambda: compare_aggregators.main([]), ("admm_tail",)),
+            ("fed_finetune_lm", lambda: fed_finetune_lm.main([]),
+             ("admm_tail", "gathered_lora_matmul", "local_attention")),
+            ("serve_lora", lambda: serve_lora.main(),
+             ("gathered_lora_matmul", "lora_matmul", "local_attention")))
+    for name, fn, kernels in runs:
+        before = counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn()
+        wall = time.perf_counter() - t0
+        got = launched(before)
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                print(f"[path Q] {name}: {line}", flush=True)
+        missing = [k for k in kernels if got[k] == 0]
+        if missing:
+            raise AssertionError(f"path Q {name}: launched no {missing} ({got})")
+        print(f"[path Q] {card} | {name}: {wall:.1f} s, launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    total = launched(start)
+    print(f"[path Q] {card} | launches {total}", flush=True)
+    return total
+
+
+# --- The cost model's card constants ----------------------------------------------
+def host_loop(fn, reps: int = 100, loops: int = 5) -> tuple[float, float]:
+    """(device ms, host us) per call of ``fn``: the medians over ``loops``
+    of ``tools/kernel_call_costs.py``'s loop of ``reps`` calls queued behind
+    a sleep kernel, so the host's time is its dispatch alone."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("kernel_call_costs",
+                                                  ROOT / "tools" / "kernel_call_costs.py")
+    costs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(costs)
+    for _ in range(3):
+        fn()
+    out = [costs.loop_times(fn, reps) for _ in range(loops)]
+    return statistics.median(o[0] for o in out), statistics.median(o[1] for o in out)
+
+
+def card_constants(card: str, b_calls: dict) -> dict:
+    """The cost model's host costs on this card (``costmodel.KERNEL_CALL_US``
+    and ``AGG_CALL_US``), and its predictions at the card's rates beside
+    path B's aggregation calls and path C's gathered projection.  Records,
+    not gates."""
+    import torch
+    from repro_torch.core import AggregatorConfig, AggSession
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.launch import costmodel as cm
+
+    out = {}
+    for m, label in ((8, "decode"), (4096, "prefill")):
+        g = torch.Generator(device="cuda").manual_seed(m)
+        k = n = 2048
+        x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+        w = ((torch.rand((k, n), generator=g, device="cuda") * 2 - 1) / k**0.5).bfloat16()
+        a = torch.randn((8, k, 8), generator=g, device="cuda") / k**0.5
+        b = torch.randn((8, 8, n), generator=g, device="cuda") / 8**0.5
+        rs = request_slots(m, 8, [TENANT_SLOTS[i % 4] for i in range(8)])
+        call = lambda: lm.gathered_lora_matmul(x, w, a, b, rs, 2.0)
+        dev_ms, host_us = host_loop(call)
+        out[label] = dict(device_ms=dev_ms, host_us=host_us, call_ms=bench_ms(call))
+    kernel_us = out["decode"]["host_us"]
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tiny = lambda: {"q": {"A": torch.randn((8, 64, 4), generator=gen, device="cuda"),
+                          "B": torch.randn((8, 4, 64), generator=gen, device="cuda")}}
+    sess = AggSession(AggregatorConfig(method="fedrpca", rpca_iters=G_ITERS, svt_mode="subspace",
+                                       carry_mode="subspace"), device="cuda")
+    walls = []
+    for i in range(8):
+        tree = tiny()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.step(tree)
+        torch.cuda.synchronize()
+        if i >= 3:
+            walls.append((time.perf_counter() - t0) * 1e6)
+    agg_us = statistics.median(walls)
+    print(f"[constants] {card} | host cost of a kernel call (gathered_lora_matmul, path C "
+          f"decode (8, 2048) x (2048, 2048), r 8): {kernel_us:.2f} us; of a warm aggregation "
+          f"call (AggSession, fedrpca subspace carry, {G_ITERS} iterations, one 64 x 4 module "
+          f"of 8 clients): {agg_us:.1f} us (warm calls {[round(t, 1) for t in walls]})",
+          flush=True)
+    for (nc, live, mode), t in sorted(b_calls.items()):
+        pred = cm.mesh_agg_costs(n_modules=48, padded_vec=4096, cohort=nc, shards=1,
+                                 rpca_iters=50, warm=False, coll_overhead_us=kernel_us,
+                                 dispatch_us=agg_us)
+        print(f"[constants] {card} | path B {mode} nc={nc} valid={live}: measured "
+              f"{t * 1e6:.0f} us, cost model (cold, one shard, card rates) {pred['us']:.0f} us "
+              f"(compute {pred['compute_us']:.1f}, dispatch {agg_us:.0f})", flush=True)
+    for label, seq in (("decode", 1), ("prefill", 512)):
+        pred = cm.serve_gather_costs(n_requests=8, seq_len=seq, n_adapters=4, d_in=2048,
+                                     d_out=2048, rank=8, overhead_per_req=kernel_us,
+                                     overhead_gathered=kernel_us)
+        o = out[label]
+        print(f"[constants] {card} | path C gathered projection {label} ({8 * seq}, 2048) x "
+              f"(2048, 2048), r 8: measured device {o['device_ms'] * 1e3:.2f} us, host "
+              f"{o['host_us']:.2f} us, call {o['call_ms'] * 1e3:.2f} us; cost model gathered "
+              f"{pred['gathered']['us']:.2f} us (adapter side only; the fused base product is "
+              f"not in the model)", flush=True)
+    return dict(kernel_call_us=kernel_us, agg_call_us=agg_us, **out)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repro_torch package is not beside this script", file=sys.stderr)
@@ -4095,6 +4371,7 @@ def main() -> int:
     rec.update(check_lora_kernels(bw, flops, tensor_flops))
     rec.update(check_attention_kernel(bw, flops, tensor_flops))
     rec.update(check_ssd_kernel(bw, flops, tensor_flops / 2))  # TF32: half the bf16 rate
+    rec.update(check_ssd_h0_kernel(bw, tensor_flops / 2))
     rec.update(check_soft_threshold_kernel(bw, flops))
     rec.update(check_factored_kernel(bw, flops))
     train_fns = check_training_functions()
@@ -4132,10 +4409,11 @@ def main() -> int:
 
     paths = {}
     finals_a = {}
+    b_calls = {}
 
     def path_ab():  # A and B share one count window
         finals_a.update(main_path_a(counts))
-        main_path_b(counts)
+        b_calls.update(main_path_b(counts))
 
     _, paths["A+B"] = run_path("A+B", path_ab)
     _, paths["C"] = run_path("C", main_path_c, counts, smi)
@@ -4151,6 +4429,9 @@ def main() -> int:
     _, paths["M"] = run_path("M", main_path_m, counts, smi)
     _, paths["N"] = run_path("N", main_path_n, counts, smi)
     _, paths["O"] = run_path("O", main_path_o, counts, smi)
+    _, paths["P"] = run_path("P", main_path_p, counts, smi)
+    _, paths["Q"] = run_path("Q", main_path_q, counts, smi)
+    card_constants(smi, b_calls)
     launches = {k: sum(p[k] for p in paths.values()) for k in wrappers}
     for name, n in launches.items():
         if n == 0:
@@ -4180,7 +4461,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             **{k: r[k] for k in timed}, "launches_path_j": paths["J"][name],
-            **{f"launches_path_{p.lower()}": paths[p][name] for p in "KLMNO"},
+            **{f"launches_path_{p.lower()}": paths[p][name] for p in "KLMNOPQ"},
         })
         if name == "local_attention":
             # The same kernel at path J's prefill shape (D = 256, window 2048)
@@ -4190,6 +4471,9 @@ def main() -> int:
             # Path N's encoder: bidirectional over 1500 frames (row 7d).
             kernels[-1]["encoder_prefill"] = {k: rec["local_attention_encoder"][k]
                                               for k in timed}
+        if name == "ssd_scan":
+            # From a given state h0 at row 8's shape (row 8b).
+            kernels[-1]["h0"] = {k: rec["ssd_scan_h0"][k] for k in (*timed, "ms_without_h0")}
         if name == "gathered_lora_matmul":
             # At the q / v shapes of paths L, M, N and O, prefill and decode
             # (LORA_LM, LORA_NO).

@@ -1,15 +1,21 @@
-"""Model and LoRA configuration (the part the port needs).
+"""Config system: model / LoRA / shape / federated / mesh configuration.
 
-Port of ``LoRAConfig`` and ``ModelConfig`` from ``repro/config.py``, kept as
-a copy (the port imports nothing of the JAX package).  ``chip_smoke.py``
-reads the LoRA geometry of ``configs/paper_vit_b32.py`` from them, and the
-served model of ``configs/stablelm_1_6b.py``.
+Port of ``repro/config.py``, kept as a copy (the port imports nothing of
+the JAX package): plain frozen dataclasses with JSON (de)serialization.
+Architecture configs in ``repro_torch.configs`` construct ``ModelConfig``
+instances; the launchers consume them by ``--arch <id>``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+try:
+    import orjson
+except ImportError:  # stdlib fallback: same bytes-in/bytes-out contract
+    orjson = None
+    import json as _json
 
 
 @dataclass(frozen=True)
@@ -153,3 +159,93 @@ class ModelConfig:
             dtype="float32",
         )
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
+class FedConfig:
+    n_clients: int = 16
+    clients_per_round: int = 16  # full participation by default (paper setting)
+    local_steps: int = 4
+    local_lr: float = 1e-4
+    local_optimizer: str = "adam"  # sgd | adam | adamw
+    weight_decay: float = 0.0
+    # client-level heterogeneity methods (composable with any aggregator)
+    fedprox_mu: float = 0.0
+    scaffold: bool = False
+    moon_mu: float = 0.0
+    # data partition
+    dirichlet_alpha: float = 0.3
+    rounds: int = 50
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The reference's production mesh, as data: (16, 16) over
+    ("data", "model"), or (2, 16, 16) over ("pod", "data", "model")."""
+
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def client_axes(self) -> Tuple[str, ...]:
+        return ("pod", "data") if self.multi_pod else ("data",)
+
+    @property
+    def n_clients(self) -> int:
+        n = 1
+        for a, s in zip(self.axes, self.shape):
+            if a in self.client_axes:
+                n *= s
+        return n
+
+
+def to_json(cfg) -> bytes:
+    if orjson is None:
+        return _json.dumps(dataclasses.asdict(cfg), indent=2).encode()
+    return orjson.dumps(dataclasses.asdict(cfg), option=orjson.OPT_INDENT_2)
+
+
+def _from_dict(cls, d):
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    kw = {}
+    for k, v in d.items():
+        if k not in fields:
+            continue
+        f = fields[k]
+        if f.name == "lora" and isinstance(v, dict):
+            v = LoRAConfig(**{k2: tuple(v2) if k2 == "targets" else v2 for k2, v2 in v.items()})
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[k] = v
+    return cls(**kw)
+
+
+def model_config_from_json(data: bytes) -> ModelConfig:
+    if orjson is None:
+        return _from_dict(ModelConfig, _json.loads(data))
+    return _from_dict(ModelConfig, orjson.loads(data))

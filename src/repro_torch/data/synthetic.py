@@ -21,17 +21,25 @@ class SyntheticLM(NamedTuple):
 
 def _markov_tokens(
     rng: np.random.Generator,
-    trans: np.ndarray,
+    trans,
     n_seqs: int,
     seq_len: int,
+    vocab: int | None = None,
 ) -> np.ndarray:
-    v = trans.shape[0]
+    """Sequences of a Markov chain: ``trans`` is the (V, V) transition
+    matrix, or a function from a vector of states to their rows (with
+    ``vocab`` = V), so that only the rows the chains visit are formed.
+    Each row's cumulative sum is the one the whole matrix's would give."""
+    if callable(trans):
+        rows_of = trans
+    else:
+        vocab = trans.shape[0]
+        rows_of = lambda idx: trans[idx]
     out = np.empty((n_seqs, seq_len + 1), np.int32)
-    out[:, 0] = rng.integers(0, v, size=n_seqs)
-    cdf = np.cumsum(trans, axis=1)
+    out[:, 0] = rng.integers(0, vocab, size=n_seqs)
     for t in range(seq_len):
         u = rng.random(n_seqs)
-        rows = cdf[out[:, t]]
+        rows = np.cumsum(rows_of(out[:, t]), axis=1)
         out[:, t + 1] = (u[:, None] < rows).argmax(axis=1)
     return out
 
@@ -64,17 +72,22 @@ def client_lm_datasets(
     heterogeneity: float = 0.5,
     seed: int = 0,
 ) -> Tuple[np.ndarray, SyntheticLM]:
-    """Returns (client_tokens (M, n_seqs, L+1), shared test set)."""
+    """Returns (client_tokens (M, n_seqs, L+1), shared test set).
+
+    Client i's chain is (1 - h) base + h base[perm][:, perm], each row
+    normalized; its rows are formed as the chains visit them."""
     rng = np.random.default_rng(seed)
     base = _base_transition(rng, vocab_size)
     client_tokens = []
     for i in range(n_clients):
         perm = rng.permutation(vocab_size)
-        client_trans = (1 - heterogeneity) * base + heterogeneity * base[perm][:, perm]
-        client_trans /= client_trans.sum(axis=1, keepdims=True)
-        client_tokens.append(
-            _markov_tokens(np.random.default_rng(seed + 100 + i), client_trans, n_seqs, seq_len)
-        )
+
+        def rows(idx, perm=perm):
+            r = (1 - heterogeneity) * base[idx] + heterogeneity * base[perm[idx]][:, perm]
+            return r / r.sum(axis=1, keepdims=True)
+
+        client_tokens.append(_markov_tokens(np.random.default_rng(seed + 100 + i), rows,
+                                            n_seqs, seq_len, vocab_size))
     test = SyntheticLM(
         _markov_tokens(np.random.default_rng(seed + 1), base, n_seqs, seq_len), vocab_size
     )

@@ -4,7 +4,7 @@
 // Per (batch*head) row of x (BH, S, P), log-decays da (BH, S) and the
 // single-group B, C (G, S, N) (row bh reads group bh / (BH / G)):
 //
-//   h_t = exp(da_t) h_{t-1} + B_t^T x_t        (h is N x P, h_0 = 0)
+//   h_t = exp(da_t) h_{t-1} + B_t^T x_t        (h is N x P, h_0 = 0 or h0)
 //   y_t = C_t h_t
 //
 // evaluated in chunks of T positions, as the TPU kernel does with its chunk:
@@ -16,7 +16,11 @@
 // with cum the inclusive sum of da inside the tile.  In exact arithmetic the
 // result does not depend on the tile length, so the kernel's tile T = 64 is
 // smaller than the model's chunk of 256: only the rounding differs.  The
-// final h (BH, N, P) is written when asked (prefill hands it to decode).
+// final h (BH, N, P) is written when asked (prefill hands it to decode), and
+// the state before position 0 is read from h0 (BH, N, P) when one is given
+// (the model's h_init), else zero: the state warps load their columns of it
+// into the accumulator fragments and into the shared copy of h that the
+// first tile's inter product reads.
 //
 // Bound: at prefill, (BH, S, P, N) = (192, 512, 64, 128), the tile-64
 // algorithm does 2 * (T(T+1)/2 * (N + P) + 2 T N P) operations per tile of
@@ -210,9 +214,9 @@ ssd_prep_kernel(const float* __restrict__ da, const float* __restrict__ b,
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ b,
                 const float* __restrict__ c, const float* __restrict__ cb,
-                const float* __restrict__ cum, float* __restrict__ y,
-                float* __restrict__ h_out, int S, int P, int N, int np, int heads_per_group,
-                int n_tiles, int vec4) {
+                const float* __restrict__ cum, const float* __restrict__ h0,
+                float* __restrict__ y, float* __restrict__ h_out, int S, int P, int N, int np,
+                int heads_per_group, int n_tiles, int vec4) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -268,8 +272,29 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ b,
   const int i0 = 16 * mt;
   const int n0 = 16 * (warp - 8);
   const bool owns_state = !out_warp && n0 < np;
+  // The state entering tile 0: h0's rows [0, N) and this block's columns,
+  // zero elsewhere (rows past N pad K of the inter product).
+  const float* h0r = h0 == nullptr ? nullptr : h0 + static_cast<size_t>(bh) * N * P;
   float hacc[4][4] = {};
-  for (int e = tid; e < NMAX * SX; e += kThreads) (&sm.h[0][0])[e] = 0.f;
+  if (h0r != nullptr && owns_state) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = p_base + 8 * q + 2 * tq;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int n = n0 + gq + 8 * hf;
+        if (n < N) {
+          if (p < P) hacc[q][2 * hf] = h0r[static_cast<size_t>(n) * P + p];
+          if (p + 1 < P) hacc[q][2 * hf + 1] = h0r[static_cast<size_t>(n) * P + p + 1];
+        }
+      }
+    }
+  }
+  for (int e = tid; e < NMAX * SX; e += kThreads) {
+    const int n = e / SX, q = e % SX;
+    const bool ok = h0r != nullptr && n < N && q < PT && p_base + q < P;
+    (&sm.h[0][0])[e] = ok ? h0r[static_cast<size_t>(n) * P + p_base + q] : 0.f;
+  }
   load(0);
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -461,11 +486,12 @@ long long repro_ssd_scan_scratch(int BH, int S, int G) {
 }
 
 // Launches both kernels on `stream`; returns the launch's cudaError_t.  x, y
-// (BH, S, P), da (BH, S), b, c (BH / heads_per_group, S, N), h_out
-// (BH, N, P) or null, scratch as repro_ssd_scan_scratch says; all contiguous
-// float32; S >= 1.  vec4 != 0 promises N and P multiples of 4 and 16-byte aligned x, b, c.
-int repro_ssd_scan(const void* x, const void* da, const void* b, const void* c, void* y,
-                   void* h_out, void* scratch, int BH, int S, int P, int N,
+// (BH, S, P), da (BH, S), b, c (BH / heads_per_group, S, N), h0 (the state
+// before position 0) and h_out (BH, N, P) or null, scratch as
+// repro_ssd_scan_scratch says; all contiguous float32; S >= 1.  vec4 != 0
+// promises N and P multiples of 4 and 16-byte aligned x, b, c.
+int repro_ssd_scan(const void* x, const void* da, const void* b, const void* c, const void* h0,
+                   void* y, void* h_out, void* scratch, int BH, int S, int P, int N,
                    int heads_per_group, int vec4, void* stream) {
   if (BH < 1 || BH > 65535 || S < 1 || P < 1 || N < 1 || N > NMAX || heads_per_group < 1 ||
       BH % heads_per_group)
@@ -490,7 +516,8 @@ int repro_ssd_scan(const void* x, const void* da, const void* b, const void* c, 
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_scan_kernel<<<dim3((P + PT - 1) / PT, BH), kThreads, smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(b), static_cast<const float*>(c),
-      cb, cum, static_cast<float*>(y), static_cast<float*>(h_out), S, P, N, np,
+      cb, cum, static_cast<const float*>(h0), static_cast<float*>(y),
+      static_cast<float*>(h_out), S, P, N, np,
       heads_per_group, n_tiles, vec4);
   return static_cast<int>(cudaGetLastError());
 }

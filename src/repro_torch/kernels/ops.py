@@ -64,8 +64,9 @@ def local_attention(q, k, v, *, window: int = 0, causal: bool = True) -> torch.T
     return out.reshape(bsz, h, s, d).transpose(1, 2)
 
 
-def ssd_scan(x, da, b, c, *, chunk: int = 256, return_state: bool = False):
+def ssd_scan(x, da, b, c, *, chunk: int = 256, return_state: bool = False, h0=None):
     """Mamba-2 SSD scan over x (BH, S, P), da (BH, S) and b, c (G, S, N)
-    (see ``kernels.ssd_scan.ssd_scan``); with ``return_state`` also the final
+    from the state ``h0`` (BH, N, P) (zero when None; see
+    ``kernels.ssd_scan.ssd_scan``); with ``return_state`` also the final
     state (BH, N, P)."""
-    return _ss.ssd_scan(x, da, b, c, chunk=chunk, return_state=return_state)
+    return _ss.ssd_scan(x, da, b, c, chunk=chunk, return_state=return_state, h0=h0)

@@ -142,13 +142,13 @@ def ssd_scan_ref(x, da, b, c, chunk: int = 256, *, h0=None, return_state: bool =
     return (y, h) if return_state else y
 
 
-def ssd_chunked_ref(x, da, b, c, chunk: int, *, return_state: bool = False):
+def ssd_chunked_ref(x, da, b, c, chunk: int, *, h0=None, return_state: bool = False):
     """The same SSD core as ``ssd_scan_ref`` in the chunked dual form (the
     reference's differentiable ``models/ssd.py::ssd_chunked``, in the
     kernel's layout): within a chunk of Q positions the masked quadratic
     form (L o C B^T) x, across chunks the carried state.  A few dozen
     batched ops for any S, so its autograd is the backward of the SSD
-    kernel.  Shapes, groups and dtypes as ``ssd_scan_ref``."""
+    kernel.  Shapes, groups, dtypes and ``h0`` as ``ssd_scan_ref``."""
     bh, s, p = x.shape
     g, n = b.shape[0], b.shape[-1]
     rep = bh // g
@@ -175,7 +175,8 @@ def ssd_chunked_ref(x, da, b, c, chunk: int, *, return_state: bool = False):
     decay_to_end = torch.exp(cum[..., -1:] - cum)
     states = bc[:, None].mT @ (decay_to_end[..., None] * xc)  # (G, rep, nc, N, P)
     chunk_decay = torch.exp(cum[..., -1])
-    h = torch.zeros((g, rep, n, p), dtype=torch.float32, device=x.device)
+    h = (torch.zeros((g, rep, n, p), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float().reshape(g, rep, n, p))
     entering = []
     for ci in range(nc):
         entering.append(h)

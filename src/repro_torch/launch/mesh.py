@@ -1,4 +1,5 @@
-"""Client meshes for mesh-sharded aggregation.
+"""Client meshes for mesh-sharded aggregation, and the production mesh as
+data.
 
 The port's counterpart of what ``repro/launch/mesh.py`` gives the sharded
 aggregation.  The reference is single-controller: one process drives a
@@ -10,6 +11,10 @@ loops over the shards.  The two collectives the sharded loop needs are
 methods of the mesh, and both are deterministic: the same parts give the
 same bits on every call.
 
+The reference's production meshes, (16, 16) and (2, 16, 16) chips, are
+``MeshConfig`` data here (``make_production_mesh``): the dry run reckons
+layouts and costs on them, and one card builds no such mesh.
+
 Nothing here touches a device when the module is imported.
 """
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.config import MeshConfig
 from repro_torch.kernels import backend
 
 
@@ -80,3 +86,15 @@ def client_shard_count(mesh: ClientMesh | None) -> int:
     must then take the unsharded code path (the sharded loop delegates, so
     the one-shard result is bit for bit the unsharded one)."""
     return 1 if mesh is None else mesh.shards
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshConfig:
+    """The reference's production mesh as data: single pod (16, 16) = 256
+    chips over ("data", "model"), multi-pod (2, 16, 16) = 512 chips over
+    ("pod", "data", "model")."""
+    return MeshConfig(multi_pod=multi_pod)
+
+
+def client_axes(mesh: MeshConfig) -> tuple:
+    """The mesh axes the clients (and batches) shard over."""
+    return tuple(a for a in mesh.axes if a in ("pod", "data"))

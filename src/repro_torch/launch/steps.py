@@ -270,6 +270,29 @@ def make_fed_train_step(
     return fed_train_step
 
 
+def make_prefill_step(cfg) -> Callable:
+    """``(model, lora, batch) -> (next_token_logits, caches)``."""
+
+    def prefill_step(model, lora, batch):
+        with torch.no_grad():
+            logits, caches, _ = model_lib.forward(model, lora, batch, cfg, mode="prefill",
+                                                  remat=False)
+        return logits, caches
+
+    return prefill_step
+
+
+def make_serve_step(cfg) -> Callable:
+    """``(model, lora, tokens (B, 1), caches, cache_index) -> (logits,
+    caches)``; the caches are written in place."""
+
+    def serve_step(model, lora, tokens, caches, cache_index):
+        with torch.no_grad():
+            return model_lib.decode_step(model, lora, tokens, caches, cache_index, cfg)
+
+    return serve_step
+
+
 def make_single_train_step(cfg, *, lr: float = 1e-4, remat: bool = True) -> Callable:
     """Non-federated LoRA train step (one SGD step):
     ``(model, lora, batch) -> (new_lora, loss)``."""

@@ -120,23 +120,37 @@ class DecoderLM(nn.Module):
                                      device=device)
 
 
+def _device(device) -> torch.device:
+    """``backend.resolve_device``, with ``"meta"`` passed through: tensors
+    that have a shape and a dtype and no storage (the dry run counts and
+    lays out the parameters of every config on them)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else backend.resolve_device(dev)
+
+
+def _generator(dev: torch.device, seed: int) -> Optional[torch.Generator]:
+    """A generator on ``dev`` seeded with ``seed``; None on ``meta``, where
+    nothing is drawn."""
+    return None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
+
+
 def init_params(cfg, *, seed: int = 0, device="cuda") -> DecoderLM:
     """The base model with random weights drawn from ``seed`` by a
     ``torch.Generator`` on ``device`` (default the card; without CUDA this
-    raises unless ``device="cpu"``).  The same seed gives other numbers on
-    the CPU and on a card."""
-    dev = backend.resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return DecoderLM(cfg, gen, device=dev)
+    raises unless ``device="cpu"``; on ``"meta"`` it allocates and draws
+    nothing).  The same seed gives other numbers on the CPU and on a card."""
+    dev = _device(device)
+    return DecoderLM(cfg, _generator(dev, seed), device=dev)
 
 
 def init_lora_params(cfg, *, seed: int = 0, device="cuda") -> Tree:
     """One adapter in the reference's tree layout, A ~ N(0, 1/d_in), B = 0,
     in ``cfg.lora.dtype`` on ``device``; each pattern slot carries the
     adapters of its mixer and, in an encoder-decoder config, of its
-    cross-attention (``blocks.lora_dims``).  The encoder has none."""
-    dev = backend.resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    cross-attention (``blocks.lora_dims``).  The encoder has none.  On
+    ``"meta"`` it allocates and draws nothing."""
+    dev = _device(device)
+    gen = _generator(dev, seed)
     dtype = _DTYPES[cfg.lora.dtype]
 
     def sub(dims, lead):
@@ -362,8 +376,8 @@ def init_decode_caches(cfg, batch: int, cache_len: int, dtype=None, *, device="c
     returns: a sliding-window ring holds ``min(window, cache_len)``; with
     ``cfg.kv_quant`` the attention caches are int8 (``QuantKVCache``); an
     encoder-decoder config adds a cross cache of ``cfg.encoder_seq``
-    positions to every layer."""
-    dev = backend.resolve_device(device)
+    positions to every layer.  On ``"meta"`` it allocates nothing."""
+    dev = _device(device)
     dtype = dtype or _DTYPES[cfg.dtype]
     n = cfg.n_pattern_groups
 

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels import backend, ops, ref
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.kvcache import SSMState
 
@@ -109,8 +109,8 @@ def ssd_chunked(
 
     Folds (B, S, H, P) into (B*H, S, P) rows, premultiplies by dt and calls
     ``ops.ssd_scan`` with B and C as one group per batch row (read by all its
-    heads, not copied), then adds the D skip.  ``h_init`` is taken on the CPU
-    only: the kernel starts from a zero state, which is all prefill needs.
+    heads, not copied), then adds the D skip.  ``h_init`` is the state
+    before position 0 (zero when None), on either device.
     """
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
@@ -118,16 +118,12 @@ def ssd_chunked(
     da = (dt * a[None, None, :]).permute(0, 2, 1).reshape(bsz * h, s).contiguous()
     xk = (x * dt[..., None]).permute(0, 2, 1, 3).reshape(bsz * h, s, p).contiguous()
     bk, ck = b_mat.contiguous(), c_mat.contiguous()
-    if h_init is None and not return_state:
-        y, final = ops.ssd_scan(xk, da, bk, ck, chunk=chunk), None
-    elif h_init is None:
-        y, final = ops.ssd_scan(xk, da, bk, ck, chunk=chunk, return_state=True)
-    elif backend.use_kernel(x):
-        raise NotImplementedError("ssd_chunked: the kernel starts from a zero state; h_init "
-                                  "is taken on the CPU only")
+    h0 = (None if h_init is None
+          else h_init.float().reshape(bsz * h, p, n).transpose(1, 2).contiguous())
+    if return_state:
+        y, final = ops.ssd_scan(xk, da, bk, ck, chunk=chunk, return_state=True, h0=h0)
     else:
-        h0 = h_init.reshape(bsz * h, p, n).transpose(1, 2)
-        y, final = ref.ssd_scan_ref(xk, da, bk, ck, chunk, h0=h0, return_state=True)
+        y, final = ops.ssd_scan(xk, da, bk, ck, chunk=chunk, h0=h0), None
     y = y.reshape(bsz, h, s, p).permute(0, 2, 1, 3)
     y = y + x * d_skip[None, None, :, None]
     if final is None:

@@ -34,6 +34,20 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Tree, path: tuple = ()) -> Tree:
+    """Apply ``fn(path, leaf)`` leafwise; ``path`` is the tuple of names from
+    the root: dict keys, sequence indices as strings and NamedTuple field
+    names (the names ``jax.tree_util`` paths carry)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, (*path, str(k))) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, v, (*path, f))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, (*path, str(i))) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
 def tree_unflatten(like: Tree, leaves: list) -> Tree:
     """Rebuild ``like``'s structure from leaves in ``tree_leaves`` order."""
     it = iter(leaves)

@@ -646,6 +646,37 @@ def test_ssd_scan_kernel_matches_plain(cuda, bsz, heads, s, p, n, decay):
         torch.testing.assert_close(u, w, rtol=0, atol=tol)
 
 
+# ssd_scan from a given state h0 (the model's h_init): path D's prefill
+# shape, the ragged S = 300, ragged P and N, and an empty scan (the state
+# comes back as h0); the same 1e-4 bound.
+SSD_H0_SHAPES = [(8, 24, 512, 64, 128, 1.0), (8, 24, 300, 64, 128, 1e-3),
+                 (2, 3, 70, 40, 100, 0.5), (1, 2, 70, 7, 33, 0.5), (1, 2, 0, 16, 32, 0.5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz,heads,s,p,n,decay", SSD_H0_SHAPES)
+def test_ssd_scan_kernel_h0_matches_plain(cuda, bsz, heads, s, p, n, decay):
+    """y and the final state from h0 against the plain scan from h0, two
+    launches bit for bit; h0 = 0 gives the bits of no h0."""
+    from repro_torch.kernels import ssd_scan
+
+    g = torch.Generator().manual_seed(7 + s + p + n)
+    x = torch.randn((bsz * heads, s, p), generator=g).to(cuda)
+    da = (-decay * torch.rand((bsz * heads, s), generator=g)).to(cuda)
+    b, c = (torch.randn((bsz, s, n), generator=g).to(cuda) for _ in range(2))
+    h0 = torch.randn((bsz * heads, n, p), generator=g).to(cuda)
+    got = ssd_scan.ssd_scan(x, da, b, c, return_state=True, h0=h0)
+    again = ssd_scan.ssd_scan(x, da, b, c, return_state=True, h0=h0)
+    want = ref.ssd_scan_ref(x, da, b, c, h0=h0, return_state=True)
+    for u, v, w in zip(got, again, want):
+        assert torch.equal(u, v)
+        tol = 1e-4 * float(w.abs().max()) if w.numel() else 0.0
+        torch.testing.assert_close(u, w, rtol=0, atol=tol)
+    zero = ssd_scan.ssd_scan(x, da, b, c, return_state=True, h0=torch.zeros_like(h0))
+    for u, v in zip(zero, ssd_scan.ssd_scan(x, da, b, c, return_state=True)):
+        assert torch.equal(u, v)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,n", [(196608, 40), (129, 130), (1, 7)])
@@ -844,6 +875,30 @@ def test_ssd_function_grads_on_the_card(cuda, bh, groups, s, chunk):
     assert ssd_scan.ssd_scan.launches - before == 1
     assert torch.equal(out, ops.ssd_scan(x, da, b, c, chunk=chunk))
     _, want = _card_grads(lambda *t: ref.ssd_scan_ref(*t), (x, da, b, c), gy)
+    for gg, ww in zip(got, want):
+        torch.testing.assert_close(gg, ww, atol=1e-4 * float(ww.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+def test_ssd_function_h0_grads_on_the_card(cuda):
+    """The Function from a state h0: one launch, the no-grad bits, and the
+    gradients of x, da, b, c and h0 against the plain scan's autograd."""
+    from repro_torch.kernels import ops, ssd_scan
+
+    gen = torch.Generator().manual_seed(11)
+    bh, groups, s = 24, 2, 200
+    x = torch.randn((bh, s, 64), generator=gen).to(cuda)
+    da = (-0.5 * torch.rand((bh, s), generator=gen)).to(cuda)
+    b, c = (torch.randn((groups, s, 128), generator=gen).to(cuda) for _ in range(2))
+    h0 = torch.randn((bh, 128, 64), generator=gen).to(cuda)
+    gy = torch.randn((bh, s, 64), generator=gen).to(cuda)
+    before = ssd_scan.ssd_scan.launches
+    fn = lambda x_, da_, b_, c_, h_: ops.ssd_scan(x_, da_, b_, c_, chunk=64, h0=h_)
+    out, got = _card_grads(fn, (x, da, b, c, h0), gy)
+    assert ssd_scan.ssd_scan.launches - before == 1
+    assert torch.equal(out, fn(x, da, b, c, h0))
+    _, want = _card_grads(lambda x_, da_, b_, c_, h_: ref.ssd_scan_ref(x_, da_, b_, c_, h0=h_),
+                          (x, da, b, c, h0), gy)
     for gg, ww in zip(got, want):
         torch.testing.assert_close(gg, ww, atol=1e-4 * float(ww.abs().max()), rtol=0)
 

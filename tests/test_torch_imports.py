@@ -51,14 +51,19 @@ def test_no_jax_or_reference_imports(path):
 
 def test_every_module_imports_with_jax_blocked():
     """With ``jax`` and ``repro`` made unimportable, every module of the
-    port — the serving slice's models, kernels, pool and launcher and the
-    client mesh among them — still imports."""
+    port — the serving slice's models, kernels, pool and launcher, the
+    client mesh, the shapes, sharding rules, roofline, cost model and dry
+    run, and the examples among them — still imports."""
     serving = {"repro_torch.models.model", "repro_torch.serve.pool", "repro_torch.launch.serve",
                "repro_torch.kernels.lora_matmul", "repro_torch.kernels.local_attention",
                "repro_torch.kernels.ops", "repro_torch.configs.stablelm_1_6b",
                "repro_torch.models.ssd", "repro_torch.kernels.ssd_scan",
                "repro_torch.kernels.soft_threshold", "repro_torch.configs.mamba2_130m",
-               "repro_torch.launch.mesh"}
+               "repro_torch.launch.mesh", "repro_torch.configs.shapes",
+               "repro_torch.models.partitioning", "repro_torch.launch.roofline",
+               "repro_torch.launch.costmodel", "repro_torch.launch.dryrun",
+               "repro_torch.examples.quickstart", "repro_torch.examples.compare_aggregators",
+               "repro_torch.examples.fed_finetune_lm", "repro_torch.examples.serve_lora"}
     assert serving <= set(MODULES)
     code = (
         "import importlib, sys\n"

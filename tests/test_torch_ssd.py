@@ -114,6 +114,47 @@ def test_ssd_chunked_matches_jax(s, chunk, with_init):
     np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), **SCAN_TOL)
 
 
+@pytest.mark.parametrize("return_state", [True, False])
+def test_ssd_chunked_h_init_matches_jax(return_state):
+    """``h_init`` on the port's scan path (the kernel's plain version here):
+    y, and the final state with ``return_state``, against the reference;
+    without it the port returns no state."""
+    x, dt, a_log, bm, cm, d, h0 = chunked_inputs(4, 2, 70, 3, 8, 4)
+    y, final = ssd.ssd_chunked(T(x), T(dt), T(a_log), T(bm), T(cm), T(d), 16, T(h0),
+                               return_state=return_state)
+    jy, jfinal = jssd.ssd_chunked(*(jnp.asarray(a) for a in (x, dt, a_log, bm, cm, d)), 16,
+                                  jnp.asarray(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SCAN_TOL)
+    if return_state:
+        np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), **SCAN_TOL)
+    else:
+        assert final is None
+
+
+def test_ssd_chunked_h_init_grad_matches_jax():
+    """The gradient of <y, gy> + <final, gh> in h_init, x and dt through the
+    port's autograd Function (its backward differentiates the plain chunked
+    form) against ``jax.grad`` of the reference's ``ssd_chunked``; the
+    scans' bound."""
+    x, dt, a_log, bm, cm, d, h0 = chunked_inputs(5, 2, 50, 3, 8, 4)
+    rng = np.random.default_rng(6)
+    gy = rng.normal(size=x.shape).astype(np.float32)
+    gh = rng.normal(size=h0.shape).astype(np.float32)
+
+    def jloss(hi, xi, dti):
+        y, f = jssd.ssd_chunked(xi, dti, jnp.asarray(a_log), jnp.asarray(bm), jnp.asarray(cm),
+                                jnp.asarray(d), 16, hi)
+        return jnp.sum(y * gy) + jnp.sum(f * gh)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(h0), jnp.asarray(x), jnp.asarray(dt))
+    live = [T(a).requires_grad_() for a in (h0, x, dt)]
+    y, f = ssd.ssd_chunked(live[1], live[2], T(a_log), T(bm), T(cm), T(d), 16, live[0])
+    loss = torch.sum(y * T(gy)) + torch.sum(f * T(gh))
+    got = torch.autograd.grad(loss, live)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **SCAN_TOL)
+
+
 def jax_to_mixer(jparams, cfg):
     mixer = ssd.init_ssd(None, cfg, dtype=torch.float32, device="cpu")
     with torch.no_grad():
