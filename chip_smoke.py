@@ -45,7 +45,9 @@ Phases (any failed check raises and the script exits non-zero):
      shape prints its route (``lora_matmul.route``,
      ``local_attention.route``: bf16 on the tensor cores, float32 and the
      ragged bf16 LoRA shape on fp32 FMA) and its tensor-route launches must
-     match it; ``ssd_scan`` (y and the final state) at (BH, S, P, N) =
+     match it; each bf16 attention row also prints the route's geometry
+     (``local_attention.tc_geometry``: BQ, BN, stages, shared bytes,
+     registers), which must be ``tc_plan``'s; ``ssd_scan`` (y and the final state) at (BH, S, P, N) =
      (192, 512, 64, 128) and S = 300, the model's decays and weak ones, and
      at odd widths, its bound at a third of the TF32 tensor rate (3xTF32),
      the fp32-core bound printed beside it; ``soft_threshold`` at path B's bucket flattened to
@@ -643,6 +645,19 @@ ATTN_SHAPES = [(256, 512, 64, 0, True, "prefill"), (256, 300, 64, 0, True, "ragg
                (128, 416, 64, 0, True, "whisper-decoder"),
                (96, 512, 128, 0, True, "qwen2vl-prefill")]
 ATTN_UNTIMED = ("ragged", "bidirectional", "rg ragged")
+# Where each timed row's numbers go: phase 3's record, and (past the first)
+# the local_attention entry of the kernels line, under ATTN_KERNELS_KEY.
+ATTN_RECORD = {"prefill": "local_attention", "window": "local_attention_window",
+               "rg-prefill": "local_attention_rg", "gemma-prefill": "local_attention_gemma",
+               "whisper-encoder": "local_attention_encoder",
+               "whisper-decoder": "local_attention_whisper_dec",
+               "qwen2vl-prefill": "local_attention_qwen2vl"}
+ATTN_KERNELS_KEY = {"local_attention_window": "window_prefill",
+                    "local_attention_rg": "rg_prefill",
+                    "local_attention_gemma": "gemma_prefill",
+                    "local_attention_encoder": "encoder_prefill",
+                    "local_attention_whisper_dec": "whisper_dec_prefill",
+                    "local_attention_qwen2vl": "qwen2vl_prefill"}
 TENANT_SLOTS = (1, 3, 4, 6)  # 4 tenants resident in a pool of 8 slots
 
 
@@ -806,7 +821,16 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
     from repro_torch.kernels import ref
 
     rec = {}
+    geometry = {}
     for bh, s, d, window, causal, label in ATTN_SHAPES:
+        if d not in geometry:
+            # The built kernel's geometry, held to the plan the CPU tests check.
+            geometry[d] = la.tc_geometry(d)
+            plan = la.tc_plan(s, d, window, causal)
+            want = {k: plan[k] for k in ("bq", "bn", "stages", "smem_bytes")}
+            if {k: geometry[d][k] for k in want} != want:
+                raise AssertionError(f"local_attention D={d}: the kernel's geometry "
+                                     f"{geometry[d]} is not tc_plan's {want}")
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device="cuda").manual_seed(bh + s + window)
             q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda").to(dtype)
@@ -842,9 +866,14 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
                         raise AssertionError(f"local_attention {tag}: the control at window "
                                              f"{w} passes the bound ({ctl:.3g} x)")
                     controls.append(f"window {w}: {ctl:.3g} x")
+                g = geometry[d]
                 print(f"[kernels] local_attention {tag}: err={err:.3g}, worst entry {worst:.3g} "
                       f"x its bound; controls that must fail it: "
-                      f"{', '.join(controls) or 'none (window too short)'}", flush=True)
+                      f"{', '.join(controls) or 'none (window too short)'}; geometry BQ={g['bq']} "
+                      f"BN={g['bn']} stages={g['stages']} smem={g['smem_bytes']} B, "
+                      f"{g['registers']} registers a thread at launch (setmaxnreg: consumers "
+                      f"{g['consumer_registers']}, producer {g['producer_registers']})",
+                      flush=True)
             if dtype != torch.bfloat16 or label in ATTN_UNTIMED:
                 continue
             n_ops, n_bytes = attention_work(bh, s, d, window, causal, q.element_size())
@@ -869,14 +898,7 @@ def check_attention_kernel(bw, fp32_flops, tensor_flops) -> dict:
                   f"{n_bytes / 1e6:.1f} MB) "
                   f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
                   f"call_ms={call_ms:.4f}", flush=True)
-            if label == "prefill":
-                rec["local_attention"] = out
-            elif label == "rg-prefill":
-                rec["local_attention_rg"] = out
-            elif label == "gemma-prefill":
-                rec["local_attention_gemma"] = out
-            elif label == "whisper-encoder":
-                rec["local_attention_encoder"] = out
+            rec[ATTN_RECORD[label]] = out
     return rec
 
 
@@ -4464,13 +4486,12 @@ def main() -> int:
             **{f"launches_path_{p.lower()}": paths[p][name] for p in "KLMNOPQ"},
         })
         if name == "local_attention":
-            # The same kernel at path J's prefill shape (D = 256, window 2048)
-            # and at path L1's (D = 256, full causal).
-            kernels[-1]["rg_prefill"] = {k: rec["local_attention_rg"][k] for k in timed}
-            kernels[-1]["gemma_prefill"] = {k: rec["local_attention_gemma"][k] for k in timed}
-            # Path N's encoder: bidirectional over 1500 frames (row 7d).
-            kernels[-1]["encoder_prefill"] = {k: rec["local_attention_encoder"][k]
-                                              for k in timed}
+            # The same kernel at the other timed shapes: the window of 128,
+            # path J's prefill (D = 256, window 2048), path L1's (D = 256,
+            # full causal), path N's encoder (bidirectional over 1500 frames)
+            # and decoder prefill, and path O's prefill (D = 128).
+            for key, out_key in ATTN_KERNELS_KEY.items():
+                kernels[-1][out_key] = {k: rec[key][k] for k in timed}
         if name == "ssd_scan":
             # From a given state h0 at row 8's shape (row 8b).
             kernels[-1]["h0"] = {k: rec["ssd_scan_h0"][k] for k in (*timed, "ms_without_h0")}

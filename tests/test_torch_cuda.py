@@ -446,7 +446,14 @@ def test_lora_kernels_match_plain(cuda, dtype, m, k, n, r):
     # Whisper-medium's encoder (8 requests x 16 heads over 1500 frames,
     # bidirectional, no multiple of the tiles) and decoder prefill (416);
     # Qwen2-VL-2B's prefill (8 x 12 heads, D 128).
-    (128, 1500, 64, 0, False), (128, 416, 64, 0, True), (96, 512, 128, 0, True)])
+    (128, 1500, 64, 0, False), (128, 416, 64, 0, True), (96, 512, 128, 0, True),
+    # The bf16 route's edges: one row, a query and a key tile one short of
+    # and one past 128; D = 32's 64-byte swizzle at the encoder's shape; a
+    # window of one key and one that is no multiple of the 64- and 128-key
+    # tiles at D = 128 and 256.
+    (4, 1, 64, 0, True), (4, 127, 64, 0, True), (4, 129, 64, 0, True),
+    (128, 1500, 32, 0, False), (8, 300, 128, 1, True), (8, 300, 256, 1, True),
+    (8, 300, 256, 100, True)])
 def test_local_attention_kernel_matches_plain(cuda, dtype, bh, s, d, window, causal):
     """bf16 on the tensor route, float32 on the scalar one; causal and not;
     head widths 32 to 256."""
