@@ -48,9 +48,13 @@ Phases (any failed check raises and the script exits non-zero):
      match it; each bf16 attention row also prints the route's geometry
      (``local_attention.tc_geometry``: BQ, BN, stages, shared bytes,
      registers), which must be ``tc_plan``'s; ``ssd_scan`` (y and the final state) at (BH, S, P, N) =
-     (192, 512, 64, 128) and S = 300, the model's decays and weak ones, and
-     at odd widths, its bound at a third of the TF32 tensor rate (3xTF32),
-     the fp32-core bound printed beside it; ``soft_threshold`` at path B's bucket flattened to
+     (192, 512, 64, 128) and S = 300, the model's decays and weak ones, at
+     odd widths and at path I2's (384, 256, 64, 128), timed at row 8 and I2
+     with its bound at a third of the TF32 tensor rate (3xTF32), the fp32-core
+     bound printed beside it, its grid and device ms by kernel (first pass,
+     scan; the two overlap), and the built kernel's geometry held to
+     ``ssd_scan.plan``'s;
+     ``soft_threshold`` at path B's bucket flattened to
      (196608, 40) and at (129, 130), float32 and bf16, equal bits, beside
      ``F.softshrink`` (timed only); ``subspace_apply_factored`` at path F's
      shard shape (B, vec, d2, r) = (48, 4096, 10, 8), at the last shard of 30
@@ -97,13 +101,14 @@ Phases (any failed check raises and the script exits non-zero):
      mesh=make_host_mesh(4))`` of path B's tree (4 shards on the card) at 40
      dense clients, 30 padded to 32 and 20 of 32 in subspace mode and 40 in
      gram mode, each against the unsharded call on the card and the same
-     call on a CPU mesh; 2 shards against 4; ``mesh_overlap=True`` against
-     False, bit for bit; ``run_simulation(mesh_shards=4)`` on path A's task
+     call on a CPU mesh, and a profiled call of ``F_PROFILE_ITERS``
+     iterations; 2 shards against 4; ``mesh_overlap=True`` against False,
+     bit for bit; ``run_simulation(mesh_shards=4)`` on path A's task
      against ``mesh_shards=0``.
  10. Main path G: cross-round aggregation sessions on the card, each
      against the same session on the CPU round by round (updates within
      1e-4 x max|delta|, equal fallbacks, hits and tiers): G1 ``AggSession``
-     with subspace SVT and ``carry_mode="subspace"`` on path B's tree over 4
+     with subspace SVT and ``carry_mode="subspace"`` on path B's tree over 3
      drifting rounds (round r = 0.8 M_0 + 0.2 M_r), 50 iterations, at 40
      dense clients and 20 of 32, warm rounds all hits; G2
      ``carry_mode="full"`` in gram mode with the tolerance loop (3e-4),
@@ -914,7 +919,11 @@ SSD_RTOL = 1e-4
 # underflows, so the carried state dominates the output).
 SSD_CASES = [(8, 24, 512, 64, 128, "model", "prefill"), (8, 24, 512, 64, 128, "weak", "weak"),
              (8, 24, 300, 64, 128, "model", "ragged"), (8, 24, 300, 64, 128, "weak", "ragged weak"),
-             (2, 3, 70, 40, 100, "weak", "odd widths")]
+             (2, 3, 70, 40, 100, "weak", "odd widths"),
+             (16, 24, 256, 64, 128, "model", "I2 scan")]
+# The timed SSD_CASES labels and the record each one fills: path D's prefill
+# (row 8) and path I2's training scan (8 clients x 2 sequences of 256).
+SSD_TIMED = {"prefill": "ssd_scan", "I2 scan": "ssd_scan_i2"}
 SOFT_SHAPES = [(48 * 4096, 40, "path B bucket"), (129, 130, "ragged")]
 
 
@@ -952,15 +961,23 @@ def ssd_work(bh, s, p, n, groups):
 
 def check_ssd_kernel(bw, fp32_flops, tf32_flops) -> dict:
     """ssd_scan against its plain version (y and the final state), two
-    launches bit for bit; timed at the prefill shape.  Every product of the
-    kernel runs in 3xTF32 on the tensor cores, so ``bound_ms`` counts the
-    tile-64 operations at a third of the TF32 tensor rate, or the bytes at
-    the memory rate, the larger; the same operations at the fp32 CUDA-core
-    rate are printed beside it, the bound the fp32 FMA kernel was held to."""
+    launches bit for bit; timed (CUDA events) at the prefill and I2 shapes.
+    Every product of the kernel runs in 3xTF32 on the tensor cores, so
+    ``bound_ms`` counts the tile-64 operations at a third of the TF32 tensor
+    rate, or the bytes at the memory rate, the larger; the same operations
+    at the fp32 CUDA-core rate are printed beside it, the bound the fp32 FMA
+    kernel was held to."""
     import torch
     from repro_torch.kernels import ref, ssd_scan
 
     rec = {}
+    # The built kernel's geometry, held to the plan the CPU tests check.
+    geo = ssd_scan.geometry()
+    want = {"tile": ssd_scan.TILE, "cols": ssd_scan.COLS, "threads": ssd_scan.THREADS,
+            "smem_bytes": ssd_scan.SCAN_SMEM, "blocks_per_sm": 1}
+    if {k: geo[k] for k in want} != want:
+        raise AssertionError(f"ssd_scan: the kernel's geometry {geo} is not the plan's {want}")
+    print(f"[kernels] ssd_scan geometry {geo}", flush=True)
     for bsz, heads, s, p, n, decay, label in SSD_CASES:
         x, da, b, c = ssd_inputs(bsz, heads, s, p, n, decay, s + p + n)
         run = lambda: ssd_scan.ssd_scan(x, da, b, c, chunk=256, return_state=True)
@@ -975,22 +992,31 @@ def check_ssd_kernel(bw, fp32_flops, tf32_flops) -> dict:
         peaks = [float(w.abs().max()) for w in want]
         print(f"[kernels] ssd_scan {tag}: y err={errs[0]:.3g} (max {peaks[0]:.4g}), "
               f"h err={errs[1]:.3g} (max {peaks[1]:.4g}), bitwise repeat", flush=True)
-        if label != "prefill":
+        if label not in SSD_TIMED:
             continue
+        key = SSD_TIMED[label]
         n_ops, n_bytes = ssd_work(bsz * heads, s, p, n, bsz)
         t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / (tf32_flops / 3) * 1e3
-        ms, plain_ms, call_ms = device_ms(run), device_ms(plain, reps=3), bench_ms(run)
-        rec["ssd_scan"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                               bound_ms=max(t_bytes, t_ops),
-                               bound_by="bytes" if t_bytes >= t_ops else "operations",
-                               library_ms=None)
+        # CUDA events, not the profiler's kernel durations: the scan is
+        # launched as the first pass's programmatic dependent, and its
+        # duration includes the time it waits for the first pass to finish.
+        ms, plain_ms, call_ms = queued_ms(run, 20), device_ms(plain, reps=3), bench_ms(run)
+        rec[key] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
         t_cores = max(t_bytes, n_ops / fp32_flops * 1e3)
+        plan = ssd_scan.plan(bsz * heads, s, p, n, bsz)
         print(f"[kernels] ssd_scan {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={rec['ssd_scan']['bound_ms']:.4f} ({rec['ssd_scan']['bound_by']}, "
+              f"bound_ms={rec[key]['bound_ms']:.4f} ({rec[key]['bound_by']}, "
               f"{n_ops / 1e9:.3f} GFLOP at {tf32_flops / 3e12:.0f} TFLOP/s, {n_bytes / 1e6:.1f} MB) "
               f"fp32-core bound_ms={t_cores:.4f} "
               f"library_ms=null (no single PyTorch call) call_ms={call_ms:.4f} "
-              f"device ms by kernel {device_ms_by_kernel(run)}", flush=True)
+              f"{plan['items']} items on grid {plan['grid']} ({plan['waves']:.2f} rounds of "
+              f"one block an SM, the last {plan['last_wave_fill']:.0%} full; first pass "
+              f"{plan['prep_grid']}, "
+              f"{plan['route']} loads) device ms by kernel, overlapping (profiler: the "
+              f"scan's span includes its wait for the first pass) {device_ms_by_kernel(run)}",
+              flush=True)
     return rec
 
 
@@ -1034,8 +1060,8 @@ def check_ssd_h0_kernel(bw, tf32_flops) -> dict:
         n_ops, n_bytes = ssd_work(bsz * heads, s, p, n, bsz)
         n_bytes += 4 * bsz * heads * n * p  # h0 read
         t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / (tf32_flops / 3) * 1e3
-        ms, bare_ms = device_ms(run), device_ms(bare)
-        ms2 = device_ms(run)
+        ms, bare_ms = queued_ms(run, 20), queued_ms(bare, 20)  # CUDA events, as above
+        ms2 = queued_ms(run, 20)
         rec["ssd_scan_h0"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=device_ms(plain, reps=3),
                                   bound_ms=max(t_bytes, t_ops),
                                   bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1483,6 +1509,10 @@ def main_path_b(counts) -> dict:
 F_CASES = [("subspace", 40, None), ("subspace", 30, None), ("subspace", 32, 20),
            ("gram", 40, None)]
 F_SHARDS = 4
+# ADMM iterations of each case's profiled call: its busy share and top
+# kernels in a fifth of the trace of 50 iterations (at 40 clients the eigh
+# fallbacks launch each of their four kernels about 670 times an iteration).
+F_PROFILE_ITERS = 10
 
 
 class FallbackSpy:
@@ -1610,14 +1640,18 @@ def main_path_f(counts, card: str) -> dict:
               f"{falls} cpu {spy.falls[0]} of 50; max|err| vs unsharded {err_base:.3g}, vs CPU "
               f"mesh {err_cpu:.3g} (max|delta| {scale:.3g}); launches {phase[tag]}", flush=True)
         before = counts()
+        pcfg = cfg.replace(rpca_iters=F_PROFILE_ITERS)
+        t0 = time.perf_counter()
         with FallbackSpy() as spy:
             wall, busy, top = profiled(
-                lambda: aggregate(gpu_tree, cfg, engine="packed", mask=gpu_mask, mesh=mesh))
+                lambda: aggregate(gpu_tree, pcfg, engine="packed", mask=gpu_mask, mesh=mesh))
+        t_prof = time.perf_counter() - t0
         expect(f"{tag} profiled", launched(before),
-               **mesh_launches(mode, F_SHARDS, 1, cfg.rpca_iters, spy.falls[0]))
-        print(f"[path F] {card} | {tag} profiled call: {wall:.4f} s, device busy "
-              f"{'not measured' if busy is None else f'{busy / wall:.1%}'}; top kernels "
-              f"(name, ms, calls) {top}", flush=True)
+               **mesh_launches(mode, F_SHARDS, 1, pcfg.rpca_iters, spy.falls[0]))
+        print(f"[path F] {card} | {tag} profiled call of {F_PROFILE_ITERS} iterations: "
+              f"{wall:.4f} s, device busy "
+              f"{'not measured' if busy is None else f'{busy / wall:.1%}'} (trace taken and "
+              f"read in {t_prof:.1f} s); top kernels (name, ms, calls) {top}", flush=True)
         if mode == "subspace" and n_valid is None:
             # mesh_overlap cuts every psum and tail kernel into 4 B chunks:
             # the same bits.
@@ -1659,7 +1693,7 @@ def main_path_f(counts, card: str) -> dict:
 
 
 # --- Path G: cross-round aggregation sessions -------------------------------------
-G_ROUNDS = 4
+G_ROUNDS = 3
 G_ITERS = 50
 
 
@@ -4493,8 +4527,10 @@ def main() -> int:
             for key, out_key in ATTN_KERNELS_KEY.items():
                 kernels[-1][out_key] = {k: rec[key][k] for k in timed}
         if name == "ssd_scan":
-            # From a given state h0 at row 8's shape (row 8b).
+            # From a given state h0 at row 8's shape (row 8b), and at path
+            # I2's training scan.
             kernels[-1]["h0"] = {k: rec["ssd_scan_h0"][k] for k in (*timed, "ms_without_h0")}
+            kernels[-1]["i2"] = {k: rec["ssd_scan_i2"][k] for k in timed}
         if name == "gathered_lora_matmul":
             # At the q / v shapes of paths L, M, N and O, prefill and decode
             # (LORA_LM, LORA_NO).

@@ -2,68 +2,101 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py::ssd_scan.
 // Per (batch*head) row of x (BH, S, P), log-decays da (BH, S) and the
-// single-group B, C (G, S, N) (row bh reads group bh / (BH / G)):
+// grouped B, C (G, S, N) (row bh reads group bh / (BH / G)):
 //
 //   h_t = exp(da_t) h_{t-1} + B_t^T x_t        (h is N x P, h_0 = 0 or h0)
 //   y_t = C_t h_t
 //
-// evaluated in chunks of T positions, as the TPU kernel does with its chunk:
+// evaluated in tiles of T = 64 positions, with cum the inclusive sum of da
+// inside the tile, split into a half that does not read h and one that does:
 //
-//   y_i  = sum_{j<=i, j in tile} exp(cum_i - cum_j) (C_i . B_j) x_j   (intra)
-//        + exp(cum_i) C_i h                                        (inter)
-//   h   <- exp(cum_last) h + sum_j exp(cum_last - cum_j) B_j^T x_j     (carry)
+//   h-free:  y_intra = (L o C B^T) x,  L_ij = exp(cum_i - cum_j) for j <= i
+//            s       = (B o w)^T x,    w_j  = exp(cum_last - cum_j)
+//   h-bound: y       = exp(cum_i) C h + y_intra
+//            h      <- exp(cum_last) h + s
 //
-// with cum the inclusive sum of da inside the tile.  In exact arithmetic the
-// result does not depend on the tile length, so the kernel's tile T = 64 is
-// smaller than the model's chunk of 256: only the rounding differs.  The
-// final h (BH, N, P) is written when asked (prefill hands it to decode), and
-// the state before position 0 is read from h0 (BH, N, P) when one is given
-// (the model's h_init), else zero: the state warps load their columns of it
-// into the accumulator fragments and into the shared copy of h that the
-// first tile's inter product reads.
+// In exact arithmetic the result does not depend on the tile length, so the
+// tile is smaller than the model's chunk of 256: only the rounding differs.
+// The final h (BH, N, P) is written when asked (prefill hands it to decode),
+// and the state before position 0 is read from h0 (BH, N, P) when one is
+// given (the model's h_init), else zero.
 //
 // Bound: at prefill, (BH, S, P, N) = (192, 512, 64, 128), the tile-64
-// algorithm does 2 * (T(T+1)/2 * (N + P) + 2 T N P) operations per tile of
-// every row, the upper triangle skipped: 4.45 GFLOP, 0.066 ms at the fp32
-// CUDA-core rate of 67 TFLOP/s, against 61 MB of operands (x and y 25 MB
-// each, the final state 6 MB; B and C read once per batch row), 0.018 ms at
-// 3.35 TB/s.  On the tensor cores in 3xTF32 (three TF32 passes, 495 / 3 =
-// 165 TFLOP/s) the same operations take 0.027 ms, still above the bytes.
+// algorithm needs 3.66 GFLOP (chip_smoke.py::ssd_work: the scores once per
+// group, intra with the upper triangle skipped, inter and carry), which in
+// 3xTF32 (three TF32 passes at 495 / 3 = 165 TFLOP/s) take 0.022 ms, against
+// 61 MB of operands (x and y 25 MB each, the final state 6 MB) at 3.35 TB/s,
+// 0.018 ms: the operations bind.  The serial part is only the carry, an
+// elementwise scale-and-add of h a tile; everything else is independent from
+// tile to tile.
 //
 // Design: two kernels a call.
 //
-//   ssd_prep: one block per (tile, group) computes the raw score tile
-//   C B^T (64 x 64, K = N) once for the group, not once for each of its
-//   heads and column blocks (48 at prefill), and the inclusive sums of da
-//   (in log2 units, for ex2) for every head of the group.  Scratch: (G, tiles, 64, 64) scores, 1 MB at prefill, and
-//   (BH, tiles * 64) sums.
+//   ssd_prep: two blocks (one warpgroup each) per (tile, group), each
+//   forming half the columns of the raw score tile C B^T (64 x 32, K = N)
+//   once for the group, not once for each of its heads and column blocks
+//   (48 at prefill), as wgmma m64n32k8 in 3xTF32 (C from registers, B split
+//   into its TF32 halves in shared memory), and the inclusive sums of da
+//   (in log2 units, for ex2) of half the group's heads (every other one, 32
+//   a pass over the block's four warps, as many passes as the group needs).
+//   All its copies are in flight at once (cp.async).  Scratch: (G, tiles,
+//   64, 64) scores, 1 MB at prefill, and (BH, tiles * 64) sums.
 //
-//   ssd_scan: the recurrence for column p of h and y reads column p of x
-//   only, so a block takes one row bh and PT = 32 columns of P: a grid of
-//   (P / PT, BH) blocks, 384 at prefill.  A block takes 226 KB of shared
-//   memory, one an SM: 2.9 waves, the last 91% full (a persistent grid of
-//   one block an SM, prefetching across its items, measured no faster).  16 warps: eight
-//   "output" warps own 16 rows of y each and half of inter's K, eight
-//   "state" warps own 16 rows of h each.  Per tile:
-//     - tile it + 1's B, C, x, scores and sums are copied into the other
-//       stage of a two-stage ring by cp.async while tile it computes;
-//     - phase 1: the output warps form inter C h from the state entering
-//       the tile, each over half of K; the state warps split x into its
-//       TF32 halves (once, for every product that reads it) and run the
-//       carry (B o w)^T x into h, which lives in their accumulator
-//       fragments from tile to tile;
-//     - phase 2: each output warp adds its partner's half-sums (passed
-//       through shared memory, first half of K first), scales by exp(cum_i)
-//       and runs intra (L o C B^T) x for two n8 tiles, decaying the scores
-//       as it reads them; the state warps mirror h into shared memory for
-//       the next tile's inter product;
-//     - every product is mma.m16n8k8 in 3xTF32 (tf32x3.cuh), each warp's A
-//       fragment split once a k-step and feeding four (or two) independent
-//       MMA chains, two k-steps a fragment before the fp32 add;
-//     - two __syncthreads a tile, and one barrier among the state warps.
-//   Shared rows are padded so that every fragment load of a warp hits 32
-//   distinct banks (A operands read at a row stride = 4 mod 8 floats, B
-//   operands and the transposed read of B at a stride = 8 mod 16).
+//   ssd_scan, launched as ssd_prep's programmatic dependent (its blocks set
+//   up while ssd_prep finishes; griddepcontrol.wait holds its loads): the
+//   work items are (row bh, 32 columns of P) pairs, since the recurrence
+//   for column p of h and y reads column p of x only, 384 at prefill.  A
+//   block's 230,992 bytes of shared memory leave room for one block an SM,
+//   so the grid is one persistent block an SM, each walking the items
+//   blockIdx.x + k gridDim.x (neighbouring blocks take heads of one group,
+//   whose B, C and scores L2 then serves): 384 items on 132 SMs are 2.91
+//   rounds, the last 91% full (the I2 training shape, 768 items, 5.82
+//   rounds, the last 82% full).  The rings run on from item to item, so an
+//   item's first tiles load and start under the last one's end.  Three
+//   warpgroups:
+//     - the producer (setmaxnreg down to 56 registers) keeps two rings of
+//       two stages filled: the "free" ring of B, x, the score tile and the
+//       sums of a tile, and the "bound" ring of C; one thread issues TMA
+//       loads (cp.async.bulk.tensor, 128-byte swizzled boxes of 32 floats a
+//       row, rows past S and columns past N or P read as zero) on
+//       mbarriers.  Where a row stride is not a multiple of 16 bytes (N or P
+//       not a multiple of 4) TMA cannot take the tensor, and one warp copies
+//       the same boxes into the same swizzled layout with 4-byte cp.async
+//       (zero-filled past the edges) instead: one kernel, one consumer code.
+//     - the h-free warpgroup runs tile k + 1's h-free half while the
+//       h-bound one runs tile k: it transposes x into x^T (the K-major B
+//       operand that TF32 wgmma needs, since only f16 / bf16 have the
+//       transpose bit) split into TF32 hi and lo, then issues intra
+//       (m64n32k8, A = L o C B^T decayed in registers) and s (two m64n32k8
+//       halves of N, A = (B o w)^T in registers), and hands y_intra and s to
+//       the other warpgroup through the stage it has used up (B's and the
+//       scores' space), in the accumulators' own layout.
+//     - the h-bound warpgroup keeps h in registers (the accumulator layout
+//       of two m64n32 tiles), mirrored as h^T hi and lo in shared memory for
+//       inter (m64n32k8, A = C from registers, B = h^T, K = N).  Per tile it
+//       reads the hand-off, frees the stage, adds s into h, issues inter on
+//       the h^T of the previous tile, scales by exp(cum_i), adds y_intra and
+//       stores y, then writes the new h^T.
+//   Every product is wgmma.mma_async ... .tf32 in three passes (lo hi, hi lo,
+//   hi hi: the small terms first), with A split in registers and B's halves
+//   in shared memory, built four k-steps at a time into one of two register
+//   sets (the next chunk's loads and splits run under this one's products).
+//   The split rounds to TF32 by integer arithmetic (split_rn: the bits of
+//   cvt.rna, at the full ALU rate).  A product's passes accumulate into a
+//   fresh accumulator of its own each tile (scale-d 0 on its first pass),
+//   summed with the others in fp32 by ordinary adds (y_intra + exp(cum)
+//   inter, h + s): at most 48 truncating passes (inter, K = 128) share an
+//   accumulator, about 6e-6 of its magnitude, against the 1e-4 the checks
+//   allow (y within 1e-5 of its largest entry at row 8 on the card).
+//
+// What holds it (tools/ssd_scan_breakdown.py --clock, H100 80GB HBM3,
+// 700 W): a tile-step takes about 3 us (the slope of time against S at one
+// round), and each consumer warpgroup about 5,000 clock64 cycles of it, of
+// which its issue phase (48 or 72 products with their operand builds) is
+// about 3,200.  The 120 products of a tile need about 1 us of an SM's TF32
+// rate: the warpgroups' operand builds, x's transpose and h^T's writes do
+// not overlap their own products' issue.  The first pass is about 8% of a
+// call.
 //
 // The decay of the upper triangle (i < j) is exp of a positive number and
 // would overflow: those entries are selected to 0, never multiplied by a
@@ -71,67 +104,76 @@
 // pads them, and are not stored.  Each output is written by one thread, the
 // tensor cores sum in a fixed order and there are no atomics: two launches
 // give the same bits.
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstdint>
 
 #include "smem_opt_in.cuh"
 #include "tf32x3.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
-constexpr int T = 64;          // positions per tile
-constexpr int NMAX = 128;      // largest state width N
-constexpr int PT = 32;         // columns of P per block
-constexpr int kThreads = 512;      // 16 warps of the scan
-constexpr int kPrepThreads = 256;  // 8 warps of the first pass
-constexpr int SA = NMAX + 4;   // row stride of C (and of B in ssd_prep): A rows
-constexpr int SB = NMAX + 8;   // row stride of B in ssd_scan: read transposed
-constexpr int SL = T + 4;      // row stride of the score tile: A rows
-constexpr int SX = PT + 8;     // row stride of x and h: B rows
+using namespace repro;
 
-struct Stage {
-  float b[T][SB];  // B[t0 + j][n]
-  float c[T][SA];  // C[t0 + i][n]
-  float l[T][SL];  // C_i . B_j (decayed and masked as the intra product reads it)
-  float x[T][SX];  // this block's columns of x
-  float cum[T];    // inclusive sum of da log2 e within the tile
-};
+constexpr int T = 64;     // positions per tile
+constexpr int NMAX = 128; // largest state width N
+constexpr int PT = 32;    // columns of P a work item takes
+constexpr int kThreads = 384;     // h-bound, h-free and producer warpgroups
+constexpr int kPrepThreads = 128; // one warpgroup
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;  // 4 x 56 + 8 x 224 = 12 x 168
+constexpr float kLog2e = 1.4426950408889634f;
 
-struct Smem {
-  Stage st[2];              // x of a stage becomes its TF32 hi half in phase 1
-  float xlo[T][SX];         // and this its lo half
-  float h[NMAX][SX];        // state entering the tile
-  float red[4][2][2][4][32];  // inter half-sums passed between half-K warps, lane-major
-};
+// Shared memory, bytes from a 1024-aligned base.  A "box" is rows of 32
+// floats (128 bytes, the 128-byte swizzle): 64 rows (kBox64) or 32 (kBox32).
+constexpr int kBox64 = T * 128;
+constexpr int kBox32 = PT * 128;
+// A stage of the free ring: B (4 boxes [64 j][32 n]), x ([64 j][32 p], then
+// x^T hi as 2 boxes [32 p][32 j]), the scores (2 boxes [64 i][32 j]); the
+// stage's x^T lo (2 boxes [32 p][32 j]) and sums (64 floats) lie apart.  The
+// hand-off reuses B's space (s) and the scores' (y_intra).
+constexpr int kFB = 0;
+constexpr int kFX = 4 * kBox64;
+constexpr int kFL = kFX + kBox64;
+constexpr int kFStage = kFL + 2 * kBox64;
+// A stage of the bound ring: C (4 boxes [64 i][32 n]).
+constexpr int kHStage = 4 * kBox64;
+constexpr int kOffH = 2 * kFStage;
+constexpr int kOffXlo = kOffH + 2 * kHStage;  // x^T lo of each free stage
+constexpr int kOffHT = kOffXlo + 2 * 2 * kBox32;  // h^T hi: 4 boxes [32 p][32 n]; lo after it
+constexpr int kOffCum = kOffHT + 8 * kBox32;      // the sums of each free stage
+constexpr int kOffBar = kOffCum + 2 * T * 4;
+constexpr int kBars = 10;  // full / empty of each ring's two stages, hand-off of the free ring's
+constexpr int kSmem = 1024 + kOffBar + 8 * kBars;
+static_assert(kSmem == 230992, "kernels/ssd_scan.py SCAN_SMEM");
+static_assert(kSmem <= 232448, "a block's shared memory on the H100");
+// ssd_prep: C [64][132] floats, half a tile of B as loaded [32][128], then
+// its hi and lo, 4 boxes [32 j][32 n] each.
+constexpr int SC = NMAX + 4;
+constexpr int kPrepRaw = 34 * 1024;
+constexpr int kPrepBhi = kPrepRaw + 32 * NMAX * 4;
+constexpr int kPrepBlo = kPrepBhi + 4 * kBox32;
+constexpr int kPrepSmem = 1024 + kPrepBlo + 4 * kBox32;
+static_assert(T * SC * 4 <= kPrepRaw, "ssd_prep layout");
 
-struct PrepSmem {
-  float b[T][SA];
-  float c[T][SA];
-};
+// Barrier slots: free ring full 0-1, empty 2-3, hand-off 4-5; bound ring
+// full 6-7, empty 8-9.
+constexpr int kFullF = 0, kEmptyF = 2, kHandoff = 4, kFullH = 6, kEmptyH = 8;
 
-using repro::cp_async16;
-using repro::cp_async4;
+// Byte offset of element (r, c), c < 32, of a box with the 128-byte swizzle
+// (TMA's CU_TENSOR_MAP_SWIZZLE_128B and the wgmma descriptor's): the 16-byte
+// chunk index XORed with the row mod 8.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
+}
 
-// Rows [t0, t0 + T) of a (S, N) group into a shared tile of stride LD,
-// columns [0, np), zero past S and past N.  The loops run over NMAX-wide
-// rows (shifts, not divisions) and skip the columns past np.
-template <int LD, int NTHREADS>
-__device__ __forceinline__ void load_rows(float (*dst)[LD], const float* src, int t0, int len,
-                                          int N, int np, bool vec4) {
-  if (vec4) {
-    for (int e = threadIdx.x; e < T * (NMAX / 4); e += NTHREADS) {
-      const int j = e / (NMAX / 4), q = 4 * (e % (NMAX / 4));
-      if (q >= np) continue;
-      const bool ok = j < len && q < N;
-      cp_async16(&dst[j][q], src + (ok ? static_cast<size_t>(t0 + j) * N + q : 0), ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < T * NMAX; e += NTHREADS) {
-      const int j = e / NMAX, q = e % NMAX;
-      if (q >= np) continue;
-      const bool ok = j < len && q < N;
-      cp_async4(&dst[j][q], src + (ok ? static_cast<size_t>(t0 + j) * N + q : 0), ok);
-    }
-  }
+__device__ __forceinline__ float lds(const uint8_t* p, uint32_t off) {
+  return *reinterpret_cast<const float*>(p + off);
+}
+__device__ __forceinline__ void sts(uint8_t* p, uint32_t off, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p + off) = v;
 }
 
 // 2^x by the SFU (ex2.approx, about 2^-22 relative): every decay is
@@ -141,337 +183,687 @@ __device__ __forceinline__ float exp2_approx(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
-constexpr float kLog2e = 1.4426950408889634f;
 
-// Scores and sums of one (tile, group).
-__global__ void __launch_bounds__(kPrepThreads)
-ssd_prep_kernel(const float* __restrict__ da, const float* __restrict__ b,
-                const float* __restrict__ c, float* __restrict__ cb, float* __restrict__ cum,
-                int S, int N, int np, int heads_per_group, int vec4) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  PrepSmem& sm = *reinterpret_cast<PrepSmem*>(smem_raw);
-  const int tile = blockIdx.x, n_tiles = gridDim.x;
-  const int grp = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int t0 = tile * T;
-  const int len = min(T, S - t0);
-  const size_t goff = static_cast<size_t>(grp) * S * N;
-  load_rows<SA, kPrepThreads>(sm.b, b + goff, t0, len, N, np, vec4);
-  load_rows<SA, kPrepThreads>(sm.c, c + goff, t0, len, N, np, vec4);
-  repro::cp_async_commit();
+__device__ __forceinline__ void named_bar(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
 
-  // Inclusive sums of da log2 e, one head a warp at a time, two positions a
-  // lane.
-  const int s_pad = n_tiles * T;
-  for (int hh = warp; hh < heads_per_group; hh += kPrepThreads / 32) {
-    const size_t bh = static_cast<size_t>(grp) * heads_per_group + hh;
-    const float* dar = da + bh * S + t0;
-    const int j0 = 2 * lane;
-    const float d0 = j0 < len ? dar[j0] * kLog2e : 0.f;
-    const float d1 = j0 + 1 < len ? dar[j0 + 1] * kLog2e : 0.f;
-    float s = d0 + d1;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, s, off);
-      if (lane >= off) s += v;
-    }
-    float prev = __shfl_up_sync(0xffffffffu, s, 1);
-    if (lane == 0) prev = 0.f;
-    float* out = cum + bh * s_pad + t0;
-    out[j0] = prev + d0;
-    out[j0 + 1] = prev + d0 + d1;
-  }
+// The A operand of four k-steps, split: hi[u] and lo[u] are k-step u's
+// m16n8k8-layout fragments (rows g, g + 8; columns t, t + 4).
+struct Frag {
+  uint32_t hi[4][4], lo[4][4];
+};
 
-  repro::cp_async_wait<0>();
-  __syncthreads();
-  // C B^T: warp w owns rows 16 (w % 4) .. + 16, columns 32 (w / 4) .. + 32.
-  const int i0 = 16 * (warp & 3);
-  const int jb = 32 * (warp >> 2);
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < np; k0 += 8) {
-    const float av[4] = {sm.c[i0 + gq][k0 + tq], sm.c[i0 + gq + 8][k0 + tq],
-                         sm.c[i0 + gq][k0 + tq + 4], sm.c[i0 + gq + 8][k0 + tq + 4]};
-    uint32_t ah[4], al[4];
-    repro::split_a(av, ah, al);
+// x = hi + lo exactly, hi = x rounded to TF32 (nearest, ties away from
+// zero: the bits of cvt.rna.tf32.f32 for every finite x) by integer
+// arithmetic, which runs at the full ALU rate where the conversion does
+// not; lo goes to the tensor cores as its fp32 bits (tf32x3.cuh).
+__device__ __forceinline__ void split_rn(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = jb + 8 * q + gq;
-      uint32_t bh[2], bl[2];
-      repro::split_b(sm.b[j][k0 + tq], sm.b[j][k0 + tq + 4], bh, bl);
-      repro::mma_3xtf32(acc[q], ah, al, bh, bl);
-    }
-  }
-  float* out = cb + (static_cast<size_t>(grp) * n_tiles + tile) * T * T;
+  for (int e = 0; e < 4; ++e) split_rn(v[e], hi[e], lo[e]);
+}
+
+// Keeps a chunk's A registers live (and unmoved) until the wait that covers
+// the products reading them.
+__device__ __forceinline__ void fence_frag(Frag& a) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int j = jb + 8 * q + 2 * tq;
-    *reinterpret_cast<float2*>(out + (i0 + gq) * T + j) = make_float2(acc[q][0], acc[q][1]);
-    *reinterpret_cast<float2*>(out + (i0 + gq + 8) * T + j) = make_float2(acc[q][2], acc[q][3]);
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a.hi[u][e]), "+r"(a.lo[u][e])::"memory");
+}
+
+// Issues four k-steps (kk0 .. kk0 + 3) of acc += A B in 3xTF32: B's halves
+// K-major in shared memory at b_hi / b_lo, boxes of 32 rows (the N dim) x 32
+// K-values; a k-step is 32 bytes along a box row, four of them a box.
+__device__ __forceinline__ void issue4(float (&acc)[16], const Frag& a, uint32_t b_hi,
+                                       uint32_t b_lo, int kk0, bool fresh) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int kk = kk0 + u;
+    const uint32_t off = (kk >> 2) * kBox32 + (kk & 3) * 32;
+    const uint64_t dh = smem_desc(b_hi + off, 16, 1024), dl = smem_desc(b_lo + off, 16, 1024);
+    wgmma_tf32_rs(acc, a.lo[u], dh, fresh && u == 0 ? 0 : 1);
+    wgmma_tf32_rs(acc, a.hi[u], dl, 1);
+    wgmma_tf32_rs(acc, a.hi[u], dh, 1);
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ b,
-                const float* __restrict__ c, const float* __restrict__ cb,
-                const float* __restrict__ cum, const float* __restrict__ h0,
-                float* __restrict__ y, float* __restrict__ h_out, int S, int P, int N, int np,
-                int heads_per_group, int n_tiles, int vec4) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+// Scores and sums of one (tile, group, half of the tile's key rows j): a
+// block forms columns [32 jb, 32 jb + 32) of the tile's C B^T and the sums of
+// the group's heads hh = jb (mod 2).
+__global__ void __launch_bounds__(kPrepThreads)
+ssd_prep_kernel(const float* __restrict__ da, const float* __restrict__ b,
+                const float* __restrict__ c, float* __restrict__ cb, float* __restrict__ cum,
+                int S, int N, int nbox, int heads_per_group, int vec4) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(base);
+  float (*cs)[SC] = reinterpret_cast<float (*)[SC]>(base);
+  float (*braw)[NMAX] = reinterpret_cast<float (*)[NMAX]>(base + kPrepRaw);
+  const int tile = blockIdx.x, n_tiles = gridDim.x, grp = blockIdx.y, jb = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int bh = blockIdx.y;
-  const int p_base = blockIdx.x * PT;
-  const int grp = bh / heads_per_group;
-  const float* xr = x + static_cast<size_t>(bh) * S * P;
-  const float* br = b + static_cast<size_t>(grp) * S * N;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int t0 = tile * T, len = min(T, S - t0);
+  const int np = 32 * nbox;
   const float* cr = c + static_cast<size_t>(grp) * S * N;
-  const float* cbr = cb + static_cast<size_t>(grp) * n_tiles * T * T;
-  const float* cumr = cum + static_cast<size_t>(bh) * n_tiles * T;
-  float* yr = y + static_cast<size_t>(bh) * S * P;
+  const float* br = b + (static_cast<size_t>(grp) * S + 32 * jb) * N;
+  const int blen = min(32, len - 32 * jb);  // B rows of this half inside S
+  asm volatile("griddepcontrol.launch_dependents;");  // the scan may launch now
+  // The sums of the group's heads hh = h_base + jb + 2 (warp + 4 k), 64 heads
+  // a pass (h_base = 0, 64, ...), two positions a lane.  The first pass's da
+  // loads are in flight while the copies are issued; further passes (more
+  // than 64 heads a group) run after the products.
+  constexpr int kHeads = 8, kHeadsPerPass = 2 * 4 * kHeads;
+  const int s_pad = n_tiles * T;
+  const int j0 = 2 * lane;
+  auto head = [&](int h_base, int k) { return h_base + jb + 2 * (warp + 4 * k); };
+  float d[kHeads][2];
+  auto load_da = [&](int h_base) {
+#pragma unroll
+    for (int k = 0; k < kHeads; ++k) {
+      const int hh = head(h_base, k);
+      const float* dar = da + (static_cast<size_t>(grp) * heads_per_group + hh) * S + t0;
+      d[k][0] = hh < heads_per_group && j0 < len ? dar[j0] * kLog2e : 0.f;
+      d[k][1] = hh < heads_per_group && j0 + 1 < len ? dar[j0 + 1] * kLog2e : 0.f;
+    }
+  };
+  // Inclusive sums of the loaded da across the warp's 64 positions.
+  auto scan_da = [&]() {
+#pragma unroll
+    for (int k = 0; k < kHeads; ++k) {
+      float s = d[k][0] + d[k][1];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, s, off);
+        if (lane >= off) s += v;
+      }
+      float prev = __shfl_up_sync(0xffffffffu, s, 1);
+      if (lane == 0) prev = 0.f;
+      d[k][1] = prev + d[k][0] + d[k][1];
+      d[k][0] = prev + d[k][0];
+    }
+  };
+  auto store_sums = [&](int h_base) {
+#pragma unroll
+    for (int k = 0; k < kHeads; ++k) {
+      const int hh = head(h_base, k);
+      if (hh >= heads_per_group) break;
+      float* out = cum + (static_cast<size_t>(grp) * heads_per_group + hh) * s_pad + t0;
+      *reinterpret_cast<float2*>(out + j0) = make_float2(d[k][0], d[k][1]);
+    }
+  };
+  load_da(0);
+  // C (all 64 rows) and this half's 32 rows of B, np floats a row, zero past
+  // S and past N: 16-byte cp.async where vec4 promises N a multiple of 4 and
+  // aligned rows, else 4-byte.  Every copy is in flight at once.
+  if (vec4) {
+    const int n = 4 * lane;
+    if (n < np) {
+      const bool n_ok = n < N;
+#pragma unroll 4
+      for (int j = warp; j < T; j += 4) {
+        const bool ok = n_ok && j < len;
+        cp_async16(&cs[j][n], cr + (ok ? static_cast<size_t>(t0 + j) * N + n : 0), ok);
+      }
+#pragma unroll 4
+      for (int j = warp; j < 32; j += 4) {
+        const bool ok = n_ok && j < blen;
+        cp_async16(&braw[j][n], br + (ok ? static_cast<size_t>(t0 + j) * N + n : 0), ok);
+      }
+    }
+  } else {
+    for (int e = tid; e < T * NMAX; e += kPrepThreads) {
+      const int j = e >> 7, n = e & 127;
+      if (n >= np) continue;
+      const bool ok = j < len && n < N;
+      cp_async4(&cs[j][n], cr + (ok ? static_cast<size_t>(t0 + j) * N + n : 0), ok);
+      const bool bok = j < 32 && j < blen && n < N;
+      if (j < 32) cp_async4(&braw[j][n], br + (bok ? static_cast<size_t>(t0 + j) * N + n : 0), bok);
+    }
+  }
+  cp_async_commit();
+  // The first pass's sums stay in registers until the proxy fence below has
+  // passed (it would wait for stores issued before it).
+  scan_da();
+  cp_async_wait<0>();
+  __syncthreads();
+  // This half's B split into the K-major boxes [32 j][32 n] of the B operand.
+  const int nb = tid & 127;
+  if (nb < np) {
+#pragma unroll 8
+    for (int j = 0; j < 32; ++j) {
+      uint32_t hi, lo;
+      split_rn(braw[j][nb], hi, lo);
+      const uint32_t off = (nb >> 5) * kBox32 + swz(j, nb & 31);
+      sts(base, kPrepBhi + off, hi);
+      sts(base, kPrepBlo + off, lo);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  store_sums(0);
 
-  auto load = [&](int it) {
-    Stage& st = sm.st[it & 1];
-    const int t0 = it * T;
-    const int len = min(T, S - t0);
-    load_rows<SB, kThreads>(st.b, br, t0, len, N, np, vec4);
-    load_rows<SA, kThreads>(st.c, cr, t0, len, N, np, vec4);
-    if (vec4) {
-      for (int e = tid; e < T * (PT / 4); e += kThreads) {
-        const int j = e / (PT / 4), q = 4 * (e % (PT / 4));
-        const bool ok = j < len && p_base + q < P;
-        cp_async16(&st.x[j][q], xr + (ok ? static_cast<size_t>(t0 + j) * P + p_base + q : 0),
-                   ok);
-      }
-    } else {
-      for (int e = tid; e < T * PT; e += kThreads) {
-        const int j = e / PT, q = e % PT;
-        const bool ok = j < len && p_base + q < P;
-        cp_async4(&st.x[j][q], xr + (ok ? static_cast<size_t>(t0 + j) * P + p_base + q : 0),
-                  ok);
-      }
+  // C B^T: M = i, N = j (this half's 32), K = n; A = C from registers, four
+  // k-steps a chunk.
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  auto build = [&](Frag& a, int cbx) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int n0 = 32 * cbx + 8 * u + t4, n1 = n0 + 4;
+      const float v[4] = {cs[r0][n0], cs[r1][n0], cs[r0][n1], cs[r1][n1]};
+      split4(v, a.hi[u], a.lo[u]);
     }
-    const float* cbt = cbr + static_cast<size_t>(it) * T * T;
-    for (int e = tid; e < T * (T / 4); e += kThreads) {
-      const int i = e / (T / 4), q = 4 * (e % (T / 4));
-      cp_async16(&st.l[i][q], cbt + i * T + q);
+  };
+  float acc[16];
+  Frag fa, fb;
+  auto step = [&](Frag& fr, int cbx) {
+    if (cbx >= 2) {
+      wgmma_wait<1>();  // the chunk before last, which read fr, is done
+      fence_frag(fr);
     }
-    if (tid < T / 4) cp_async16(&st.cum[4 * tid], cumr + t0 + 4 * tid);
-    repro::cp_async_commit();
+    build(fr, cbx);
+    wgmma_fence();
+    issue4(acc, fr, sbase + kPrepBhi, sbase + kPrepBlo, 4 * cbx, cbx == 0);
+    wgmma_commit();
+  };
+  for (int cbx = 0; cbx < nbox; ++cbx) {
+    if (cbx & 1)
+      step(fb, cbx);
+    else
+      step(fa, cbx);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_frag(fa);
+  fence_frag(fb);
+  float* out = cb + (static_cast<size_t>(grp) * n_tiles + tile) * T * T + 32 * jb;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int j = 8 * jj + 2 * t4;
+    *reinterpret_cast<float2*>(out + r0 * T + j) = make_float2(acc[4 * jj], acc[4 * jj + 1]);
+    *reinterpret_cast<float2*>(out + r1 * T + j) = make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+  }
+  // The sums of heads past the first 64 of the group.
+  for (int h_base = kHeadsPerPass; h_base < heads_per_group; h_base += kHeadsPerPass) {
+    load_da(h_base);
+    scan_da();
+    store_sums(h_base);
+  }
+}
+
+struct ScanArgs {
+  const float* x;
+  const float* b;
+  const float* c;
+  const float* cb;
+  const float* cum;
+  const float* h0;
+  float* y;
+  float* h_out;
+  int S, P, N, heads_per_group, n_tiles, nbox, use_tma;
+  int n_pblk, n_items;  // column blocks a row, work items (bh, column block)
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_scan_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
+                const __grid_constant__ CUtensorMap tm_c, const __grid_constant__ CUtensorMap tm_cb,
+                const ScanArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(base);
+  const uint32_t bars = sbase + kOffBar;
+  auto bar = [&](int i) { return bars + 8 * i; };
+  const int nt = a.n_tiles, nbox = a.nbox;
+  // The block's work items, idx = blockIdx.x + k gridDim.x, each a row bh
+  // and a column block (idx = bh * n_pblk + column block: neighbouring
+  // blocks take heads of one group, whose B, C and scores L2 then serves).
+  // Every role walks them in the same order; the rings and their barrier
+  // phases run on across items (q counts a role's tiles).
+  struct Item {
+    int bh, p_base, grp;
+  };
+  auto item = [&](int idx) {
+    const int bh = idx / a.n_pblk;
+    return Item{bh, (idx - bh * a.n_pblk) * PT, bh / a.heads_per_group};
   };
 
-  // Warps 0-7 ("output"): m16 rows i0 = 16 (w % 4) of y and all four n8
-  // tiles of the block's columns; inter over half of K (kh = w / 4), the
-  // halves added in phase 2 by the kh = 0 warp, which then runs intra and
-  // stores y.  Warps 8-15 ("state"): state rows n0 = 16 (w - 8) (live below
-  // np) and all four n8 tiles; they split x and run the carry.  Each warp's
-  // A fragment is split once a k-step and feeds four independent MMA chains.
-  const bool out_warp = warp < 8;
-  const int mt = warp & 3, kh = (warp >> 2) & 1;
-  const int i0 = 16 * mt;
-  const int n0 = 16 * (warp - 8);
-  const bool owns_state = !out_warp && n0 < np;
-  // The state entering tile 0: h0's rows [0, N) and this block's columns,
-  // zero elsewhere (rows past N pad K of the inter product).
-  const float* h0r = h0 == nullptr ? nullptr : h0 + static_cast<size_t>(bh) * N * P;
-  float hacc[4][4] = {};
-  if (h0r != nullptr && owns_state) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int p = p_base + 8 * q + 2 * tq;
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int n = n0 + gq + 8 * hf;
-        if (n < N) {
-          if (p < P) hacc[q][2 * hf] = h0r[static_cast<size_t>(n) * P + p];
-          if (p + 1 < P) hacc[q][2 * hf + 1] = h0r[static_cast<size_t>(n) * P + p + 1];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar(kFullF + s), 1);
+      mbar_init(bar(kEmptyF + s), 4);
+      mbar_init(bar(kHandoff + s), 4);
+      mbar_init(bar(kFullH + s), 1);
+      mbar_init(bar(kEmptyH + s), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // ---- Producer ---------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    // The scan is launched as ssd_prep's programmatic dependent: its blocks
+    // may start while the first pass finishes, and only the loads wait for it.
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    const int pwarp = (threadIdx.x >> 5) - 8, plane = threadIdx.x & 31;  // warps 1-3 idle
+    if (pwarp == 0 && a.use_tma) {
+      if (plane == 0) {
+        const uint32_t f_bytes = (nbox + 3) * kBox64;
+        int q = 0;
+        for (int idx = blockIdx.x; idx < a.n_items; idx += gridDim.x) {
+          const Item it = item(idx);
+          const int bh = it.bh, p_base = it.p_base, grp = it.grp;
+          const float* cumr = a.cum + static_cast<size_t>(bh) * nt * T;
+          for (int t = 0; t < nt; ++t, ++q) {
+            const int s = q & 1;
+            const uint32_t f = sbase + s * kFStage, h = sbase + kOffH + s * kHStage;
+            if (q >= 2) mbar_wait(bar(kEmptyF + s), ((q >> 1) - 1) & 1);
+            mbar_expect_tx(bar(kFullF + s), f_bytes + T * 4);
+            for (int bx = 0; bx < nbox; ++bx)
+              tma_load_3d(f + kFB + bx * kBox64, &tm_b, 32 * bx, t * T, grp, bar(kFullF + s));
+            tma_load_3d(f + kFX, &tm_x, p_base, t * T, bh, bar(kFullF + s));
+            for (int bx = 0; bx < 2; ++bx)
+              tma_load_3d(f + kFL + bx * kBox64, &tm_cb, 32 * bx, t * T, grp, bar(kFullF + s));
+            bulk_load(sbase + kOffCum + s * T * 4, cumr + t * T, T * 4, bar(kFullF + s));
+            if (q >= 2) mbar_wait(bar(kEmptyH + s), ((q >> 1) - 1) & 1);
+            mbar_expect_tx(bar(kFullH + s), nbox * kBox64);
+            for (int bx = 0; bx < nbox; ++bx)
+              tma_load_3d(h + bx * kBox64, &tm_c, 32 * bx, t * T, grp, bar(kFullH + s));
+          }
+        }
+      }
+    } else if (pwarp == 0) {
+      // The same boxes by one warp's 4-byte cp.async (16-byte for the
+      // scratch), every column of a box, zero past S, N and P.
+      int q = 0;
+      for (int idx = blockIdx.x; idx < a.n_items; idx += gridDim.x) {
+        const Item it = item(idx);
+        const int bh = it.bh, p_base = it.p_base, grp = it.grp;
+        const float* cumr = a.cum + static_cast<size_t>(bh) * nt * T;
+        const float* xr = a.x + static_cast<size_t>(bh) * a.S * a.P;
+        const float* br = a.b + static_cast<size_t>(grp) * a.S * a.N;
+        const float* cr = a.c + static_cast<size_t>(grp) * a.S * a.N;
+        for (int t = 0; t < nt; ++t, ++q) {
+          const int s = q & 1, t0 = t * T, len = min(T, a.S - t0);
+          uint8_t* f = base + s * kFStage;
+          uint8_t* h = base + kOffH + s * kHStage;
+          if (q >= 2) mbar_wait(bar(kEmptyF + s), ((q >> 1) - 1) & 1);
+          for (int e = plane; e < T * NMAX; e += 32) {
+            const int j = e >> 7, n = e & 127;
+            const bool ok = j < len && n < a.N;
+            cp_async4(f + kFB + (n >> 5) * kBox64 + swz(j, n & 31),
+                      br + (ok ? static_cast<size_t>(t0 + j) * a.N + n : 0), ok);
+          }
+          for (int e = plane; e < T * PT; e += 32) {
+            const int j = e >> 5, q = e & 31;
+            const bool ok = j < len && p_base + q < a.P;
+            cp_async4(f + kFX + swz(j, q),
+                      xr + (ok ? static_cast<size_t>(t0 + j) * a.P + p_base + q : 0), ok);
+          }
+          const float* cbt = a.cb + (static_cast<size_t>(grp) * nt + t) * T * T;
+          for (int e = plane; e < T * (T / 4); e += 32) {
+            const int i = e >> 4, q = 4 * (e & 15);
+            cp_async16(f + kFL + (q >> 5) * kBox64 + swz(i, q & 31), cbt + i * T + q);
+          }
+          if (plane < T / 4)
+            cp_async16(base + kOffCum + s * T * 4 + 16 * plane, cumr + t0 + 4 * plane);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncwarp();
+          if (plane == 0) mbar_arrive(bar(kFullF + s));
+          if (q >= 2) mbar_wait(bar(kEmptyH + s), ((q >> 1) - 1) & 1);
+          for (int e = plane; e < T * NMAX; e += 32) {
+            const int i = e >> 7, n = e & 127;
+            const bool ok = i < len && n < a.N;
+            cp_async4(h + (n >> 5) * kBox64 + swz(i, n & 31),
+                      cr + (ok ? static_cast<size_t>(t0 + i) * a.N + n : 0), ok);
+          }
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncwarp();
+          if (plane == 0) mbar_arrive(bar(kFullH + s));
         }
       }
     }
-  }
-  for (int e = tid; e < NMAX * SX; e += kThreads) {
-    const int n = e / SX, q = e % SX;
-    const bool ok = h0r != nullptr && n < N && q < PT && p_base + q < P;
-    (&sm.h[0][0])[e] = ok ? h0r[static_cast<size_t>(n) * P + p_base + q] : 0.f;
-  }
-  load(0);
-
-  for (int it = 0; it < n_tiles; ++it) {
-    repro::cp_async_wait<0>();
-    __syncthreads();  // tile it has landed; h of the previous tile is in sm.h
-    if (it + 1 < n_tiles) load(it + 1);  // its stage was last read by tile it - 1
-    Stage& st = sm.st[it & 1];
-    const int t0 = it * T;
-    const int len = min(T, S - t0);
-    const float cum_last = st.cum[T - 1];  // positions past S add 0
-
-    // Phase 1: the output warps form inter C h from the state entering the
-    // tile (sm.h), the state warps the carry into their registers (sm.h
-    // receives it only after the barrier below).  Two k-steps share a
-    // fragment before it is added in fp32 (tf32x3.cuh).
-    float yacc[4][4] = {};
-    if (out_warp) {
-      const int kb = kh * (np / 2);
-      for (int k0 = kb; k0 < kb + np / 2; k0 += 16) {
-        float t2[4][4] = {};
+  } else if (wg == 1) {
+    // ---- h-free warpgroup: tile k's intra and s --------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int tf = threadIdx.x - 128, warp = tf >> 5, lane = tf & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = 16 * warp + g, r1 = r0 + 8;  // rows i of intra, n - 64 half of s
+    const int n_q = nt * ((a.n_items - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1);
+    for (int q = 0; q < n_q; ++q) {  // the block's tiles, item after item
+      const int s = q & 1;
+      uint8_t* f = base + s * kFStage;
+      const uint32_t fs = sbase + s * kFStage;
+      mbar_wait(bar(kFullF + s), (q >> 1) & 1);
+      __syncwarp();
+      // x -> x^T, split into TF32 hi (over x itself, once every thread has
+      // read its part) and lo: element (j, p) to row p, column j of the B
+      // operand.  Warp w takes the (p / 8, j / 4) blocks 16 w .. 16 w + 15; a
+      // block's 32 lanes cover 8 p and 4 j.
+      float xv[16];
 #pragma unroll
-        for (int kk = k0; kk < k0 + 16; kk += 8) {
-          const float av[4] = {st.c[i0 + gq][kk + tq], st.c[i0 + gq + 8][kk + tq],
-                               st.c[i0 + gq][kk + tq + 4], st.c[i0 + gq + 8][kk + tq + 4]};
-          uint32_t ah[4], al[4];
-          repro::split_a(av, ah, al);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            uint32_t bh_[2], bl_[2];
-            repro::split_b(sm.h[kk + tq][8 * q + gq], sm.h[kk + tq + 4][8 * q + gq], bh_, bl_);
-            repro::mma_3xtf32_into(t2[q], ah, al, bh_, bl_);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) yacc[q][e] += t2[q][e];
+      for (int rep = 0; rep < 16; ++rep) {
+        const int blk = 16 * warp + rep;
+        const int p = 8 * (blk & 3) + g, j = 4 * (blk >> 2) + t4;
+        xv[rep] = lds(f, kFX + swz(j, p));
       }
-      // Hand the other half-K warp the n8 tiles it finishes: kh = 0 keeps
-      // tiles 0, 1 and passes 2, 3; kh = 1 the other way round.
+      named_bar(1);
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)  // constant indices keep yacc in registers
-          sm.red[mt][kh][q][e][lane] = kh == 0 ? yacc[2 + q][e] : yacc[q][e];
-    } else {
-      for (int e = tid - kThreads / 2; e < T * PT; e += kThreads / 2) {
-        const int j = e / PT, q = e % PT;
+      for (int rep = 0; rep < 16; ++rep) {
+        const int blk = 16 * warp + rep;
+        const int p = 8 * (blk & 3) + g, j = 4 * (blk >> 2) + t4;
         uint32_t hi, lo;
-        repro::split_tf32(st.x[j][q], hi, lo);
-        st.x[j][q] = __uint_as_float(hi);
-        sm.xlo[j][q] = __uint_as_float(lo);
+        split_rn(xv[rep], hi, lo);
+        const uint32_t off = (j >> 5) * kBox32 + swz(p, j & 31);
+        sts(f, kFX + off, hi);
+        sts(base, kOffXlo + s * 2 * kBox32 + off, lo);
       }
-      asm volatile("bar.sync 1, %0;" ::"n"(kThreads / 2) : "memory");  // the state warps' x split
-      if (owns_state) {
-        const float chunk_decay = exp2_approx(cum_last);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      named_bar(1);
+      const float* cum = reinterpret_cast<const float*>(base + kOffCum + s * T * 4);
+      const float ci0 = cum[r0], ci1 = cum[r1], clast = cum[T - 1];
+      // cum at this thread's columns j = 8 kk + t4 and j + 4 of every k-step,
+      // read by both intra's decays and s's.
+      float cumj[8][2];
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+      for (int kk = 0; kk < 8; ++kk) {
+        cumj[kk][0] = cum[8 * kk + t4];
+        cumj[kk][1] = cum[8 * kk + t4 + 4];
+      }
+      // intra's A: (L o C B^T)[i][j] at rows r0, r1 and columns j0, j1 = j0 + 4
+      // of k-step kk0 + u, the upper triangle selected to 0.
+      auto build_intra = [&](Frag& fr, int kk0) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) hacc[q][e] *= chunk_decay;
-        for (int k0 = 0; k0 < T; k0 += 16) {
-          float t2[4][4] = {};
-#pragma unroll
-          for (int kk = k0; kk < k0 + 16; kk += 8) {
-            const float w0 = exp2_approx(cum_last - st.cum[kk + tq]);
-            const float w4 = exp2_approx(cum_last - st.cum[kk + tq + 4]);
-            const float av[4] = {st.b[kk + tq][n0 + gq] * w0, st.b[kk + tq][n0 + gq + 8] * w0,
-                                 st.b[kk + tq + 4][n0 + gq] * w4,
-                                 st.b[kk + tq + 4][n0 + gq + 8] * w4};
-            uint32_t ah[4], al[4];
-            repro::split_a(av, ah, al);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int col = 8 * q + gq;
-              const uint32_t bh_[2] = {__float_as_uint(st.x[kk + tq][col]),
-                                       __float_as_uint(st.x[kk + tq + 4][col])};
-              const uint32_t bl_[2] = {__float_as_uint(sm.xlo[kk + tq][col]),
-                                       __float_as_uint(sm.xlo[kk + tq + 4][col])};
-              repro::mma_3xtf32_into(t2[q], ah, al, bh_, bl_);
-            }
-          }
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) hacc[q][e] += t2[q][e];
+        for (int u = 0; u < 4; ++u) {
+          const int kk = kk0 + u, j0 = 8 * kk + t4, j1 = j0 + 4;
+          const uint32_t o0 = kFL + (j0 >> 5) * kBox64, o1 = kFL + (j1 >> 5) * kBox64;
+          const float w[4] = {
+              j0 <= r0 ? exp2_approx(ci0 - cumj[kk][0]) * lds(f, o0 + swz(r0, j0 & 31)) : 0.f,
+              j0 <= r1 ? exp2_approx(ci1 - cumj[kk][0]) * lds(f, o0 + swz(r1, j0 & 31)) : 0.f,
+              j1 <= r0 ? exp2_approx(ci0 - cumj[kk][1]) * lds(f, o1 + swz(r0, j1 & 31)) : 0.f,
+              j1 <= r1 ? exp2_approx(ci1 - cumj[kk][1]) * lds(f, o1 + swz(r1, j1 & 31)) : 0.f};
+          split4(w, fr.hi[u], fr.lo[u]);
         }
+      };
+      // The decays to the tile's end, w_j = 2^(cum_last - cum_j), shared by
+      // both halves of s.
+      float wd[8][2];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wd[kk][0] = exp2_approx(clast - cumj[kk][0]);
+        wd[kk][1] = exp2_approx(clast - cumj[kk][1]);
       }
+      // s's A: (B o w)^T[n][j] at rows n0, n1 = n0 + 8 of half h2.
+      auto build_state = [&](Frag& fr, int h2, int kk0) {
+        const int n0 = 64 * h2 + r0, n1 = n0 + 8;
+        const uint32_t o0 = kFB + (n0 >> 5) * kBox64, o1 = kFB + (n1 >> 5) * kBox64;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int kk = kk0 + u, j0 = 8 * kk + t4, j1 = j0 + 4;
+          const float w[4] = {lds(f, o0 + swz(j0, n0 & 31)) * wd[kk][0],
+                              lds(f, o1 + swz(j0, n1 & 31)) * wd[kk][0],
+                              lds(f, o0 + swz(j1, n0 & 31)) * wd[kk][1],
+                              lds(f, o1 + swz(j1, n1 & 31)) * wd[kk][1]};
+          split4(w, fr.hi[u], fr.lo[u]);
+        }
+      };
+      const uint32_t xhi = fs + kFX, xlo = sbase + kOffXlo + s * 2 * kBox32;
+      float acc_i[16], acc_s0[16], acc_s1[16];
+      Frag fa, fb;
+      build_intra(fa, 0);
+      wgmma_fence();
+      issue4(acc_i, fa, xhi, xlo, 0, true);
+      wgmma_commit();
+      build_intra(fb, 4);
+      wgmma_fence();
+      issue4(acc_i, fb, xhi, xlo, 4, false);
+      wgmma_commit();
+      wgmma_wait<1>();  // chunk 0 is done with fa
+      fence_frag(fa);
+      build_state(fa, 0, 0);
+      wgmma_fence();
+      issue4(acc_s0, fa, xhi, xlo, 0, true);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_frag(fb);
+      build_state(fb, 0, 4);
+      wgmma_fence();
+      issue4(acc_s0, fb, xhi, xlo, 4, false);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_frag(fa);
+      build_state(fa, 1, 0);
+      wgmma_fence();
+      issue4(acc_s1, fa, xhi, xlo, 0, true);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_frag(fb);
+      build_state(fb, 1, 4);
+      wgmma_fence();
+      issue4(acc_s1, fb, xhi, xlo, 4, false);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc_i);
+      fence_acc(acc_s0);
+      fence_acc(acc_s1);
+      fence_frag(fa);
+      fence_frag(fb);
+      // Hand-off in the accumulators' layout, thread-major: s over B's
+      // space, y_intra over the scores'.
+      named_bar(1);
+      float4* hs = reinterpret_cast<float4*>(f + kFB);
+      float4* hy = reinterpret_cast<float4*>(f + kFL);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        hs[k * 128 + tf] = make_float4(acc_s0[4 * k], acc_s0[4 * k + 1], acc_s0[4 * k + 2],
+                                       acc_s0[4 * k + 3]);
+        hs[(4 + k) * 128 + tf] = make_float4(acc_s1[4 * k], acc_s1[4 * k + 1],
+                                             acc_s1[4 * k + 2], acc_s1[4 * k + 3]);
+        hy[k * 128 + tf] = make_float4(acc_i[4 * k], acc_i[4 * k + 1], acc_i[4 * k + 2],
+                                       acc_i[4 * k + 3]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(kHandoff + s));
     }
-    __syncthreads();  // x split, inter halves in sm.red, every read of sm.h done
-
-    // Phase 2: y = exp(cum_i) C h + (L o C B^T) x by the output warps, n8
-    // tiles 2 kh and 2 kh + 1 each, the scores decayed as their fragments are
-    // read (j > i selected to 0); the new state into sm.h by the state warps.
-    if (out_warp) {
-      const float c0 = st.cum[i0 + gq], c8 = st.cum[i0 + gq + 8];
-      const float d0 = exp2_approx(c0), d8 = exp2_approx(c8);
-      float ya[2][4];
+  } else {
+    // ---- h-bound warpgroup: tile k's inter, y and the carry --------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = 16 * warp + g, r1 = r0 + 8;
+    const uint32_t ht_hi = sbase + kOffHT, ht_lo = ht_hi + 4 * kBox32;
+    // h in two m64n32 accumulator layouts: h[h2][4 jj + 2 hh + e] is row
+    // n = 64 h2 + r0 + 8 hh, column p = 8 jj + 2 t4 + e.
+    float h[2][16];
+    auto write_ht = [&]() {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float* other = &sm.red[mt][1 - kh][q][0][lane];
-        ya[q][0] = (kh == 0 ? yacc[q][0] + other[0] : other[0] + yacc[2 + q][0]) * d0;
-        ya[q][1] = (kh == 0 ? yacc[q][1] + other[32] : other[32] + yacc[2 + q][1]) * d0;
-        ya[q][2] = (kh == 0 ? yacc[q][2] + other[64] : other[64] + yacc[2 + q][2]) * d8;
-        ya[q][3] = (kh == 0 ? yacc[q][3] + other[96] : other[96] + yacc[2 + q][3]) * d8;
-      }
-      const int r0 = i0 + gq, r8 = r0 + 8;
-      for (int k0 = 0; k0 < i0 + 16; k0 += 16) {  // column blocks past the diagonal are 0
-        float t2[2][4] = {};
+      for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
-        for (int kk = k0; kk < k0 + 16; kk += 8) {
-          const int j0 = kk + tq, j4 = j0 + 4;
-          const float e0 = st.cum[j0], e4 = st.cum[j4];
-          const float av[4] = {j0 <= r0 ? exp2_approx(c0 - e0) * st.l[r0][j0] : 0.f,
-                               j0 <= r8 ? exp2_approx(c8 - e0) * st.l[r8][j0] : 0.f,
-                               j4 <= r0 ? exp2_approx(c0 - e4) * st.l[r0][j4] : 0.f,
-                               j4 <= r8 ? exp2_approx(c8 - e4) * st.l[r8][j4] : 0.f};
-          uint32_t ah[4], al[4];
-          repro::split_a(av, ah, al);
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const int col = 8 * (2 * kh + q) + gq;
-            const uint32_t bh_[2] = {__float_as_uint(st.x[kk + tq][col]),
-                                     __float_as_uint(st.x[kk + tq + 4][col])};
-            const uint32_t bl_[2] = {__float_as_uint(sm.xlo[kk + tq][col]),
-                                     __float_as_uint(sm.xlo[kk + tq + 4][col])};
-            repro::mma_3xtf32_into(t2[q], ah, al, bh_, bl_);
-          }
+        for (int r = 0; r < 16; ++r) {
+          const int n = 64 * h2 + r0 + 8 * ((r >> 1) & 1), p = 8 * (r >> 2) + 2 * t4 + (r & 1);
+          uint32_t hi, lo;
+          split_rn(h[h2][r], hi, lo);
+          const uint32_t off = (n >> 5) * kBox32 + swz(p, n & 31);
+          sts(base, kOffHT + off, hi);
+          sts(base, kOffHT + 4 * kBox32 + off, lo);
         }
+    };
+    Frag fa, fb;
+    int q = 0;
+    for (int idx = blockIdx.x; idx < a.n_items; idx += gridDim.x) {
+      const Item it = item(idx);
+      const int bh = it.bh, p_base = it.p_base;
+      // The state entering tile 0: h0's rows [0, N) and this block's columns,
+      // zero elsewhere; the previous item's last inter is done with h^T.
+      const float* h0r = a.h0 == nullptr ? nullptr : a.h0 + static_cast<size_t>(bh) * a.N * a.P;
 #pragma unroll
-        for (int q = 0; q < 2; ++q)
+      for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) ya[q][e] += t2[q][e];
-      }
-      // Each store instruction writes whole 32-byte sectors: 8 rows x 4 lanes
-      // x 8 bytes (float2 where P is even, which vec4 promises).
+        for (int r = 0; r < 16; ++r) {
+          const int n = 64 * h2 + r0 + 8 * ((r >> 1) & 1);
+          const int p = p_base + 8 * (r >> 2) + 2 * t4 + (r & 1);
+          h[h2][r] = h0r != nullptr && n < a.N && p < a.P ? h0r[static_cast<size_t>(n) * a.P + p]
+                                                           : 0.f;
+        }
+      write_ht();
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      float* yr = a.y + static_cast<size_t>(bh) * a.S * a.P;
+      for (int t = 0; t < nt; ++t, ++q) {
+        const int s = q & 1;
+        const uint8_t* f = base + s * kFStage;
+        const uint8_t* hc = base + kOffH + s * kHStage;
+        mbar_wait(bar(kHandoff + s), (q >> 1) & 1);
+        __syncwarp();
+        const float4* hs = reinterpret_cast<const float4*>(f + kFB);
+        const float4* hy = reinterpret_cast<const float4*>(f + kFL);
+        const float* cum = reinterpret_cast<const float*>(base + kOffCum + s * T * 4);
+        const float ci0 = cum[r0], ci1 = cum[r1], clast = cum[T - 1];
+        // The carry into the registers as the hand-off is read; h^T in shared
+        // memory still holds the state entering the tile, which inter reads.
+        const float decay = exp2_approx(clast);
+        float yi[16];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int p = p_base + 8 * (2 * kh + q) + 2 * tq;
+        for (int k = 0; k < 4; ++k) {
+          const float4 v0 = hs[k * 128 + threadIdx.x], v1 = hs[(4 + k) * 128 + threadIdx.x];
+          const float4 v2 = hy[k * 128 + threadIdx.x];
+          const float s0[4] = {v0.x, v0.y, v0.z, v0.w}, s1[4] = {v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int i = i0 + gq + 8 * hf;
-          if (i < len) {
-            float* out = yr + static_cast<size_t>(t0 + i) * P + p;
-            if (vec4 && p < P) {
-              *reinterpret_cast<float2*>(out) = make_float2(ya[q][2 * hf], ya[q][2 * hf + 1]);
-            } else {
-              if (p < P) out[0] = ya[q][2 * hf];
-              if (p + 1 < P) out[1] = ya[q][2 * hf + 1];
+          for (int e = 0; e < 4; ++e) {
+            h[0][4 * k + e] = h[0][4 * k + e] * decay + s0[e];
+            h[1][4 * k + e] = h[1][4 * k + e] * decay + s1[e];
+          }
+          yi[4 * k] = v2.x, yi[4 * k + 1] = v2.y, yi[4 * k + 2] = v2.z, yi[4 * k + 3] = v2.w;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar(kEmptyF + s));
+        mbar_wait(bar(kFullH + s), (q >> 1) & 1);
+        __syncwarp();
+        named_bar(2);  // every warp's h^T of the state entering the tile is written
+        // inter: C h over K = N, four k-steps (one box of C) a chunk.
+        auto build_c = [&](Frag& fr, int cbx) {
+          const uint32_t o = cbx * kBox64;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int n0 = 8 * u + t4, n1 = n0 + 4;
+            const float v[4] = {lds(hc, o + swz(r0, n0)), lds(hc, o + swz(r1, n0)),
+                                lds(hc, o + swz(r0, n1)), lds(hc, o + swz(r1, n1))};
+            split4(v, fr.hi[u], fr.lo[u]);
+          }
+          if (cbx == nbox - 1) {  // the last read of C
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar(kEmptyH + s));
+          }
+        };
+        float acc_y[16];
+        auto step = [&](Frag& fr, int cbx) {
+          if (cbx >= 2) {
+            wgmma_wait<1>();  // the chunk before last, which read fr, is done
+            fence_frag(fr);
+          }
+          build_c(fr, cbx);
+          wgmma_fence();
+          issue4(acc_y, fr, ht_hi, ht_lo, 4 * cbx, cbx == 0);
+          wgmma_commit();
+        };
+        for (int cbx = 0; cbx < nbox; ++cbx) {
+          if (cbx & 1)
+            step(fb, cbx);
+          else
+            step(fa, cbx);
+        }
+        wgmma_wait<0>();
+        fence_acc(acc_y);
+        fence_frag(fa);
+        fence_frag(fb);
+        write_ht();  // inter's reads of the old h^T are done
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        // y = exp(cum_i) C h + y_intra, rows past S not stored.  Each store
+        // writes whole 32-byte sectors (float2 where vec4 promises an even P).
+        const float d0 = exp2_approx(ci0), d1 = exp2_approx(ci1);
+        const int t0 = t * T, len = min(T, a.S - t0);
+        float* y0 = yr + static_cast<size_t>(t0 + r0) * a.P + p_base + 2 * t4;
+        float* y1 = y0 + static_cast<size_t>(8) * a.P;
+        if (a.use_tma && len == T && p_base + PT <= a.P) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int r = 4 * jj;
+            *reinterpret_cast<float2*>(y0 + 8 * jj) =
+                make_float2(acc_y[r] * d0 + yi[r], acc_y[r + 1] * d0 + yi[r + 1]);
+            *reinterpret_cast<float2*>(y1 + 8 * jj) =
+                make_float2(acc_y[r + 2] * d1 + yi[r + 2], acc_y[r + 3] * d1 + yi[r + 3]);
+          }
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int p = p_base + 8 * jj + 2 * t4;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = 4 * jj + 2 * hh;
+              if (r0 + 8 * hh >= len) continue;
+              const float dd = hh ? d1 : d0;
+              float* out = (hh ? y1 : y0) + 8 * jj;
+              if (p < a.P) out[0] = acc_y[r] * dd + yi[r];
+              if (p + 1 < a.P) out[1] = acc_y[r + 1] * dd + yi[r + 1];
             }
           }
         }
       }
-    } else if (owns_state) {
+      if (a.h_out != nullptr) {
+        float* hr = a.h_out + static_cast<size_t>(bh) * a.N * a.P;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = 8 * q + 2 * tq;
-        *reinterpret_cast<float2*>(&sm.h[n0 + gq][col]) = make_float2(hacc[q][0], hacc[q][1]);
-        *reinterpret_cast<float2*>(&sm.h[n0 + gq + 8][col]) = make_float2(hacc[q][2], hacc[q][3]);
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int r = 0; r < 16; ++r) {
+            const int n = 64 * h2 + r0 + 8 * ((r >> 1) & 1),
+                      p = p_base + 8 * (r >> 2) + 2 * t4 + (r & 1);
+            if (n < a.N && p < a.P) hr[static_cast<size_t>(n) * a.P + p] = h[h2][r];
+          }
       }
     }
   }
+}
 
-  if (h_out != nullptr && owns_state) {
-    float* hr = h_out + static_cast<size_t>(bh) * N * P;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int p = p_base + 8 * q + 2 * tq;
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int n = n0 + gq + 8 * hf;
-        if (n < N) {
-          if (p < P) hr[static_cast<size_t>(n) * P + p] = hacc[q][2 * hf];
-          if (p + 1 < P) hr[static_cast<size_t>(n) * P + p + 1] = hacc[q][2 * hf + 1];
-        }
-      }
-    }
+// A float32 (d2, d1, d0) tensor as a three-dimensional map (d0 innermost),
+// read in boxes of 32 x 64 x 1 with the 128-byte swizzle; reads past an
+// edge come back zero.
+bool encode(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 4, d0 * d1 * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(T), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The device's SMs, looked up once per device: the scan runs one
+// persistent block on each (or one per item, when there are fewer).
+cudaError_t multiprocessors(int* sms) {
+  static std::atomic<int> cached[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  int v = cached[dev].load(std::memory_order_relaxed);
+  if (v == 0) {
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cached[dev].store(v, std::memory_order_relaxed);
   }
+  *sms = v;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -485,40 +877,87 @@ long long repro_ssd_scan_scratch(int BH, int S, int G) {
   return tiles * T * (static_cast<long long>(G) * T + BH);
 }
 
+// The scan's geometry, for the wrapper's geometry(): positions a tile,
+// columns a block, threads a block, shared bytes a block, registers a thread
+// at launch (from the compiled kernel) and after setmaxnreg (consumers,
+// producer), blocks an SM (from the occupancy calculator), the first pass's
+// shared bytes.
+int repro_ssd_scan_geometry(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, ssd_scan_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static repro::SmemOptIn opt_in;
+  err = opt_in.need(ssd_scan_kernel, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ssd_scan_kernel, kThreads, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int values[9] = {T,    PT,     kThreads,      kSmem, attr.numRegs, kConsumerRegs,
+                         kProducerRegs, per_sm, kPrepSmem};
+  for (int i = 0; i < 9; ++i) out[i] = values[i];
+  return 0;
+}
+
 // Launches both kernels on `stream`; returns the launch's cudaError_t.  x, y
 // (BH, S, P), da (BH, S), b, c (BH / heads_per_group, S, N), h0 (the state
 // before position 0) and h_out (BH, N, P) or null, scratch as
 // repro_ssd_scan_scratch says; all contiguous float32; S >= 1.  vec4 != 0
-// promises N and P multiples of 4 and 16-byte aligned x, b, c.
+// promises N and P multiples of 4 and 16-byte aligned x, b, c: the scan's
+// loads are then TMA, else cp.async.
 int repro_ssd_scan(const void* x, const void* da, const void* b, const void* c, const void* h0,
                    void* y, void* h_out, void* scratch, int BH, int S, int P, int N,
                    int heads_per_group, int vec4, void* stream) {
-  if (BH < 1 || BH > 65535 || S < 1 || P < 1 || N < 1 || N > NMAX || heads_per_group < 1 ||
-      BH % heads_per_group)
+  // The first pass's grid takes the groups on its y dimension (at most
+  // 65535); the scan's is one-dimensional over the items.
+  if (BH < 1 || S < 1 || P < 1 || N < 1 || N > NMAX || heads_per_group < 1 ||
+      BH % heads_per_group || BH / heads_per_group > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (S + T - 1) / T;
   const int G = BH / heads_per_group;
-  const int np = (N + 31) / 32 * 32;  // two halves of whole k-step pairs
+  const int nbox = (N + 31) / 32;
   float* cb = static_cast<float*>(scratch);
   float* cum = cb + static_cast<size_t>(G) * n_tiles * T * T;
-  const int psmem = static_cast<int>(sizeof(PrepSmem));
   static repro::SmemOptIn prep_opt_in, scan_opt_in;
-  cudaError_t err = prep_opt_in.need(ssd_prep_kernel, psmem);
+  cudaError_t err = prep_opt_in.need(ssd_prep_kernel, kPrepSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_prep_kernel<<<dim3(n_tiles, G), kPrepThreads, psmem, st>>>(
+  ssd_prep_kernel<<<dim3(n_tiles, G, 2), kPrepThreads, kPrepSmem, st>>>(
       static_cast<const float*>(da), static_cast<const float*>(b), static_cast<const float*>(c),
-      cb, cum, S, N, np, heads_per_group, vec4);
+      cb, cum, S, N, nbox, heads_per_group, vec4);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = static_cast<int>(sizeof(Smem));
-  err = scan_opt_in.need(ssd_scan_kernel, smem);
+  CUtensorMap tm_x = {}, tm_b = {}, tm_c = {}, tm_cb = {};
+  if (vec4 && (!encode(&tm_x, x, P, S, BH) || !encode(&tm_b, b, N, S, G) ||
+               !encode(&tm_c, c, N, S, G) || !encode(&tm_cb, cb, T, n_tiles * T, G)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = scan_opt_in.need(ssd_scan_kernel, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_scan_kernel<<<dim3((P + PT - 1) / PT, BH), kThreads, smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(b), static_cast<const float*>(c),
-      cb, cum, static_cast<const float*>(h0), static_cast<float*>(y),
-      static_cast<float*>(h_out), S, P, N, np,
-      heads_per_group, n_tiles, vec4);
+  int sms = 0;
+  err = multiprocessors(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_pblk = (P + PT - 1) / PT;
+  const long long n_items = static_cast<long long>(n_pblk) * BH;
+  if (n_items > (1ll << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  const ScanArgs args = {static_cast<const float*>(x), static_cast<const float*>(b),
+                         static_cast<const float*>(c), cb, cum, static_cast<const float*>(h0),
+                         static_cast<float*>(y), static_cast<float*>(h_out), S, P, N,
+                         heads_per_group, n_tiles, nbox, vec4 ? 1 : 0, n_pblk,
+                         static_cast<int>(n_items)};
+  // A programmatic dependent launch: the scan's blocks set up (barriers,
+  // h0, h^T) while ssd_prep finishes, and its producer waits for ssd_prep
+  // (griddepcontrol.wait) before it loads anything.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_items < sms ? n_items : sms));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ssd_scan_kernel, tm_x, tm_b, tm_c, tm_cb, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // Shared device and host helpers of the Hopper kernels that run TMA and wgmma
-// (lora_matmul.cu, local_attention.cu): mbarriers, TMA tensor loads,
-// shared-memory matrix descriptors, the wgmma products, and libcuda's
+// (lora_matmul.cu, local_attention.cu, ssd_scan.cu): mbarriers, TMA tensor
+// and bulk loads, shared-memory matrix descriptors, the wgmma products (bf16,
+// and tf32 with A from registers), and libcuda's
 // cuTensorMapEncodeTiled, taken through the runtime so that no kernel
 // library links libcuda.
 #pragma once
@@ -62,6 +63,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -222,6 +234,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       "}\n"
       : REPRO_ACC128(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// wgmma m64n32k8, tf32 -> fp32: d (64 x 32, fp32) [+]= A (64 x 8) @ B
+// (8 x 32), A from registers (the m16n8k8 tf32 A fragments of each warp's 16
+// rows: {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]}, g = lane / 4,
+// t = lane % 4; a register holding an fp32 value is read as its TF32 part),
+// B from shared memory K-major (TF32 has no transpose bit); the accumulator
+// layout of the bf16 products above.  scale_d 0 ignores d's old value.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : REPRO_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 #undef REPRO_ACC8_

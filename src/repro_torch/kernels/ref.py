@@ -142,6 +142,53 @@ def ssd_scan_ref(x, da, b, c, chunk: int = 256, *, h0=None, return_state: bool =
     return (y, h) if return_state else y
 
 
+def ssd_split_ref(x, da, b, c, *, h0=None, return_state: bool = False, tile: int = 64):
+    """The same SSD core as ``ssd_scan_ref``, decomposed as the CUDA kernel
+    computes it (``csrc/ssd_scan.cu``), in tiles of ``tile`` positions.  The
+    half that does not read the state, for every tile at once: the raw
+    scores C B^T once per group, the decayed scores L o C B^T (the upper
+    triangle selected to 0, never multiplied by a mask), y_intra = (L o C
+    B^T) x and the tile's own state s = (B o w)^T x, w_j = exp(cum_last -
+    cum_j).  Then the serial half, tile by tile: y = exp(cum_i) C h +
+    y_intra from the state entering the tile, and the carry h <-
+    exp(cum_last) h + s.  Shapes, groups, dtypes and ``h0`` as
+    ``ssd_scan_ref``."""
+    bh, s, p = x.shape
+    g, n = b.shape[0], b.shape[-1]
+    rep = bh // g
+    nt = max(1, -(-s // tile))
+    pad = nt * tile - s
+    xf, daf, bf, cf = x.float(), da.float(), b.float(), c.float()
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, pad))
+        daf = torch.nn.functional.pad(daf, (0, pad))
+        bf = torch.nn.functional.pad(bf, (0, 0, 0, pad))
+        cf = torch.nn.functional.pad(cf, (0, 0, 0, pad))
+    xt = xf.reshape(g, rep, nt, tile, p)
+    cum = torch.cumsum(daf.reshape(g, rep, nt, tile), dim=-1)
+    bt = bf.reshape(g, nt, tile, n)
+    ct = cf.reshape(g, nt, tile, n)
+    # The h-free half.
+    scores = ct @ bt.mT  # (G, nt, T, T): once per group
+    tril = torch.ones((tile, tile), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(cum[..., :, None] - cum[..., None, :])
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    y_intra = torch.where(tril, decay * scores[:, None], zero) @ xt
+    w = torch.exp(cum[..., -1:] - cum)
+    s_tile = (bt[:, None] * w[..., None]).mT @ xt  # (G, rep, nt, N, P)
+    # The h-bound half.
+    h = (torch.zeros((g, rep, n, p), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float().reshape(g, rep, n, p))
+    tile_decay = torch.exp(cum[..., -1])
+    ys = []
+    for k in range(nt):
+        inter = ct[:, None, k] @ h
+        ys.append(torch.exp(cum[:, :, k])[..., None] * inter + y_intra[:, :, k])
+        h = tile_decay[:, :, k, None, None] * h + s_tile[:, :, k]
+    y = torch.stack(ys, dim=2).reshape(bh, nt * tile, p)[:, :s].to(x.dtype)
+    return (y, h.reshape(bh, n, p)) if return_state else y
+
+
 def ssd_chunked_ref(x, da, b, c, chunk: int, *, h0=None, return_state: bool = False):
     """The same SSD core as ``ssd_scan_ref`` in the chunked dual form (the
     reference's differentiable ``models/ssd.py::ssd_chunked``, in the

@@ -7,9 +7,14 @@ y_t = C_t h_t over (BH, S) rows, in the chunked dual form (intra-chunk
 (``csrc/ssd_scan.cu``) also writes the final state, which prefill hands to
 decode, and starts from a given state ``h0`` (the model's ``h_init``) when
 there is one.  A first pass writes each group's C B^T score tiles and the
-in-tile sums of da once; the scan runs its three products on the tensor
-cores in 3xTF32 (fp32-level accuracy, never a single TF32 pass) with h in
-the accumulator fragments; see the source note for its tiling.
+in-tile sums of da once; the scan runs its products as ``wgmma`` on the
+tensor cores in 3xTF32 (fp32-level accuracy, never a single TF32 pass): a
+producer warpgroup loads tiles by TMA (by cp.async where a row stride is
+not a multiple of 16 bytes), one consumer warpgroup runs the half of tile
+k + 1 that does not read the state while the other runs tile k's state
+carry, with h in its registers; one persistent block an SM walks the
+(row, 32 columns) items.  ``plan`` mirrors the geometry; see the source
+note for the design.
 
 Under autograd the wrapper runs through ``_SSDScanFn``: the forward is the
 kernel (the plain sequential scan on the CPU); the backward recomputes the
@@ -31,6 +36,46 @@ _I = ctypes.c_int
 MAX_STATE = 128
 #: Positions per tile (``csrc/ssd_scan.cu``).
 TILE = 64
+#: Columns of P a work item of the scan takes.
+COLS = 32
+#: Threads of a scan block: the h-bound, h-free and producer warpgroups.
+THREADS = 384
+#: A scan block's shared memory: two stages of the free ring (B, x, scores:
+#: 57344 bytes each, and each stage's x^T lo, 8192, and sums, 256), two of
+#: the bound ring (C, 32768 each), h^T hi and lo (32768), 10 mbarriers, and
+#: 1024 bytes of slack to align the swizzled boxes.
+SCAN_SMEM = 1024 + 2 * (57344 + 8192 + 256) + 2 * 32768 + 32768 + 8 * 10
+#: A block's shared memory on the H100 (227 KB), and its SMs.
+SMEM_LIMIT = 232448
+SMS = 132
+
+
+def plan(bh: int, s: int, p: int, n: int, groups: int, aligned: bool = True) -> dict:
+    """The kernel's geometry for one call, as ``csrc/ssd_scan.cu`` takes it:
+    the scan's work ``items`` (a row and 32 columns of P each), its
+    persistent ``grid`` of one block an SM (``blocks_per_sm``: its
+    ``smem_bytes`` leave no room for a second) that walks them round by
+    round, the rounds (``waves``) on the H100's 132 SMs and the share of
+    the SMs the last one fills (``last_wave_fill``), the first pass's
+    ``prep_grid`` (tiles, groups, 2 halves of a tile's key rows), ``tiles``,
+    the 32-wide ``boxes`` of N that the loads and inter visit, and the
+    loads' ``route``: ``"tma"`` when N and P are multiples of 4 and x, B and
+    C 16-byte ``aligned``, else ``"cp.async"``."""
+    tiles = -(-s // TILE)
+    items = -(-p // COLS) * bh
+    per_sm = SMEM_LIMIT // SCAN_SMEM
+    slots = per_sm * SMS
+    last = items - (-(-items // slots) - 1) * slots
+    return dict(items=items, grid=(min(items, slots),), threads=THREADS, smem_bytes=SCAN_SMEM,
+                blocks_per_sm=per_sm, waves=items / slots, last_wave_fill=last / slots,
+                prep_grid=(tiles, groups, 2), tiles=tiles, boxes=-(-n // 32),
+                route="tma" if _tma_loads(p, n, aligned) else "cp.async")
+
+
+def _tma_loads(p: int, n: int, aligned: bool) -> bool:
+    """TMA takes a tensor whose rows are a multiple of 16 bytes and whose
+    base is 16-byte aligned; the kernel's ``vec4``."""
+    return n % 4 == 0 and p % 4 == 0 and aligned
 
 
 def scratch_floats(bh: int, s: int, groups: int) -> int:
@@ -44,7 +89,22 @@ def _lib():
     lib = backend.load_library("ssd_scan")
     lib.repro_ssd_scan.argtypes = [_C] * 8 + [_I] * 6 + [_C]
     lib.repro_ssd_scan.restype = _I
+    lib.repro_ssd_scan_geometry.argtypes = [ctypes.POINTER(_I)]
+    lib.repro_ssd_scan_geometry.restype = _I
     return lib
+
+
+def geometry() -> dict:
+    """The built scan kernel's geometry, as the CUDA library reports it:
+    ``tile``, ``cols``, ``threads``, ``smem_bytes``, ``registers`` a thread
+    at launch (from the compiled kernel) and after setmaxnreg
+    (``consumer_registers``, ``producer_registers``), ``blocks_per_sm`` (the
+    occupancy calculator's) and the first pass's ``prep_smem_bytes``."""
+    out = (_I * 9)()
+    backend.check_launch(_lib().repro_ssd_scan_geometry(out), "ssd_scan geometry")
+    keys = ("tile", "cols", "threads", "smem_bytes", "registers", "consumer_registers",
+            "producer_registers", "blocks_per_sm", "prep_smem_bytes")
+    return dict(zip(keys, out))
 
 
 def _check(x, da, b, c, chunk, h0=None):
@@ -122,7 +182,8 @@ def _forward(x, da, b, c, chunk, return_state, h0=None):
         raise TypeError(f"ssd_scan takes float32 on CUDA, got {x.dtype}")
     if not all(t.is_contiguous() for t in (x, da, b, c, *(() if h0 is None else (h0,)))):
         raise ValueError("ssd_scan takes contiguous tensors on CUDA")
-    if n > MAX_STATE or bh > 65535 or x.numel() >= 2**31 or b.numel() >= 2**31:
+    # The first pass's grid takes the groups on its y dimension.
+    if n > MAX_STATE or b.shape[0] > 65535 or x.numel() >= 2**31 or b.numel() >= 2**31:
         raise ValueError(f"ssd_scan: (BH, S, P, N) = {(bh, s, p, n)} exceeds the kernel")
     y = torch.empty_like(x)
     empty = p == 0 or n == 0 or s == 0  # nothing to scan: y is zero or empty, h zero
@@ -138,7 +199,7 @@ def _forward(x, da, b, c, chunk, return_state, h0=None):
         return (y, h) if return_state else y
     scratch = torch.empty((scratch_floats(bh, s, b.shape[0]),), dtype=torch.float32,
                           device=x.device)
-    vec4 = n % 4 == 0 and p % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, b, c))
+    vec4 = _tma_loads(p, n, all(t.data_ptr() % 16 == 0 for t in (x, b, c)))
     with torch.cuda.device(x.device):
         err = _lib().repro_ssd_scan(
             x.data_ptr(), da.data_ptr(), b.data_ptr(), c.data_ptr(),

@@ -622,14 +622,18 @@ def test_quantize_kv_on_the_card_is_the_cpu_bits(cuda):
 # (batch, heads per group, S, P, N, decay): path D's prefill and smaller
 # cases; S across the tile edges; P across the 32-column blocks (40: a
 # ragged second block); N below the state's 16-row tiles (100) and at the
-# widest (128); one and 24 heads a group; odd P and N (4-byte copies).
+# widest (128); one and 24 heads a group, and 80 and 130 (one group across a
+# batch: the first pass sums da 64 heads a pass); odd P and N (4-byte
+# copies); path I2's training scan (8 clients x 2 sequences of 256, 24
+# heads).
 SSD_SHAPES = [
     (8, 24, 512, 64, 128, 1.0), (8, 24, 300, 64, 128, 1e-3), (2, 3, 70, 40, 100, 1e-3),
     (2, 4, 33, 16, 32, 0.5), (1, 2, 0, 16, 32, 0.5),
     (2, 3, 1, 64, 128, 0.5), (2, 3, 63, 64, 128, 0.5), (2, 3, 64, 64, 128, 0.5),
     (2, 3, 65, 64, 128, 0.5), (2, 3, 512, 64, 128, 0.5), (2, 3, 130, 16, 128, 0.5),
     (2, 3, 130, 40, 128, 0.5), (2, 3, 130, 64, 32, 0.5), (2, 3, 130, 64, 100, 0.5),
-    (4, 1, 200, 64, 128, 0.5), (2, 24, 200, 64, 128, 0.5), (1, 2, 70, 7, 33, 0.5)]
+    (4, 1, 200, 64, 128, 0.5), (2, 24, 200, 64, 128, 0.5), (1, 2, 70, 7, 33, 0.5),
+    (16, 24, 256, 64, 128, 0.5), (1, 80, 130, 64, 128, 0.5), (2, 130, 65, 16, 32, 0.5)]
 
 
 @pytest.mark.gpu
@@ -654,10 +658,11 @@ def test_ssd_scan_kernel_matches_plain(cuda, bsz, heads, s, p, n, decay):
 
 
 # ssd_scan from a given state h0 (the model's h_init): path D's prefill
-# shape, the ragged S = 300, ragged P and N, and an empty scan (the state
-# comes back as h0); the same 1e-4 bound.
+# shape, the ragged S = 300, ragged P and N, an empty scan (the state
+# comes back as h0) and 80 heads a group; the same 1e-4 bound.
 SSD_H0_SHAPES = [(8, 24, 512, 64, 128, 1.0), (8, 24, 300, 64, 128, 1e-3),
-                 (2, 3, 70, 40, 100, 0.5), (1, 2, 70, 7, 33, 0.5), (1, 2, 0, 16, 32, 0.5)]
+                 (2, 3, 70, 40, 100, 0.5), (1, 2, 70, 7, 33, 0.5), (1, 2, 0, 16, 32, 0.5),
+                 (1, 80, 130, 64, 128, 0.5)]
 
 
 @pytest.mark.gpu
