@@ -41,7 +41,13 @@ Phases (any failed check raises and the script exits non-zero):
      -> 1024, 1024 -> 1024 and 1024 -> 512), each at prefill (M = 4096) and
      decode (M = 8, K split), and at those of paths N and O (``LORA_NO``:
      (M, K, N) = (3328, 1024, 1024), (12000, 1024, 1024), (4096, 1536,
-     1536), (4096, 1536, 256), and each at M = 8).  Each checked
+     1536), (4096, 1536, 256), and each at M = 8); every row on its own slot
+     (cycling through the 8) at (4096, 2048, 2048) and Mamba-2's out_proj
+     (``LORA_ALL_SLOTS``: each slot's rows the bits of ``lora_matmul`` with
+     that adapter); the built LoRA kernels' geometry (``lora_matmul.geometry``:
+     384 threads, the setmaxnreg split, no spills) and every call's launched
+     grid held to ``lora_matmul.plan``; device ms split into the x @ A pass
+     (beside its byte bound) and the GEMM.  Each checked
      shape prints its route (``lora_matmul.route``,
      ``local_attention.route``: bf16 on the tensor cores, float32 and the
      ragged bf16 LoRA shape on fp32 FMA) and its tensor-route launches must
@@ -691,15 +697,87 @@ def request_slots(m: int, n_requests: int, slots):
     return torch.as_tensor(slots, dtype=torch.int32)[req].cuda()
 
 
-def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
-    """Both LoRA kernels against their plain versions on a pool laid out as
-    the serving pool is ((n_slots, n_layers, K, R), used through a layer's
-    slice), bitwise repeatable, slot -1 equal to a zero adapter bit for bit,
-    one slot on every row equal to ``lora_matmul`` with that adapter."""
+# Shapes at which every row names its own slot, cycling through the 8 slots
+# (the x @ A pass then issues a product per slot in every 16-row group, and
+# the epilogue reads B from global memory for all but a warpgroup's first
+# row): StableLM's q / v on 128 x 256 tiles, Mamba-2's out_proj on 128 x 128.
+LORA_ALL_SLOTS = ("prefill", "mamba2 out_proj")
+
+
+def check_lora_plan() -> None:
+    """The built kernels' geometry and launch numbers against
+    ``lora_matmul.plan`` (which the CPU tests check): the prefill GEMM's
+    384 threads, setmaxnreg split, one block an SM, no spills; every
+    LORA_SHAPES call's splits, tile, grid and x @ A partition."""
+    import torch
+    from repro_torch.kernels import lora_matmul as lm
+
+    geo = lm.geometry()
+    want = dict(threads=lm.GEMM_THREADS, smem_bytes=lm.GEMM_SMEM, stages=lm.GEMM_STAGES[256],
+                consumer_registers=lm.CONSUMER_REGS, producer_registers=lm.PRODUCER_REGS,
+                blocks_per_sm=1, local_bytes=0, xa_local_bytes=0, xa_threads=256)
+    if {key: geo[key] for key in want} != want:
+        raise AssertionError(f"lora_matmul: the kernels' geometry {geo} is not the plan's {want}")
+    print(f"[kernels] lora_matmul geometry {geo}", flush=True)
+    for m, k, n, _, label in LORA_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            got = lm.launched_plan(m, n, k, lm.route(k, n, dtype))
+            p = lm.plan(m, n, k, dtype, clusters=got["max_clusters"] or lm.SMS // 2)
+            grid = (*p["grid"], 1, 1)[:3]
+            want = dict(splits=p["splits"], tile_m=p["tile"][0], tile_n=p["tile"][1],
+                        grid_x=grid[0], grid_y=grid[1], grid_z=grid[2], xa_rows=p["xa_rows"],
+                        xa_threads=p["xa_threads"], xa_kw=p["xa_kw"], xa_planes=p["xa_planes"],
+                        xa_blocks=p["xa_grid"][0], max_clusters=got["max_clusters"])
+            if got != want:
+                raise AssertionError(f"lora_matmul {label} {dtype}: launched {got}, planned {want}")
+    print(f"[kernels] lora_matmul plan == launched grid at {len(LORA_SHAPES)} shapes x 2 dtypes",
+          flush=True)
+
+
+def check_lora_all_slots(x, w, a, b, scale, k, tag) -> float:
+    """Every row on its own slot (row i on slot i % 8): bitwise repeat, the
+    plain version's bound, each slot's rows the bits of ``lora_matmul`` with
+    that adapter, and slot -1 (on slot 5's rows) a zero adapter's bits."""
     import torch
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import ref
 
+    m = x.shape[0]
+    slots = (torch.arange(m, device="cuda") % 8).to(torch.int32)
+    got = lm.gathered_lora_matmul(x, w, a, b, slots, scale)
+    if not torch.equal(got, lm.gathered_lora_matmul(x, w, a, b, slots, scale)):
+        raise AssertionError(f"gathered_lora_matmul all slots {tag}: two launches differ")
+    want = ref.gathered_lora_matmul_ref(x, w, a, b, slots, scale)
+    err = check_close(got, want, lora_tol(x.dtype, k, want), f"gathered all slots {tag}")
+    for s in range(8):
+        if not torch.equal(got[s::8], lm.lora_matmul(x, w, a[s], b[s], scale)[s::8]):
+            raise AssertionError(f"gathered all slots {tag}: slot {s}'s rows are not "
+                                 f"lora_matmul's bits")
+    a_z, b_z = a.clone(), b.clone()
+    a_z[5], b_z[5] = 0.0, 0.0
+    if not torch.equal(lm.gathered_lora_matmul(x, w, a, b, torch.where(slots == 5, -1, slots),
+                                               scale),
+                       lm.gathered_lora_matmul(x, w, a_z, b_z, slots, scale)):
+        raise AssertionError(f"gathered all slots {tag}: slot -1 != zero adapter")
+    print(f"[kernels] gathered_lora_matmul every row its own slot {tag}: err={err:.3g}, bitwise "
+          f"repeat, each slot's rows lora_matmul's bits, slot -1 == zero adapter", flush=True)
+    return err
+
+
+def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
+    """Both LoRA kernels against their plain versions on a pool laid out as
+    the serving pool is ((n_slots, n_layers, K, R), used through a layer's
+    slice), bitwise repeatable, slot -1 equal to a zero adapter bit for bit,
+    one slot on every row equal to ``lora_matmul`` with that adapter; at
+    ``LORA_ALL_SLOTS`` also every row on its own slot.  A prefill call on
+    the tensor route is timed by CUDA events (its GEMM is the x @ A pass's
+    programmatic dependent, so the kernels' profiler spans overlap), the
+    rest by the profiler's kernel sums."""
+    import torch
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ref
+
+    check_lora_plan()
     rec = {}
     for m, k, n, r, label in LORA_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -757,6 +835,10 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
                   flush=True)
             if dtype != torch.bfloat16 or label == "ragged":
                 continue
+            if label in LORA_ALL_SLOTS:
+                check_lora_all_slots(x, w, a, b, scale, k, tag)
+            dependent = lm.plan(m, n, k)["dependent"]
+            timer = (lambda f: queued_ms(f, 20)) if dependent else device_ms
             peak = tensor_flops if dtype == torch.bfloat16 else fp32_flops
             elt = x.element_size()
             n_ops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n
@@ -768,12 +850,13 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
                  base_bytes + 4 * len(TENANT_SLOTS) * (k * r + r * n) + 4 * m),
             ):
                 t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / peak * 1e3
-                ms, plain_ms, call_ms = device_ms(run), device_ms(plain), bench_ms(run)
+                ms, plain_ms, call_ms = timer(run), device_ms(plain), bench_ms(run)
                 out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=max(t_bytes, t_ops),
                            bound_by="bytes" if t_bytes >= t_ops else "operations",
                            library_ms=None, base_gemm_ms=floor_ms)
-                print(f"[kernels] {name} {tag}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                print(f"[kernels] {name} {tag}: kernel_ms={ms:.4f} "
+                      f"({'CUDA events' if dependent else 'profiler'}) plain_ms={plain_ms:.4f} "
                       f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}, "
                       f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB) library_ms=null "
                       f"cublas_x@W_ms={floor_ms:.4f} call_ms={call_ms:.4f}", flush=True)
@@ -781,10 +864,21 @@ def check_lora_kernels(bw, fp32_flops, tensor_flops) -> dict:
                     rec[name] = out
                 elif label in LORA_SLICE11 + LORA_SLICE12 and name == "gathered_lora_matmul":
                     rec[f"{name}_{label}"] = out
-            # Where a call's device time goes: x @ A, the base product with its
-            # epilogue, and the split-K finish.
-            print(f"[kernels] gathered_lora_matmul {tag}: device ms by kernel "
-                  f"{device_ms_by_kernel(rung)}", flush=True)
+            # Where a call's device time goes: x @ A (beside its bound, reading
+            # x once), the base product with its epilogue, and the split-K
+            # finish.  On the prefill route the GEMM's span starts under the
+            # pass and includes its wait for it.
+            split = device_ms_by_kernel(rung)
+            xa_ms = sum(v for key, v in split.items() if "lora_xa" in key)
+            rec_key = "gathered_lora_matmul" if label == "prefill" else f"gathered_lora_matmul_{label}"
+            if rec_key in rec:
+                rec[rec_key].update(xa_ms=xa_ms, xa_bound_ms=elt * m * k / bw * 1e3,
+                                    gemm_ms=sum(v for key, v in split.items()
+                                                if "lora_xa" not in key))
+            print(f"[kernels] gathered_lora_matmul {tag}: device ms by kernel {split} (x @ A "
+                  f"{xa_ms:.4f} ms against its bound {elt * m * k / bw * 1e3:.4f} ms, "
+                  f"{elt * m * k / 1e6:.1f} MB of x once{'; overlapping spans' if dependent else ''})",
+                  flush=True)
     return rec
 
 
@@ -4532,10 +4626,14 @@ def main() -> int:
             kernels[-1]["h0"] = {k: rec["ssd_scan_h0"][k] for k in (*timed, "ms_without_h0")}
             kernels[-1]["i2"] = {k: rec["ssd_scan_i2"][k] for k in timed}
         if name == "gathered_lora_matmul":
-            # At the q / v shapes of paths L, M, N and O, prefill and decode
+            # The x @ A pass and the GEMM apart (profiler spans; on the
+            # prefill route they overlap) beside the pass's byte bound; at
+            # the q / v shapes of paths L, M, N and O, prefill and decode
             # (LORA_LM, LORA_NO).
+            split = ("xa_ms", "xa_bound_ms", "gemm_ms")
+            kernels[-1].update({k: r[k] for k in split})
             for key in LORA_SLICE11 + LORA_SLICE12:
-                kernels[-1][key] = {k: rec[f"{name}_{key}"][k] for k in timed}
+                kernels[-1][key] = {k: rec[f"{name}_{key}"][k] for k in (*timed, *split)}
     print(f"[train fn] {smi} | forward (kernel) and backward (plain) per Function, with "
           f"path I's launches: " + json.dumps(
               {k: {**v, "launches_path_i": paths["I"][v["kernel"]]}

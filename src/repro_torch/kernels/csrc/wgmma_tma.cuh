@@ -1,5 +1,6 @@
 // Shared device and host helpers of the Hopper kernels that run TMA and wgmma
-// (lora_matmul.cu, local_attention.cu, ssd_scan.cu): mbarriers, TMA tensor
+// (lora_matmul.cu, local_attention.cu, ssd_scan.cu): mbarriers (also across
+// a cluster), TMA tensor (also multicast to a cluster)
 // and bulk loads, shared-memory matrix descriptors, the wgmma products (bf16,
 // and tf32 with A from registers), and libcuda's
 // cuTensorMapEncodeTiled, taken through the runtime so that no kernel
@@ -54,6 +55,39 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// One TMA box at (c0 innermost, c1) into the same shared-memory offset of
+// every CTA of the cluster named in `mask`, completing on the barrier at
+// offset `bar` in each.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map, int c0,
+                                                      int c1, uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives and waits.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Arrive on the barrier at shared offset `bar` of CTA `rank` of the cluster
+// (release at CTA scope: a cluster-scope release costs a GPU-wide fence).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(bar), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
 }
 
 // The same for a three-dimensional map, at (c0 innermost, c1, c2).
@@ -157,6 +191,31 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       "}, %64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : REPRO_ACC64(d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// d (64 x 256, fp32) = [d +] A (64 x 16) @ B (16 x 256), bf16 from shared memory
+// (descriptors da, db); TransB 1 reads B N-major.  scale_d 0 ignores d's old value.
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : REPRO_ACC128(d)
       : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
 }
 

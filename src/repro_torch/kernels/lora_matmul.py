@@ -6,10 +6,14 @@ adapters, one slot per row):
 
     y[m] = x[m] @ W + scale * (x[m] @ A[s_m]) @ B[s_m]
 
-Both wrappers launch the same kernels of ``csrc/lora_matmul.cu``: a block
-per few rows takes x @ A at the real rank and a tiled kernel computes x @ W
-with the correction in its epilogue (splitting K across blocks when the
-output has too few tiles to fill the card, as at decode).
+Both wrappers launch the same kernels of ``csrc/lora_matmul.cu``: a pass
+that takes x @ A at the real rank reading x once, then the base product
+x @ W with the correction in its epilogue.  At prefill (M > 64, bf16) the
+base product is a persistent ``wgmma`` GEMM of 128 x 256 (or 128 x 128)
+tiles launched as the pass's programmatic dependent; at decode it splits K
+across blocks, as does the fp32 FMA route when the output has too few
+tiles to fill the card.  ``plan`` mirrors the geometry of a call,
+``geometry`` reads the built kernels'.
 
 Under autograd (an input that requires a gradient, grad mode on) both
 wrappers run through ``_LoraFn``: the forward is the same kernel (the plain
@@ -39,6 +43,33 @@ _LL = ctypes.c_longlong
 MAX_RANK = 64
 _TYPES = (torch.float32, torch.bfloat16)
 
+#: The H100's SMs (the rules that pick a geometry count them) and the
+#: shared memory a block may take there.
+SMS = 132
+SMEM_LIMIT = 232448
+#: The prefill GEMM (``lora_gemm_wide``): two consumer warpgroups and a
+#: producer warpgroup, 128-row tiles, 16 row tiles a raster group, a 192 KB
+#: ring (x 128 x 64 and W 64 x BN bf16 a stage: 4 stages at 256-wide tiles,
+#: 6 at 128-wide ones); its shared memory is 1024 bytes of slack to align
+#: the ring to the swizzle atom, the ring, the epilogue's B rows (2
+#: warpgroups x 8 ranks x 256 columns, fp32 at most) and a full and an empty
+#: barrier for each of up to 6 stages.
+GEMM_THREADS = 384
+GEMM_STAGES = {256: 4, 128: 6}
+GEMM_BM = 128
+GROUP_M = 16
+GEMM_SMEM = 1024 + 4 * (GEMM_BM * 64 * 2 + 64 * 256 * 2) + 2 * 8 * 256 * 4 + 2 * 6 * 8
+#: Registers a thread of the prefill GEMM after setmaxnreg.
+CONSUMER_REGS, PRODUCER_REGS = 232, 40
+#: The decode GEMM (``lora_gemm_tc``): 64 x 128 tiles, one consumer
+#: warpgroup and a producer warp; the scalar route's 128 x 128 tiles.
+DECODE_TILE, DECODE_THREADS = (64, 128), 160
+SCALAR_TILE, SCALAR_THREADS = (128, 128), 256
+#: x @ A: warps of a block along K (each a 16-row group's run of k), and
+#: the static shared bytes of its staged A / partial sums by rank width.
+XA_WARPS_K = 4
+XA_SMEM = {8: 34816, 64: 32768}
+
 
 def _lib():
     lib = backend.load_library("lora_matmul")
@@ -46,10 +77,14 @@ def _lib():
         [_C] * 8 + [_I] * 5 + [_LL, _LL, ctypes.c_float, _I, _I, _I, _C]
     )
     lib.repro_lora_matmul.restype = _I
-    lib.repro_lora_rank_width.argtypes = [_I]
-    lib.repro_lora_rank_width.restype = _I
+    lib.repro_lora_scratch.argtypes = [_I] * 5 + [ctypes.POINTER(_LL)]
+    lib.repro_lora_scratch.restype = _I
     lib.repro_lora_splits.argtypes = [_I] * 4
     lib.repro_lora_splits.restype = _I
+    lib.repro_lora_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+    lib.repro_lora_plan.restype = _I
+    lib.repro_lora_geometry.argtypes = [ctypes.POINTER(_I)]
+    lib.repro_lora_geometry.restype = _I
     return lib
 
 
@@ -73,6 +108,136 @@ def k_splits(m: int, n: int, k: int, route_name: str) -> int:
     the card short of blocks (decode), the splits then added in order by a
     second kernel.  Builds the kernels on first use."""
     return _lib().repro_lora_splits(m, n, k, int(route_name == "tensor"))
+
+
+def _split_rule(m: int, n: int, k: int, tensor: bool) -> int:
+    """``csrc/lora_matmul.cu::route_splits``: the tensor route splits only at
+    decode (M <= 64); K is split where the 128 x 128 tiles leave the card
+    short of two blocks an SM, never below 16 K steps of 8 a split."""
+    if tensor and m > 64:
+        return 1
+    tiles = -(-m // 128) * -(-n // 128)
+    if tiles >= 2 * SMS:
+        return 1
+    return max(1, min(-(-2 * SMS // tiles), max(1, -(-k // 8) // 16)))
+
+
+def _xa_rule(m: int, k: int, gemm_split: bool) -> tuple[int, int, int]:
+    """``csrc/lora_matmul.cu::xa_geom``: (16-row groups a block, k a warp,
+    planes along K).  One plane unless the GEMM splits K; then up to 16
+    blocks share K, 4 warps each."""
+    steps = -(-k // 32)
+    if not gemm_split:
+        return (2 if m > 64 else 1), 32 * -(-steps // XA_WARPS_K), 1
+    most = min(16, -(-k // 128))
+    kw = 32 * -(-steps // (XA_WARPS_K * most))
+    return 1, kw, -(-k // (XA_WARPS_K * kw))
+
+
+def wide_bn(m: int, n: int, k: int) -> int:
+    """The prefill tile's width (``csrc/lora_matmul.cu::wide_bn``): 256
+    where 256-wide tiles fill a round of the 132 SMs, take no more rounds
+    than 128-wide ones (in rounds of 128 columns) and K >= 2048; else 128."""
+    tm = -(-m // GEMM_BM)
+    t256, t128 = tm * -(-n // 256), tm * -(-n // 128)
+    if t256 < SMS or k < 2048:
+        return 128
+    return 128 if -(-t128 // SMS) < 2 * -(-t256 // SMS) else 256
+
+
+def plan(m: int, n: int, k: int, dtype: torch.dtype = torch.bfloat16,
+         aligned: bool = True, clusters: int = SMS // 2) -> dict:
+    """The geometry of an (M, K) @ (K, N) call, as ``csrc/lora_matmul.cu``
+    launches it: the base product's ``route`` and ``kernel``, its K
+    ``splits`` (a ``lora_finish`` pass adds them when more than one), its
+    ``tile`` (rows, columns), ``grid`` and ``threads``; on the prefill
+    tensor route also the ring's ``stages``, ``smem_bytes``, the persistent
+    grid of ``clusters`` of two CTAs (at most the card's, ``clusters`` = 66
+    on an H100 whose every SM can pair; one block an SM), each cluster
+    walking ``pairs`` of row tiles of the ``tiles`` (row tiles, column
+    tiles) in the grouped raster (``group_m`` row tiles a group;
+    ``gemm_tiles`` lists a block's walk), the ``rounds`` of pairs over the
+    clusters and the last one's ``last_round_fill``; whether the GEMM is
+    launched as the x @ A pass's programmatic ``dependent``; and the x @ A
+    pass's ``xa_rows`` a block, ``xa_threads``, ``xa_kw`` (k a warp takes,
+    4 warps along K a block), ``xa_planes`` (blocks along K, added in order
+    by their reader) and ``xa_grid`` (blocks along M, planes)."""
+    name = route(k, n, dtype, aligned=aligned)
+    tensor = name == "tensor"
+    splits = _split_rule(m, n, k, tensor)
+    groups, kw, planes = _xa_rule(m, k, splits > 1)
+    rows = 16 * groups
+    out = dict(route=name, splits=splits, dependent=False, xa_rows=rows,
+               xa_threads=32 * XA_WARPS_K * groups, xa_kw=kw, xa_planes=planes,
+               xa_grid=(-(-m // rows), planes))
+    if tensor and m > 64:
+        bn = wide_bn(m, n, k)
+        tiles = (-(-m // GEMM_BM), -(-n // bn))
+        pairs = -(-tiles[0] // 2) * tiles[1]
+        used = min(pairs, clusters)
+        last = pairs - (-(-pairs // clusters) - 1) * clusters
+        out.update(kernel="lora_gemm_wide", tile=(GEMM_BM, bn), grid=(2 * used,),
+                   clusters=used, threads=GEMM_THREADS, stages=GEMM_STAGES[bn],
+                   smem_bytes=GEMM_SMEM, tiles=tiles, pairs=pairs, group_m=GROUP_M,
+                   rounds=pairs / clusters, last_round_fill=last / clusters, dependent=True)
+    else:
+        tile, threads = (DECODE_TILE, DECODE_THREADS) if tensor else (SCALAR_TILE,
+                                                                      SCALAR_THREADS)
+        out.update(kernel="lora_gemm_tc" if tensor else "lora_gemm", tile=tile, threads=threads,
+                   grid=(-(-n // tile[1]), -(-m // tile[0]), splits))
+    return out
+
+
+def gemm_tiles(p: dict, block: int) -> list[tuple[int, int]]:
+    """The (row tile, column tile) pairs that block ``block`` of a prefill
+    plan ``p`` computes, in order: rank ``block % 2`` of cluster ``block //
+    2``, which walks the tile pairs cluster + i * clusters of the grouped
+    raster (``csrc/lora_matmul.cu::pair_at``); a pair's second row tile
+    past M (an odd number of row tiles) is computed as zeros and not
+    stored, so it is left out."""
+    tiles_m, tiles_n = p["tiles"]
+    pair_rows, group = -(-tiles_m // 2), GROUP_M // 2
+    per_group = group * tiles_n
+    rank, cluster = block % 2, block // 2
+    walk = []
+    for t in range(cluster, pair_rows * tiles_n, p["clusters"]):
+        grp, r = divmod(t, per_group)
+        rows = min(pair_rows - grp * group, group)
+        tm = 2 * (grp * group + r % rows) + rank
+        if tm < tiles_m:
+            walk.append((tm, r // rows))
+    return walk
+
+
+def launched_plan(m: int, n: int, k: int, route_name: str) -> dict:
+    """What the built library launches for the call on the current card
+    (``repro_lora_plan``): the numbers ``plan`` predicts, for the card's
+    check of the plan."""
+    out = (_I * 12)()
+    backend.check_launch(_lib().repro_lora_plan(m, n, k, int(route_name == "tensor"), out),
+                         "lora_matmul plan")
+    keys = ("splits", "tile_m", "tile_n", "grid_x", "grid_y", "grid_z", "xa_rows", "xa_threads",
+            "xa_kw", "xa_planes", "xa_blocks", "max_clusters")
+    return dict(zip(keys, out))
+
+
+def geometry() -> dict:
+    """The built kernels' geometry, as the CUDA library reports it (the fp32
+    pool's instances, the serving pool's type): the prefill GEMM's
+    ``threads``, ``smem_bytes``, ``registers`` a thread at launch (the
+    256-wide tile; ``registers_n128``) and after setmaxnreg
+    (``consumer_registers``, ``producer_registers``), ``blocks_per_sm`` (the
+    occupancy calculator's) and ring ``stages`` (256-wide); the x @ A pass's
+    ``xa_threads`` at prefill, ``xa_smem_bytes`` (static), ``xa_registers``
+    and ``xa_blocks_per_sm`` (rank 8, bf16 x); the bytes a thread spills
+    (``local_bytes``: both GEMM widths together; ``xa_local_bytes``); and
+    the GEMM's ``clusters`` of two that fit the card at once."""
+    out = (_I * 15)()
+    backend.check_launch(_lib().repro_lora_geometry(out), "lora_matmul geometry")
+    keys = ("threads", "smem_bytes", "registers", "registers_n128", "consumer_registers",
+            "producer_registers", "blocks_per_sm", "stages", "xa_threads", "xa_smem_bytes",
+            "xa_registers", "xa_blocks_per_sm", "local_bytes", "xa_local_bytes", "clusters")
+    return dict(zip(keys, out))
 
 
 def _aligned(x, w, b) -> bool:
@@ -120,10 +285,11 @@ def _launch(x, w, a, b, row_slot, scale, name):
         return y, None
     tensor = route(k, n, x.dtype, aligned=_aligned(x, w, b)) == "tensor"
     lib = _lib()
-    xa = torch.empty((m, lib.repro_lora_rank_width(r)), dtype=torch.float32, device=x.device)
-    splits = lib.repro_lora_splits(m, n, k, int(tensor))
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
+    floats = (_LL * 2)()  # the x @ A planes, the split-K partial sums
+    backend.check_launch(lib.repro_lora_scratch(m, n, k, r, int(tensor), floats), name)
+    xa = torch.empty((floats[0],), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((floats[1],), dtype=torch.float32, device=x.device)
+               if floats[1] else None)
     with torch.cuda.device(x.device):
         err = lib.repro_lora_matmul(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),

@@ -432,6 +432,69 @@ def test_lora_kernels_match_plain(cuda, dtype, m, k, n, r):
         assert (tc1 - tc0, sc1 - sc0) == ((n_calls, 0) if tensor else (0, n_calls))
 
 
+# Every row on its own slot, cycling through the 8 slots: the x @ A pass
+# issues one product per slot in every 16-row group, and the epilogue reads
+# B from global memory for every row but the first of each warpgroup.  At
+# StableLM's q / v (128 x 256 tiles) and Mamba-2's out_proj (128 x 128).
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4096, 2048, 2048), (4096, 1536, 768)])
+def test_lora_every_row_its_own_slot(cuda, m, k, n):
+    from repro_torch.kernels import lora_matmul as lm
+
+    x, w, a, b = lora_case(cuda, m, k, n, 8, torch.bfloat16, seed=1)
+    slots = (torch.arange(m) % 8).to(torch.int32).to(cuda)
+    got = lm.gathered_lora_matmul(x, w, a, b, slots, 2.0)
+    assert torch.equal(got, lm.gathered_lora_matmul(x, w, a, b, slots, 2.0))
+    want = ref.gathered_lora_matmul_ref(x, w, a, b, slots, 2.0)
+    torch.testing.assert_close(got, want, atol=lora_tol(torch.bfloat16, k, want), rtol=0)
+    # A row's bits do not depend on its neighbours' slots: the rows of slot s
+    # are the bits of lora_matmul with adapter s.
+    for s in range(8):
+        one = lm.lora_matmul(x, w, a[s], b[s], 2.0)
+        assert torch.equal(got[s::8], one[s::8]), s
+    none = torch.where(slots == 5, -1, slots)
+    a_z, b_z = a.clone(), b.clone()
+    a_z[5], b_z[5] = 0.0, 0.0
+    assert torch.equal(lm.gathered_lora_matmul(x, w, a, b, none, 2.0),
+                       lm.gathered_lora_matmul(x, w, a_z, b_z, slots, 2.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,r", LORA_SHAPES)
+def test_lora_plan_is_what_the_library_launches(cuda, m, k, n, r):
+    """``lora_matmul.plan`` (checked on the CPU) against the numbers the
+    built library launches on this card."""
+    from repro_torch.kernels import lora_matmul as lm
+
+    for dtype in (torch.bfloat16, torch.float32):
+        got = lm.launched_plan(m, n, k, lm.route(k, n, dtype))
+        p = lm.plan(m, n, k, dtype, clusters=got["max_clusters"] or lm.SMS // 2)
+        grid = (*p["grid"], 1, 1)[:3]
+        assert got == dict(splits=p["splits"], tile_m=p["tile"][0], tile_n=p["tile"][1],
+                           grid_x=grid[0], grid_y=grid[1], grid_z=grid[2],
+                           xa_rows=p["xa_rows"], xa_threads=p["xa_threads"], xa_kw=p["xa_kw"],
+                           xa_planes=p["xa_planes"], xa_blocks=p["xa_grid"][0],
+                           max_clusters=got["max_clusters"]), (dtype, got, p)
+        assert lm.k_splits(m, n, k, p["route"]) == p["splits"]
+
+
+@pytest.mark.gpu
+def test_lora_geometry_is_the_plans(cuda):
+    """The built prefill GEMM: 384 threads, the setmaxnreg split, one block
+    an SM in the planned shared memory, no spills; the pass's shared memory."""
+    from repro_torch.kernels import lora_matmul as lm
+
+    geo = lm.geometry()
+    assert (geo["threads"], geo["smem_bytes"], geo["stages"]) == (
+        lm.GEMM_THREADS, lm.GEMM_SMEM, lm.GEMM_STAGES[256])
+    assert (geo["consumer_registers"], geo["producer_registers"]) == (
+        lm.CONSUMER_REGS, lm.PRODUCER_REGS)
+    assert geo["blocks_per_sm"] == 1 and geo["registers"] <= 168
+    assert geo["local_bytes"] == 0 and geo["xa_local_bytes"] == 0
+    assert geo["xa_threads"] == 256 and geo["xa_smem_bytes"] >= lm.XA_SMEM[8]
+    assert 60 <= geo["clusters"] <= lm.SMS // 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,s,d,window,causal", [

@@ -1,14 +1,17 @@
 """Device and host time per call of the port's kernels, for comparing
 source trees of the port on one card.
 
-    python3 tools/kernel_call_costs.py --src SRC [--reps N]
+    python3 tools/kernel_call_costs.py --src SRC [--reps N] [--only lora]
 
 imports ``repro_torch`` from SRC (this tree's ``src``, or the ``src`` of an
 older commit unpacked with ``git archive``), builds that tree's kernels, and
 prints one line per call at the main paths' shapes: ``gathered_lora_matmul``
 with bf16 activations and a float32 pool of 8 slots, 8 requests of 4
 tenants, at prefill (M = 4096) and decode (M = 8) of StableLM-2-1.6B's q / v
-and Mamba-2-130M's in_proj and out_proj; ``local_attention`` at (256,
+and Mamba-2-130M's in_proj and out_proj, and the q / v projections of
+paths L-O (Gemma-7B, Qwen1.5-32B, Llama-4-Maverick, DeepSeek-67B,
+Granite-MoE, Whisper-medium, Qwen2-VL-2B; ``--only lora`` stops there);
+``local_attention`` at (256,
 512, 64) bf16 causal; ``subspace_apply`` at path B's (48, 4096, 40) and
 (48, 4096, 32) with 20 live columns and path A's (2, 4096, 20) float32
 buckets (3072 live rows of 4096, as ViT-B/32's LoRA packs); and
@@ -23,6 +26,8 @@ buckets (3072 live rows of 4096, as ViT-B/32's LoRA packs); and
 - ``by_kernel``: device ms per call of each kernel, by function name (its
   template instances added together), from ``torch.profiler`` (empty when
   its trace comes back empty);
+- ``x_bound_us`` (LoRA lines): reading x once at 3.35 TB/s, the x @ A
+  pass's byte bound;
 - ``digest``: a SHA-256 prefix of the output's bits (every output of a
   call that returns several).
 
@@ -46,6 +51,16 @@ LORA_SHAPES = [(4096, 2048, 2048, "stablelm q/v prefill"),
                (8, 768, 3352, "mamba2 in_proj decode"),
                (4096, 1536, 768, "mamba2 out_proj prefill"),
                (8, 1536, 768, "mamba2 out_proj decode")]
+# Paths L-O (chip_smoke.py's LORA_LM and LORA_NO): prefill rows and K -> N,
+# each also at decode (M = 8).
+LORA_LM_NO = [(4096, 3072, 4096, "gemma q/v"), (4096, 5120, 5120, "qwen q/v"),
+              (4096, 5120, 1024, "llama4 v"), (4096, 8192, 8192, "deepseek q"),
+              (4096, 8192, 1024, "deepseek v"), (4096, 1024, 1024, "granite q"),
+              (4096, 1024, 512, "granite v"), (3328, 1024, 1024, "whisper q/v"),
+              (12000, 1024, 1024, "whisper cross v"), (4096, 1536, 1536, "qwen2vl q"),
+              (4096, 1536, 256, "qwen2vl v")]
+LORA_SHAPES += [(m_, k, n, f"{label} {'prefill' if m_ > 8 else 'decode'}")
+                for m, k, n, label in LORA_LM_NO for m_ in (m, 8)]
 RANK = 8
 TENANT_SLOTS = (1, 3, 4, 6)  # 4 tenants resident in a pool of 8 slots
 LOOPS = 5
@@ -92,7 +107,7 @@ def by_kernel(fn, reps: int) -> dict:
     return {k: round(v, 4) for k, v in ms.items()}
 
 
-def report(name: str, fn, reps: int) -> None:
+def report(name: str, fn, reps: int, extra: str = "") -> None:
     import torch
 
     out = fn()
@@ -106,7 +121,7 @@ def report(name: str, fn, reps: int) -> None:
     times = [loop_times(fn, reps) for _ in range(LOOPS)]
     dev_ms = statistics.median(t[0] for t in times)
     host_us = statistics.median(t[1] for t in times)
-    print(f"[calls] {name}: device_ms={dev_ms:.4f} host_us={host_us:.1f} "
+    print(f"[calls] {name}: device_ms={dev_ms:.4f} host_us={host_us:.1f}{extra} "
           f"by_kernel={by_kernel(fn, reps)} digest={digest}", flush=True)
 
 
@@ -114,6 +129,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", required=True, help="directory that holds repro_torch")
     ap.add_argument("--reps", type=int, default=100)
+    ap.add_argument("--only", choices=["lora"], help="time the LoRA calls alone")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     if not (src / "repro_torch").is_dir():
@@ -145,7 +161,10 @@ def main() -> int:
         rs = torch.as_tensor([TENANT_SLOTS[i % 4] for i in range(8)],
                              dtype=torch.int32)[req].cuda()
         report(f"gathered_lora_matmul {label} M={m} K={k} N={n} R={RANK}",
-               lambda: lm.gathered_lora_matmul(x, w, a, b, rs, 2.0), args.reps)
+               lambda: lm.gathered_lora_matmul(x, w, a, b, rs, 2.0), args.reps,
+               f" x_bound_us={2 * m * k / 3.35e6:.2f}")
+    if args.only == "lora":
+        return 0
     g = torch.Generator(device="cuda").manual_seed(0)
     q, kk, v = (torch.randn((256, 512, 64), generator=g, device="cuda").bfloat16()
                 for _ in range(3))
