@@ -1,0 +1,9 @@
+"""Mean host-clock seconds of the aggregation step and its apply a round
+in the window (``fed.pipeline.run_rounds``'s ``t_agg_s``, timers on), in
+ms."""
+from bench.harness.readers import mean
+
+
+def read(record):
+    m = mean(record["window"].get("t_agg_s", []))
+    return None if m is None else 1e3 * m

@@ -1,0 +1,7 @@
+"""Percent of the traced rounds in which no operation ran on the card
+(the profiler's device timeline)."""
+from bench.harness.readers import idle_share
+
+
+def read(record):
+    return idle_share(record)
