@@ -33,6 +33,7 @@ import torch
 from repro_torch.core import rpca as rpca_lib
 from repro_torch.core import stacking
 from repro_torch.kernels import backend
+from repro_torch.utils import trace
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_to, tree_unflatten
 
 Tree = Any
@@ -95,7 +96,9 @@ class AggregatorConfig:
 
 
 def _as_f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    """``x`` as float32 on ``device``; a copy from the host to a card counts
+    as a host sync (``sync.cohort``)."""
+    return trace.to_device(x, "cohort", device, torch.float32)
 
 
 def _client_weights(mask=None, weights=None, device="cpu"):

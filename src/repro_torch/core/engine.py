@@ -23,6 +23,11 @@ the packing and a two-tier layout per bucket, built once) and a step
 (``aggregate_planned``) that takes and returns an ``AggCarry`` of
 per-tier ``rpca.BucketCarry`` states; ``AggSession`` drives both and
 re-tiers on a cadence (``plan_retier``, ``migrate_carry``).
+
+While tracing (``utils.trace``), ``repro.agg.call`` spans a session step,
+with ``repro.engine.pack``, ``repro.engine.tier`` (one bucket tier's RPCA)
+and ``repro.engine.unpack`` inside it; the copies of host values to the card
+count as host syncs (``sync.pack_dims``, ``tier_index``, ``uplink_bytes``).
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from repro_torch.core.aggregators import (
     sparse_energy_ratio,
 )
 from repro_torch.kernels import backend
+from repro_torch.utils import trace
 from repro_torch.utils.pytree import tree_leaves, tree_to, tree_unflatten
 
 Tree = Any
@@ -101,6 +107,7 @@ class Bucket:
     weights: torch.Tensor | None = None  # (cohort_size,) float32, normalized
 
 
+@trace.traced("repro.engine.pack")
 def pack(
     stacked: Tree,
     *,
@@ -217,7 +224,7 @@ def pack(
             data = data * mask32.to(data.dtype)
         return Bucket(
             data=data,
-            true_dims=torch.tensor(dims_by_bucket[key], dtype=torch.int32, device=dev),
+            true_dims=trace.to_device(dims_by_bucket[key], "pack_dims", dev, torch.int32),
             dims=tuple(dims_by_bucket[key]),
             client_mask=mask32,
             weights=w32,
@@ -234,6 +241,7 @@ def pack(
     return buckets, spec
 
 
+@trace.traced("repro.engine.unpack")
 def unpack(spec: PackSpec, updates: Mapping[BucketKey, torch.Tensor]) -> Tree:
     """Invert ``pack``: per-bucket (total_modules, padded_vec) update arrays
     back to a tree shaped like one client's delta."""
@@ -378,12 +386,12 @@ def _fedrpca_bucket(
         dense_b = sketch_lib.dense_bytes_per_client(bucket.dims)
         sketch_b = sketch_lib.sketch_bytes_per_client(b_mod, r, kk)
         hit = use_sketch.to(torch.float32)
-        per_client = torch.where(use_sketch, torch.tensor(sketch_b, device=m.device),
-                                 torch.tensor(dense_b, device=m.device))
+        per_client = torch.where(use_sketch, trace.to_device(sketch_b, "uplink_bytes", m.device),
+                                 trace.to_device(dense_b, "uplink_bytes", m.device))
         uplink_diag = {
             "uplink_bytes_up": per_client * n_eff,
-            "uplink_bytes_down": torch.tensor(sketch_lib.basis_bytes(b_mod, d1, r),
-                                              dtype=torch.float32, device=m.device),
+            "uplink_bytes_down": trace.to_device(sketch_lib.basis_bytes(b_mod, d1, r),
+                                                 "uplink_bytes", m.device, torch.float32),
             "uplink_hit": hit,
         }
     if col_scaled:
@@ -677,7 +685,7 @@ def init_agg_carry(plan: AggPlan) -> AggCarry:
 
 def _sub_bucket(bucket: Bucket, idx: tuple) -> Bucket:
     """A tier's module rows of a bucket, gathered into new tensors."""
-    ia = torch.tensor(idx, dtype=torch.int64, device=bucket.data.device)
+    ia = trace.to_device(idx, "tier_index", bucket.data.device, torch.int64)
     return Bucket(
         data=bucket.data.index_select(0, ia),
         true_dims=bucket.true_dims.index_select(0, ia),
@@ -687,6 +695,7 @@ def _sub_bucket(bucket: Bucket, idx: tuple) -> Bucket:
     )
 
 
+@trace.traced("repro.agg.call")
 def aggregate_planned(
     plan: AggPlan,
     stacked: Tree,
@@ -719,7 +728,7 @@ def aggregate_planned(
         return out, new_carry
 
     dev = tree_leaves(stacked)[0].device
-    mask32 = None if mask is None else torch.as_tensor(mask, dtype=torch.float32, device=dev)
+    mask32 = None if mask is None else trace.to_device(mask, "cohort", dev, torch.float32)
     w = _client_weights(mask32, weights, dev)
     buckets, spec = pack(stacked, granularity=plan.granularity, joint_ab=plan.joint_ab,
                          client_mask=mask32, weights=w)
@@ -743,10 +752,11 @@ def aggregate_planned(
     up_bytes, down_bytes, up_hits = [], [], []
 
     def run_tier(sub, ck, cap):
-        upd, d, c2 = _fedrpca_bucket(
-            sub, cfg, shrink_fn, carry=carry.get(ck) if plan.carry else None, svt_rank=cap,
-            mesh=plan.mesh, uplink=plan.uplink, true_cols=plan.spec.n_clients,
-        )
+        with trace.span("repro.engine.tier"):
+            upd, d, c2 = _fedrpca_bucket(
+                sub, cfg, shrink_fn, carry=carry.get(ck) if plan.carry else None, svt_rank=cap,
+                mesh=plan.mesh, uplink=plan.uplink, true_cols=plan.spec.n_clients,
+            )
         if "uplink_bytes_up" in d:
             up_bytes.append(d["uplink_bytes_up"])
             down_bytes.append(d["uplink_bytes_down"])
@@ -773,7 +783,7 @@ def aggregate_planned(
                        for k in arrays if k not in client_keys}
             for name, idx, cap in tiers:
                 u_t, d_t, c2 = run_tier(_sub_bucket(bucket, idx), (bkey, name), cap)
-                ia = torch.tensor(idx, dtype=torch.int64, device=dev)
+                ia = trace.to_device(idx, "tier_index", dev, torch.int64)
                 upd[ia] = u_t.to(torch.float32)
                 for k in ("beta", "energy", "residual"):
                     per_mod[k][ia] = d_t[k]
@@ -824,10 +834,10 @@ def plan_retier(plan: AggPlan, carry: AggCarry, *, margin: int | None = None) ->
         ok = True
         for name, idx, _cap in tier.tiers():
             c = carry.get((bkey, name))
-            if c is None or not bool(c.valid):
+            if c is None or not trace.host_read(c.valid, "retier"):
                 ok = False
                 break
-            for mod, nl in zip(idx, c.n_live.cpu().tolist()):
+            for mod, nl in zip(idx, trace.host_read(c.n_live, "retier", torch.Tensor.tolist)):
                 n_live[mod] = int(nl)
         if not ok:
             new_tiers[bkey] = single

@@ -25,7 +25,13 @@ Python loops and ``if``s, so the subspace routing and the tolerance loop read
 a scalar from the device once per ADMM iteration.  Cross-round carries
 (``carry=`` / ``return_carry=``, a ``BucketCarry``) warm-start a call from the
 previous round's fixed point; their gate is computed on the device and read
-on the host once a call.
+on the host once a call.  Every such read goes through ``trace.host_read``
+(``sync.svt_route``, ``svt_sweeps``, ``svt_accept``, ``admm_tol``,
+``warm_gate``), and a card's ``eigh`` counts its own read of its info
+(``sync.eigh``).  While tracing, ``repro.rpca.admm`` spans a bucket loop,
+``repro.rpca.svt_exact`` / ``svt_ritz`` its SVTs and ``repro.rpca.apply`` its
+tails; ``rpca.exact.cold`` / ``saturated`` / ``rejected`` count why each
+exact step ran.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.launch.mesh import client_shard_count
+from repro_torch.utils import trace
 
 _EPS = 1e-12
 
@@ -49,7 +56,9 @@ def soft_threshold(x: torch.Tensor, t) -> torch.Tensor:
 
 def _eigh(a: torch.Tensor):
     """Ascending eigh of the symmetrized input, as ``jnp.linalg.eigh``
-    (whose ``symmetrize_input`` default takes (a + a^T) / 2 first)."""
+    (whose ``symmetrize_input`` default takes (a + a^T) / 2 first).  On a
+    card the call reads its info on the host once."""
+    trace.sync("eigh", a.device)
     return torch.linalg.eigh((a + a.mT) * 0.5)
 
 
@@ -176,6 +185,7 @@ def subspace_init(m: torch.Tensor, rank: int, true_cols: int | None = None) -> S
     )
 
 
+@trace.traced("repro.rpca.svt_exact")
 def _exact_projector(g, t, r, shrink_fn):
     """Full-eigh fallback: the exact SVT projector with all d2 directions,
     plus the top-r eigenbasis (top directions last) to reseed the state."""
@@ -214,6 +224,7 @@ def _orthonormalize(z: torch.Tensor) -> torch.Tensor:
     return _solve_chol_t(_jittered_cholesky(z.mT @ z), z)
 
 
+@trace.traced("repro.rpca.svt_ritz")
 def _ritz_projector(g, t, v, n_sweeps, shrink_fn):
     """``n_sweeps`` power sweeps (G V + CholeskyQR), then Rayleigh-Ritz on
     the r x r projection with the shrink applied to the Ritz values.
@@ -251,27 +262,34 @@ def svt_subspace_step(
     Same routing as the reference's nested ``lax.cond``s, as Python ``if``s:
     the exact eigh runs on the cold start, on pre-routed saturation (the
     previous live count filled the width r), or after a Ritz attempt whose
-    residual exceeded ``fallback_tol`` or whose live count saturated.  The
+    residual exceeded ``fallback_tol`` or whose live count saturated
+    (counted as ``rpca.exact.cold``, ``saturated``, ``rejected``).  The
     attempt takes one sweep when every previous residual was within a tenth
     of the tolerance, else ``sweeps``.
     """
     r = state.v.shape[-1]
     g = state.g
 
-    def exact():
+    def exact(why):
+        trace.count("rpca.exact." + why)
         return (*_exact_projector(g, t, r, shrink_fn), True)
 
     def attempt():
         n = max(sweeps, 1)
-        if sweeps > 1 and bool(torch.max(state.rel) <= 0.1 * fallback_tol):
+        if sweeps > 1 and trace.host_read(torch.max(state.rel) <= 0.1 * fallback_tol,
+                                          "svt_sweeps"):
             n = 1
         p, v2, live, rel = _ritz_projector(g, t, state.v, n, shrink_fn)
-        if bool(torch.any(rel > fallback_tol) | torch.any(live >= r)):
-            return exact()
+        if trace.host_read(torch.any(rel > fallback_tol) | torch.any(live >= r), "svt_accept"):
+            return exact("rejected")
         return p, v2, live, rel, False
 
-    pre_full = bool(cold) or bool(torch.any(state.n_live >= r))
-    p, v2, live2, rel2, fell = exact() if pre_full else attempt()
+    if bool(cold):
+        p, v2, live2, rel2, fell = exact("cold")
+    elif trace.host_read(torch.any(state.n_live >= r), "svt_route"):
+        p, v2, live2, rel2, fell = exact("saturated")
+    else:
+        p, v2, live2, rel2, fell = attempt()
     if fell:
         # An exact step leaves no residual signal; report half the
         # tolerance so the next attempt runs real tracking sweeps.
@@ -307,7 +325,7 @@ def svt_subspace(
         n_live=torch.zeros((1,), dtype=torch.int32, device=x.device),
         rel=torch.full((1,), 0.5 * fallback_tol, dtype=torch.float32, device=x.device),
     )
-    tb = torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(1)
+    tb = trace.to_device(t, "rpca_constants", x.device, torch.float32).reshape(1)
     p, state, fell = svt_subspace_step(
         tb, state, cold=cold, sweeps=sweeps, fallback_tol=fallback_tol, shrink_fn=shrink_fn,
     )
@@ -393,17 +411,17 @@ def _warm_gate(carry, init_sq, m_norm, n_eff, carry_gate) -> bool:
     init_err = torch.sqrt(init_sq) / m_norm
     warm = (carry.valid.to(dev) & (carry.n_eff.to(dev) == n_eff)
             & torch.all(init_err <= carry_gate))
-    return bool(warm)
+    return trace.host_read(warm, "warm_gate")
 
 
 def _new_carry(l, s, y, v, n_live, n_eff, falls: int, warm: bool) -> BucketCarry:
     dev = l.device
     return BucketCarry(
         l=l, s=s, y=y, v=v.contiguous(), n_live=n_live.to(torch.int32),
-        n_eff=torch.as_tensor(n_eff, dtype=torch.float32, device=dev).reshape(()),
+        n_eff=trace.to_device(n_eff, "carry_scalars", dev, torch.float32).reshape(()),
         valid=torch.ones((), dtype=torch.bool, device=dev),
-        fall_count=torch.tensor(falls, dtype=torch.int32, device=dev),
-        hit=torch.tensor(float(warm), dtype=torch.float32, device=dev),
+        fall_count=trace.to_device(falls, "carry_scalars", dev, torch.int32),
+        hit=trace.to_device(float(warm), "carry_scalars", dev, torch.float32),
     )
 
 
@@ -430,11 +448,11 @@ def _matrix_constants(m, mu, lam):
         torch.ones_like(abs_sum),
     )
     if mu is not None:
-        mu_v = torch.as_tensor(mu, dtype=torch.float32, device=m.device)
+        mu_v = trace.to_device(mu, "rpca_constants", m.device, torch.float32)
     if lam is None:
-        lam_v = 1.0 / torch.sqrt(torch.tensor(float(max(d1, d2)), device=m.device))
+        lam_v = 1.0 / torch.sqrt(trace.to_device(float(max(d1, d2)), "rpca_constants", m.device))
     else:
-        lam_v = torch.as_tensor(lam, dtype=torch.float32, device=m.device)
+        lam_v = trace.to_device(lam, "rpca_constants", m.device, torch.float32)
     return mu_v, lam_v, 1.0 / mu_v
 
 
@@ -488,16 +506,16 @@ def robust_pca(
     mu_v, lam_v, rho = _matrix_constants(m, mu, lam)
     m_norm = torch.clamp_min(torch.linalg.vector_norm(m), _EPS)
     l = s = y = torch.zeros_like(m)
-    err = torch.tensor(math.inf, device=m.device)
+    err = trace.to_device(math.inf, "rpca_constants", m.device)
     i = 0
-    while i < max_iter and bool(err > tol):
+    while i < max_iter and trace.host_read(err > tol, "admm_tol"):
         l = svt_fn(m - s + rho * y, rho, shrink_fn)
         s = shrink_fn(m - l + rho * y, rho * lam_v)
         resid = m - l - s
         y = y + mu_v * resid
         err = torch.linalg.vector_norm(resid) / m_norm
         i += 1
-    n_iter = torch.tensor(i, dtype=torch.int32, device=m.device)
+    n_iter = trace.to_device(i, "rpca_constants", m.device, torch.int32)
     return RPCAResult(l.to(orig_dtype), s.to(orig_dtype), n_iter, err)
 
 
@@ -536,7 +554,7 @@ def robust_pca_fixed_iters(
         s = shrink_fn(m - l + rho * y, rho * lam_v)
         y = y + mu_v * (m - l - s)
     err = torch.linalg.vector_norm(m - l - s) / m_norm
-    n_done = torch.tensor(n_iter, dtype=torch.int32, device=m.device)
+    n_done = trace.to_device(n_iter, "rpca_constants", m.device, torch.int32)
     return RPCAResult(l.to(orig_dtype), s.to(orig_dtype), n_done, err)
 
 
@@ -618,6 +636,7 @@ def robust_pca_bucket(
     )
 
 
+@trace.traced("repro.rpca.admm")
 def _bucket_admm(
     m, true_dims, *, n_iter, tol, mu, lam, shrink_fn, use_kernel, client_mask,
     svt_mode, svt_rank, svt_sweeps, svt_fallback_tol, true_cols,
@@ -667,7 +686,7 @@ def _bucket_admm(
             cl, cs, cy = cl * cmask, cs * cmask, cy * cmask
         init_res = m - cl - cs
         warm = _warm_gate(carry, torch.sum(init_res * init_res, dim=(1, 2)), m_norm,
-                          torch.as_tensor(n_eff, dtype=torch.float32, device=dev), carry_gate)
+                          trace.to_device(n_eff, "n_eff", dev, torch.float32), carry_gate)
 
     if use_kernel:
         if shrink_fn is not soft_threshold:
@@ -708,16 +727,17 @@ def _bucket_admm(
                 rho, sub, cold=it == 0 and not warm, sweeps=svt_sweeps,
                 fallback_tol=svt_fallback_tol, shrink_fn=shrink_fn,
             )
-            if use_kernel:
-                l, s2, y2, rsq, g2 = svt_subspace.subspace_apply(
-                    m, s, y, p.contiguous(), rho, mu_v, thresh, mask=cmask
-                )
-                rnorm = torch.sqrt(rsq)
-            else:
-                l = (m - s + rho3 * y) @ p
-                s2, y2, rnorm = tail(l, y)
-                x2 = m - s2 + rho3 * y2
-                g2 = x2.mT @ x2
+            with trace.span("repro.rpca.apply"):
+                if use_kernel:
+                    l, s2, y2, rsq, g2 = svt_subspace.subspace_apply(
+                        m, s, y, p.contiguous(), rho, mu_v, thresh, mask=cmask
+                    )
+                    rnorm = torch.sqrt(rsq)
+                else:
+                    l = (m - s + rho3 * y) @ p
+                    s2, y2, rnorm = tail(l, y)
+                    x2 = m - s2 + rho3 * y2
+                    g2 = x2.mT @ x2
             return l, s2, y2, rnorm / m_norm, sub._replace(g=g2), fell
 
         if warm:
@@ -740,8 +760,10 @@ def _bucket_admm(
     else:
 
         def step(l, s, y, sub, it):
-            l = svt_gram_batched(m - s + rho3 * y, rho, shrink_fn)
-            s, y, rnorm = tail(l, y)
+            with trace.span("repro.rpca.svt_exact"):
+                l = svt_gram_batched(m - s + rho3 * y, rho, shrink_fn)
+            with trace.span("repro.rpca.apply"):
+                s, y, rnorm = tail(l, y)
             return l, s, y, rnorm / m_norm, sub, False
 
         sub = None
@@ -761,7 +783,7 @@ def _bucket_admm(
     else:
         n_done = torch.zeros((b,), dtype=torch.int32, device=dev)
         i = 0
-        while i < n_iter and bool(torch.any(err > tol)):
+        while i < n_iter and trace.host_read(torch.any(err > tol), "admm_tol"):
             l2, s2, y2, err2, sub2, fell = step(l, s, y, sub, i)
             # Freeze converged modules by select, as vmap(while_loop) does.
             active = err > tol
@@ -900,6 +922,7 @@ def robust_pca_bucket_sharded(
     )
 
 
+@trace.traced("repro.rpca.admm")
 def _sharded_admm(
     m, true_dims, *, mesh, n_iter, tol, mu, lam, shrink_fn, client_mask, svt_mode,
     svt_rank, svt_sweeps, svt_fallback_tol, mesh_overlap, true_cols,
@@ -1030,6 +1053,7 @@ def _sharded_admm(
         l2, s2, y2, rsq = zip(*outs)
         return list(l2), list(s2), list(y2), torch.sqrt(psum_b(rsq)[0])
 
+    @trace.traced("repro.rpca.svt_exact")
     def exact_svt(x, t):
         """Exact SVT of the gathered X: each shard's L columns and top-r
         basis rows, the live count, a zero residual."""
@@ -1051,6 +1075,7 @@ def _sharded_admm(
         w = psum_b([xk @ vk for xk, vk in zip(x, v)])
         return w, [xk.mT @ wk for xk, wk in zip(x, w)]
 
+    @trace.traced("repro.rpca.svt_ritz")
     def ritz_factors(x, t, v, n_sweeps):
         """Power sweeps on the shards' rows, then Rayleigh-Ritz: (the shrink
         factor F per shard, Ritz basis rows, live count, live-direction
@@ -1082,21 +1107,28 @@ def _sharded_admm(
         """The reference's gates as Python ``if``s on replicated values:
         (("exact", L) or ("ritz", F, Vr), basis, live, residual, fell)."""
 
-        def exact():
+        def exact(why):
+            trace.count("rpca.exact." + why)
             l, v2, live, rel = exact_svt(x, rho)
             return ("exact", l), v2, live, rel, True
 
         def attempt():
             n = max(svt_sweeps, 1)
-            if svt_sweeps > 1 and bool(torch.max(rel_prev) <= 0.1 * svt_fallback_tol):
+            if svt_sweeps > 1 and trace.host_read(
+                    torch.max(rel_prev) <= 0.1 * svt_fallback_tol, "svt_sweeps"):
                 n = 1
             f, vr, live, rel = ritz_factors(x, rho, v, n)
-            if bool(torch.any(rel > svt_fallback_tol) | torch.any(live >= r)):
-                return exact()
+            if trace.host_read(torch.any(rel > svt_fallback_tol) | torch.any(live >= r),
+                               "svt_accept"):
+                return exact("rejected")
             return ("ritz", f, vr), vr, live, rel, False
 
-        pre_full = cold or bool(torch.any(n_live >= r))
-        svt, v2, live2, rel2, fell = exact() if pre_full else attempt()
+        if cold:
+            svt, v2, live2, rel2, fell = exact("cold")
+        elif trace.host_read(torch.any(n_live >= r), "svt_route"):
+            svt, v2, live2, rel2, fell = exact("saturated")
+        else:
+            svt, v2, live2, rel2, fell = attempt()
         if fell:
             rel2 = torch.full_like(rel2, 0.5 * svt_fallback_tol)
         return svt, v2, live2, rel2, fell
@@ -1105,15 +1137,17 @@ def _sharded_admm(
         x = [a - b_ + r3 * c for a, b_, r3, c in zip(mk, s, rho3, y)]
         if not use_subspace:
             l, *_ = exact_svt(x, rho)
-            s2, y2, rnorm = tail_exact(l, y)
+            with trace.span("repro.rpca.apply"):
+                s2, y2, rnorm = tail_exact(l, y)
             return l, s2, y2, rnorm / m_norm, sub, False
         v, n_live, rel = sub
         svt, v2, live2, rel2, fell = svt_step(x, v, n_live, rel, cold=it == 0 and not warm)
-        if svt[0] == "exact":
-            l = svt[1]
-            s2, y2, rnorm = tail_exact(l, y)
-        else:
-            l, s2, y2, rnorm = tail_ritz(svt[1], svt[2], y)
+        with trace.span("repro.rpca.apply"):
+            if svt[0] == "exact":
+                l = svt[1]
+                s2, y2, rnorm = tail_exact(l, y)
+            else:
+                l, s2, y2, rnorm = tail_ritz(svt[1], svt[2], y)
         return l, s2, y2, rnorm / m_norm, (v2, live2, rel2), fell
 
     sub = None
@@ -1127,7 +1161,8 @@ def _sharded_admm(
     elif use_subspace:
         eye = torch.eye(d2p, r, dtype=torch.float32)
         sub = (
-            [eye[c].to(dev).expand(b, d2_loc, r) for c, dev in zip(cols, devs)],
+            [trace.to_device(eye[c], "basis_init", dev).expand(b, d2_loc, r)
+             for c, dev in zip(cols, devs)],
             torch.full((b,), r, dtype=torch.int32, device=d0),
             torch.full((b,), math.inf, dtype=torch.float32, device=d0),
         )
@@ -1145,7 +1180,7 @@ def _sharded_admm(
     else:
         n_done = torch.zeros((b,), dtype=torch.int32, device=d0)
         i = 0
-        while i < n_iter and bool(torch.any(err > tol)):
+        while i < n_iter and trace.host_read(torch.any(err > tol), "admm_tol"):
             l2, s2, y2, err2, sub2, fell = step(l, s, y, sub, i)
             # Freeze converged modules by select, on every shard.
             active = err > tol

@@ -32,6 +32,13 @@ Landing is also where the fault supervisor lives: a non-finite aggregation
 output (``update_finite`` read on the host once) never reaches the global —
 it is retried once with a bitwise-cold carry, then degraded to plain masked
 FedAvg (``phases.fallback``), both with a warning.
+
+While tracing (``utils.trace``), ``repro.round`` spans a round, with
+``repro.round.local`` and ``repro.round.agg`` over the intervals that
+``t_local_s`` and ``t_agg_s`` time and ``repro.round.apply`` over a landing's
+``apply``; the host's reads (``sync.update_finite``, ``stale_residual``) and
+the waits on a stream (``sync.round_timer``, ``worker_wait``) count as host
+syncs.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.utils import trace
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 _RES_EPS = 1e-12
@@ -74,7 +82,7 @@ class AdaptiveStaleScale:
         res = diags.get("rpca_residual_max")
         if res is None:
             return
-        res = float(res)
+        res = trace.host_read(res, "stale_residual", float)
         if not (res == res and abs(res) != float("inf")):
             return  # a non-finite residual must not poison the EMA
         self.last = res
@@ -176,6 +184,7 @@ def _sync(tree) -> None:
     ``block_until_ready``); nothing on the CPU."""
     dev = _cuda_device(tree)
     if dev is not None:
+        trace.sync("round_timer", dev)
         torch.cuda.current_stream(dev).synchronize()
 
 
@@ -264,7 +273,7 @@ def run_rounds(
             out = entry.out
         upd, new_carry, diags = out
         finite = diags.get("update_finite")
-        if finite is not None and float(finite) == 0.0:
+        if finite is not None and trace.host_read(finite, "update_finite", float) == 0.0:
             extra = {}
             if cold_carry is not None:
                 warnings.warn(
@@ -274,7 +283,8 @@ def run_rounds(
                 upd, new_carry, diags = phases.agg(cold_carry(), entry.bundle, entry.scale)
                 extra["supervisor_retry"] = 1.0
                 finite = diags.get("update_finite")
-            if finite is not None and float(finite) == 0.0 and fallback is not None:
+            if (finite is not None and fallback is not None
+                    and trace.host_read(finite, "update_finite", float) == 0.0):
                 warnings.warn(
                     f"round {entry.round_idx}: aggregation still non-finite "
                     "after the cold-carry retry; degrading to masked FedAvg"
@@ -282,9 +292,10 @@ def run_rounds(
                 upd, new_carry, diags = fallback(entry.bundle, entry.scale)
             diags = {**diags, **extra}
             chain[0] = None
-        new_lora = apply_fn(state.lora_global, upd)
-        if timers:
-            _sync(new_lora)
+        with trace.span("repro.round.apply"):
+            new_lora = apply_fn(state.lora_global, upd)
+            if timers:
+                _sync(new_lora)
         now = time.perf_counter()
         t_agg = now - t0
         adaptive.observe(diags)
@@ -326,6 +337,7 @@ def run_rounds(
                 out = phases.agg(carry, bundle, round_scale)
                 done = torch.cuda.Event()
                 done.record(side)
+            trace.sync("worker_wait", dev)
             side.synchronize()  # materialize on the worker
             return out, done, dev
 
@@ -336,25 +348,27 @@ def run_rounds(
     state = phases.prep_state(state)
     try:
         for r in range(rounds):
-            tau = len(queue)
-            round_scale = adaptive.scale_for(tau) if scale is None else scale
-            t0 = time.perf_counter()
-            # The local phase reads the CURRENT buffer: with aggregations in
-            # flight, its lora_global is up to `staleness` updates behind.
-            state, bundle = phases.local(state, n_active)
-            if timers:
-                _sync(bundle.loss_mean)
-            t_local = time.perf_counter() - t0
-            oldest = queue.pop_ready()
-            if oldest is not None:
-                state = land(oldest, state)
-            t_dispatch = time.perf_counter()
-            out = dispatch(state, bundle, round_scale)
-            landed = queue.push(
-                _InFlight(r, bundle.loss_mean, out, bundle, round_scale, t_local, t_dispatch)
-            )
-            if landed is not None:
-                state = land(landed, state)
+            with trace.span("repro.round"):
+                tau = len(queue)
+                round_scale = adaptive.scale_for(tau) if scale is None else scale
+                t0 = time.perf_counter()
+                # The local phase reads the CURRENT buffer: with aggregations
+                # in flight, its lora_global is up to `staleness` updates behind.
+                with trace.span("repro.round.local"):
+                    state, bundle = phases.local(state, n_active)
+                    if timers:
+                        _sync(bundle.loss_mean)
+                t_local = time.perf_counter() - t0
+                oldest = queue.pop_ready()
+                if oldest is not None:
+                    state = land(oldest, state)
+                with trace.span("repro.round.agg"):
+                    t_dispatch = time.perf_counter()
+                    out = dispatch(state, bundle, round_scale)
+                    landed = queue.push(_InFlight(r, bundle.loss_mean, out, bundle, round_scale,
+                                                  t_local, t_dispatch))
+                    if landed is not None:
+                        state = land(landed, state)
         for entry in queue.drain():
             state = land(entry, state)
     finally:

@@ -14,7 +14,8 @@ computes them.
 Under autograd the wrapper runs through ``_AttentionFn``: the forward is the
 kernel (the plain version on the CPU); the backward recomputes the plain
 version from the saved q, k, v and differentiates it, as the reference has
-no backward kernel.
+no backward kernel; while tracing (``utils.trace``) it is the span
+``repro.attention.backward``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import backend, ref
+from repro_torch.utils import trace
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -132,7 +134,7 @@ class _AttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        with torch.enable_grad():
+        with trace.span("repro.attention.backward"), torch.enable_grad():
             ins = [t.detach().requires_grad_(need)
                    for t, need in zip(saved, ctx.needs_input_grad[:3])]
             out = ref.local_attention_ref(*ins, window=ctx.window, causal=ctx.causal)

@@ -26,6 +26,9 @@ tiles and the reference's ``segment_layout`` has no counterpart here (see
 the source note).  A pool is handed over with its slot stride: a layer's
 slice ``pool[:, layer]`` of a ``(n_slots, n_layers, K, R)`` pool is used in
 place.
+
+While tracing (``utils.trace``), ``repro.lora.forward`` spans a forward (the
+kernel, or the plain version) and ``repro.lora.backward`` a backward.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import backend, ref
+from repro_torch.utils import trace
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -321,6 +325,7 @@ def _check_shapes(x, w, a, b, name):
                          f"W {tuple(w.shape)}")
 
 
+@trace.traced("repro.lora.forward")
 def _lora_forward(x, w, a, b, row_slot, scale):
     """The kernel of ``lora_matmul`` (``row_slot`` None, a 2-D adapter) or of
     ``gathered_lora_matmul``; the plain version for CPU tensors."""
@@ -391,7 +396,8 @@ class _LoraFn(torch.autograd.Function):
     def backward(ctx, g):
         x, w, a, b, row_slot = ctx.saved_tensors
         need = (ctx.needs_input_grad[0], ctx.needs_input_grad[2], ctx.needs_input_grad[3])
-        dx, da, db = _lora_backward(g, x, w, a, b, row_slot, ctx.scale, need)
+        with trace.span("repro.lora.backward"):
+            dx, da, db = _lora_backward(g, x, w, a, b, row_slot, ctx.scale, need)
         return dx, None, da, db, None, None
 
 

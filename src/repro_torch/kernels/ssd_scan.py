@@ -19,7 +19,8 @@ note for the design.
 Under autograd the wrapper runs through ``_SSDScanFn``: the forward is the
 kernel (the plain sequential scan on the CPU); the backward recomputes the
 plain chunked form (``ref.ssd_chunked_ref``) from the saved inputs and
-differentiates it, as the reference has no backward kernel.
+differentiates it, as the reference has no backward kernel; while tracing
+(``utils.trace``) it is the span ``repro.ssd.backward``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import backend, ref
+from repro_torch.utils import trace
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -135,7 +137,7 @@ class _SSDScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gh=None):
         saved = ctx.saved_tensors
-        with torch.enable_grad():
+        with trace.span("repro.ssd.backward"), torch.enable_grad():
             ins = [None if t is None else t.detach().requires_grad_(need)
                    for t, need in zip(saved, ctx.needs_input_grad[:5])]
             outs = ref.ssd_chunked_ref(*ins[:4], ctx.chunk, h0=ins[4], return_state=True)

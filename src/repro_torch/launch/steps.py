@@ -31,6 +31,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.optim import adam, sgd
 from repro_torch.optim.optimizers import apply_updates
 from repro_torch.serve.pool import adapter_view
+from repro_torch.utils import trace
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
 Tree = Any
@@ -141,12 +142,14 @@ def make_local_step(
             if agg_key is None:
                 raise ValueError("clients_per_round > 0 requires an agg_key per round")
             mask = cohort_mask(agg_key, m, clients_per_round)
+        if isinstance(mask, torch.Tensor):
+            trace.sync("cohort", mask.device)  # the mask's copy to the host
         mask_cpu = None if mask is None else torch.as_tensor(mask, dtype=torch.float32).cpu()
         dev = batch["tokens"].device
         if mask_cpu is None:
             act = None
         else:
-            act = torch.nonzero(mask_cpu > 0).flatten().to(dev)
+            act = trace.to_device(torch.nonzero(mask_cpu > 0).flatten(), "cohort", dev)
             batch = {k: x.index_select(0, act) for k, x in batch.items()}
         n = batch["tokens"].shape[0]
         start = tree_map(lambda x: x.detach().unsqueeze(0).expand(n, *x.shape).clone(),
@@ -162,7 +165,7 @@ def make_local_step(
         if act is None:
             return deltas, torch.mean(loss), None
         full = tree_map(lambda d: d.new_zeros((m, *d.shape[1:])).index_copy_(0, act, d), deltas)
-        mask_dev = mask_cpu.to(dev)
+        mask_dev = trace.to_device(mask_cpu, "cohort", dev)
         losses = torch.zeros((m,), dtype=loss.dtype, device=dev).index_copy_(0, act, loss)
         loss_mean = torch.sum(mask_dev * losses) / torch.clamp_min(torch.sum(mask_dev), 1.0)
         return full, loss_mean, mask_dev
@@ -218,8 +221,7 @@ def make_agg_step(
         dev = tree_leaves(deltas)[0].device
         weights = None
         if use_weights:
-            weights = torch.as_tensor(np.asarray(client_weights), dtype=torch.float32,
-                                      device=dev)
+            weights = trace.to_device(np.asarray(client_weights), "cohort", dev, torch.float32)
         if carry_on:
             if "plan" not in plans:
                 plans["plan"] = engine_lib.plan_aggregation(deltas, agg_cfg, mesh=mesh,

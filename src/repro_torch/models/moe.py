@@ -20,6 +20,14 @@ dispatch is an indexed set and the combine a gather through that one-to-one
 map; the dropped entries all use one extra row, which is thrown away.  Their
 backward passes are a gather and a set, and a sum over k: no float atomics
 reach a kept row, and no ``index_add_``.
+
+While tracing (``utils.trace``), ``repro.moe.route``, ``.dispatch``,
+``.experts`` and ``.combine`` span the forward's four parts, and
+``repro.moe.dispatch.backward`` / ``.combine.backward`` the backward of the
+dispatch and of the combine (hooks on their bounding autograd nodes,
+registered only while tracing; they change no gradient).  The combine's
+backward is timed from its gather back, without the weighting and the sum
+over k.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers
+from repro_torch.utils import trace
 
 # While ``routing_log`` is active: one (top_e, top_p, probs) per apply_moe call.
 _LOG: Optional[list] = None
@@ -103,38 +112,48 @@ def apply_moe(params, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1
     t = b * s // groups
     xt = x.reshape(groups, t, d)
 
-    probs, top_e, top_p = route(params, xt, top_k)
-    if _LOG is not None:
-        _LOG.append((top_e.detach(), top_p.detach(), probs.detach()))
-    onehot = F.one_hot(top_e.reshape(groups, t * top_k), n_exp)  # (G, T k, E)
-    dispatch_frac = onehot.reshape(groups, t, top_k, n_exp).sum(dim=2).float().mean(dim=1)
-    aux = n_exp * torch.sum(dispatch_frac * probs.mean(dim=1), dim=-1)
+    with trace.span("repro.moe.route"):
+        probs, top_e, top_p = route(params, xt, top_k)
+        if _LOG is not None:
+            _LOG.append((top_e.detach(), top_p.detach(), probs.detach()))
+        onehot = F.one_hot(top_e.reshape(groups, t * top_k), n_exp)  # (G, T k, E)
+        dispatch_frac = onehot.reshape(groups, t, top_k, n_exp).sum(dim=2).float().mean(dim=1)
+        aux = n_exp * torch.sum(dispatch_frac * probs.mean(dim=1), dim=-1)
 
-    cap = _capacity(t, top_k, n_exp, capacity_factor)
-    flat_e = top_e.reshape(groups, t * top_k)
-    # Each entry's place in its expert's queue: the experts' running counts
-    # scanned along the entries, read at the entry's expert.  The scan runs
-    # with the entries innermost: along the outer axis of the (G, T k, E)
-    # one-hot it has only E columns to spread over the card.
-    counts = torch.cumsum(onehot.transpose(1, 2), dim=-1)  # (G, E, T k)
-    pos = torch.gather(counts, 1, flat_e[:, None]).squeeze(1) - 1  # (G, T k)
-    keep = pos < cap
-    slot = torch.where(keep, flat_e * cap + pos, n_exp * cap)  # buffer row, or the drop row
-    rows = (torch.arange(groups, device=x.device)[:, None], slot)
+    with trace.span("repro.moe.dispatch"):
+        cap = _capacity(t, top_k, n_exp, capacity_factor)
+        flat_e = top_e.reshape(groups, t * top_k)
+        # Each entry's place in its expert's queue: the experts' running
+        # counts scanned along the entries, read at the entry's expert.  The
+        # scan runs with the entries innermost: along the outer axis of the
+        # (G, T k, E) one-hot it has only E columns to spread over the card.
+        counts = torch.cumsum(onehot.transpose(1, 2), dim=-1)  # (G, E, T k)
+        pos = torch.gather(counts, 1, flat_e[:, None]).squeeze(1) - 1  # (G, T k)
+        keep = pos < cap
+        slot = torch.where(keep, flat_e * cap + pos, n_exp * cap)  # buffer row, or the drop row
+        rows = (torch.arange(groups, device=x.device)[:, None], slot)
 
-    entries = xt[:, :, None].expand(groups, t, top_k, d).reshape(groups, t * top_k, d)
-    expert_in = xt.new_zeros((groups, n_exp * cap + 1, d)).index_put(rows, entries)
-    expert_in = expert_in[:, :-1].reshape(groups, n_exp, cap, d).transpose(0, 1).reshape(
-        n_exp, groups * cap, d)
-    h = F.silu(torch.bmm(expert_in, params["gate"].to(x.dtype)))
-    h = h * torch.bmm(expert_in, params["up"].to(x.dtype))
-    expert_out = torch.bmm(h, params["down"].to(x.dtype))  # (E, G C, D)
-    flat_out = expert_out.reshape(n_exp, groups, cap, d).transpose(0, 1).reshape(
-        groups, n_exp * cap, d)
+        x_k = xt[:, :, None]
+        entries = x_k.expand(groups, t, top_k, d).reshape(groups, t * top_k, d)
+        expert_in = xt.new_zeros((groups, n_exp * cap + 1, d)).index_put(rows, entries)
+        expert_in = expert_in[:, :-1].reshape(groups, n_exp, cap, d).transpose(0, 1).reshape(
+            n_exp, groups * cap, d)
+        trace.backward_span("repro.moe.dispatch.backward", x_k, expert_in)
+    with trace.span("repro.moe.experts"):
+        h = F.silu(torch.bmm(expert_in, params["gate"].to(x.dtype)))
+        h = h * torch.bmm(expert_in, params["up"].to(x.dtype))
+        expert_out = torch.bmm(h, params["down"].to(x.dtype))  # (E, G C, D)
 
-    per_k = F.pad(flat_out, (0, 0, 0, 1))[rows]  # (G, T k, D), dropped rows zero
-    weights = top_p.reshape(groups, t * top_k).to(x.dtype)
-    out = (per_k * weights[..., None]).reshape(groups, t, top_k, d).sum(dim=2)
+    with trace.span("repro.moe.combine"):
+        by_group = expert_out.reshape(n_exp, groups, cap, d)
+        flat_out = by_group.transpose(0, 1).reshape(groups, n_exp * cap, d)
+        per_k = F.pad(flat_out, (0, 0, 0, 1))[rows]  # (G, T k, D), dropped rows zero
+        # The window of the combine's backward opens at the gather's node:
+        # the weighting's node, the first of the layer to read a saved
+        # tensor, also runs a checkpointed block's recomputed forward.
+        trace.backward_span("repro.moe.combine.backward", by_group, per_k)
+        weights = top_p.reshape(groups, t * top_k).to(x.dtype)
+        out = (per_k * weights[..., None]).reshape(groups, t, top_k, d).sum(dim=2)
     return out.reshape(b, s, d), aux
 
 

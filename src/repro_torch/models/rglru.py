@@ -17,7 +17,8 @@ gating, and an output projection.  LoRA attaches to ``proj_x`` ("q") and
   log-depth doubling passes in plain PyTorch: the reference evaluates it
   with ``lax.associative_scan``, an XLA primitive and not a Pallas kernel.
   Training differentiates it through ``_Scan``, whose backward is the
-  reverse scan in the same passes.
+  reverse scan in the same passes (while tracing, the span
+  ``repro.rglru.backward``).
 * Decode advances one token and writes the new state and conv window into
   the ``LRUState`` tensors in place, as the SSD mixer writes its state.
 """
@@ -32,6 +33,7 @@ from torch import nn
 from repro_torch.kernels import backend
 from repro_torch.models import layers
 from repro_torch.models.kvcache import LRUState
+from repro_torch.utils import trace
 
 _C = 8.0
 
@@ -132,11 +134,12 @@ class _Scan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gh):
         a, h = ctx.saved_tensors
-        a_next = torch.zeros_like(a)
-        a_next[:-1] = a[1:]
-        g = _doubling(a_next.flip(0), gh.flip(0)).flip(0)
-        da = torch.zeros_like(a)
-        torch.mul(g[1:], h[:-1], out=da[1:])
+        with trace.span("repro.rglru.backward"):
+            a_next = torch.zeros_like(a)
+            a_next[:-1] = a[1:]
+            g = _doubling(a_next.flip(0), gh.flip(0)).flip(0)
+            da = torch.zeros_like(a)
+            torch.mul(g[1:], h[:-1], out=da[1:])
         return da, g
 
 

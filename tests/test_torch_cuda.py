@@ -1043,3 +1043,122 @@ def test_apply_moe_gradient_is_deterministic_on_the_card(cuda):
     first, second = grads(), grads()
     for a, b in zip(first, second):
         assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Tracing (``utils.trace``) on the card
+# ---------------------------------------------------------------------------
+
+
+def _traced(fn):
+    """``fn()`` under a CPU and CUDA profiler, from a fresh trace: (its
+    result, the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.utils import trace
+
+    trace.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+@pytest.mark.gpu
+def test_host_syncs_equal_the_sync_debug_warnings_of_a_session_call(cuda):
+    """One cold and one warm FedRPCA session call (40 clients, subspace SVT,
+    a subspace carry) under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    warnings of each call equal the ``host_syncs`` the program counted."""
+    import warnings
+
+    from repro_torch.core import AggregatorConfig, aggregate_planned, engine
+    from repro_torch.utils import trace
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n = 40
+
+    def tree(scale):
+        out = {}
+        for t, (d_in, d_out) in (("q", (256, 256)), ("v", (256, 128))):
+            core = lambda d: torch.randn((d, 3), generator=gen, device=cuda)
+            mix = torch.randn((3, n), generator=gen, device=cuda) * scale
+            noise = lambda d: 0.3 * torch.randn((d, n), generator=gen, device=cuda)
+            out[t] = {"A": (core(2 * d_in * 8) @ mix + noise(2 * d_in * 8)).T.reshape(
+                          n, 2, d_in, 8).contiguous(),
+                      "B": (core(2 * 8 * d_out) @ mix + noise(2 * 8 * d_out)).T.reshape(
+                          n, 2, 8, d_out).contiguous()}
+        return out
+
+    cfg = AggregatorConfig(method="fedrpca", rpca_iters=20, svt_mode="subspace", svt_rank=8,
+                           svt_sweeps=2, carry_mode="subspace")
+    first = tree(1.0)
+    plan = engine.plan_aggregation(first, cfg)
+    carry = engine.init_agg_carry(plan)
+    for call, t in enumerate((first, tree(1.01))):
+        torch.cuda.synchronize()
+
+        def run():
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = aggregate_planned(plan, t, carry, with_diagnostics=True)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            return out, [w for w in got if "synchronizing CUDA operation" in str(w.message)]
+
+        ((_, carry, diag), warned), _ = _traced(run)
+        s = trace.summary()
+        assert s["calls"] == 1
+        assert len(warned) == s["counters"]["host_syncs"] > 0, (call, len(warned), s["counters"])
+        falls = sum(v for k, v in s["counters"].items() if k.startswith("rpca.exact."))
+        assert falls == int(diag.scalars["fallback_count"])
+
+
+@pytest.mark.gpu
+def test_span_device_ms_match_the_profilers_kernels(cuda):
+    """A span's device ms from its CUDA event pair is within 15% of the
+    profiler's device time of the kernels launched under its range: the
+    attention backward (the plain recompute under autograd) at StableLM's
+    heads, queued behind long products so the card never waits inside it."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels import local_attention as la
+    from repro_torch.utils import trace
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((64, 1024, 64), generator=gen, device=cuda).to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    big = torch.randn((8192, 8192), generator=gen, device=cuda).to(torch.bfloat16)
+
+    def run():
+        for _ in range(8):
+            big @ big
+        for _ in range(3):
+            out = la.local_attention(q, k, v)
+            torch.autograd.grad(out.float().sum(), [q, k, v])
+
+    run()  # the allocator's blocks, outside the trace
+    _, prof = _traced(run)
+    got = trace.summary()["spans"]["repro.attention.backward"]
+    assert got["calls"] == 3
+    events = list(prof.profiler.kineto_results.events())
+    on_card = {}
+    for e in events:
+        annotation = getattr(e, "is_user_annotation", lambda: False)()
+        if e.device_type() != DeviceType.CPU and not annotation:
+            on_card[e.correlation_id()] = on_card.get(e.correlation_id(), 0) + e.duration_ns()
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.start_thread_id())
+              for e in events
+              if e.name() == "repro.attention.backward" and e.device_type() == DeviceType.CPU]
+    assert len(ranges) == 3
+    kernel_ns = 0
+    for e in events:
+        if (e.device_type() == DeviceType.CPU and e.name().startswith("cu")
+                and e.correlation_id() in on_card):
+            if any(t == e.start_thread_id() and s0 <= e.start_ns() <= s1 for s0, s1, t in ranges):
+                kernel_ns += on_card[e.correlation_id()]
+    assert kernel_ns > 0
+    assert abs(got["device_ms"] - kernel_ns / 1e6) <= 0.15 * kernel_ns / 1e6, (
+        got["device_ms"], kernel_ns / 1e6)
